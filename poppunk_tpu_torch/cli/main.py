@@ -1,0 +1,235 @@
+"""poppunk_tpu_torch — main CLI: --create-db, --fit-model bgmm, --use-model.
+
+Counterpart of poppunk_tpu/cli/main.py (PopPUNK/__main__.py:245-791) with
+the same parser, flags and on-disk conventions. ``--gpu-dist`` puts the
+distance engine on ``cuda:<--deviceid>``, ``--gpu-model`` the BGMM fit and
+assignment; without them a stage runs on the CPU. ``--gpu-sketch`` and
+``--gpu-graph`` parse and the work stays on the host. Model types other
+than BGMM and ``--qc-db`` exit with a message until they are ported.
+"""
+
+import os
+import shutil
+import sys
+
+import numpy as np
+
+from poppunk_tpu.cli.common import (default_dists, file_base, parse_kmers,
+                                    setup_output)
+from poppunk_tpu.cli.main import get_options
+from poppunk_tpu.utils import read_pickle, store_pickle
+
+from .. import _device
+from ..profiling import stage
+
+
+def main(arg_list=None):
+    args = get_options(arg_list)
+    if args.profile:
+        from ..profiling import enable
+
+        enable(True)
+    if args.citation:
+        from poppunk_tpu.citation import print_citation
+
+        print_citation(args)
+        sys.exit(0)
+    if args.qc_db or args.fit_model not in (False, "bgmm"):
+        mode = "--qc-db" if args.qc_db else f"--fit-model {args.fit_model}"
+        sys.stderr.write(f"{mode} is not supported by poppunk_tpu_torch yet "
+                         "(run it with poppunk_tpu)\n")
+        sys.exit(1)
+    dist_device, model_device = _device.stage_devices(args)
+    if args.create_db:
+        return create_db(args, dist_device)
+    return fit_model(args, model_device)
+
+
+def create_db(args, device):
+    """Sketch on the host, then all-vs-all distances on ``device``."""
+    from poppunk_tpu.io.hdf5db import (construct_database,
+                                       create_database_dir,
+                                       get_database_statistics, read_sketches)
+
+    from ..ops.distances import query_db
+
+    if args.r_files is None:
+        sys.stderr.write("--create-db requires --r-files\n")
+        sys.exit(1)
+    output = setup_output(args.output)
+    klist = parse_kmers(args.min_k, args.max_k, args.k_step)
+    sys.stderr.write(f"Sketching genomes using k = {klist}\n")
+    create_database_dir(output, klist)
+
+    with stage("sketching"):
+        names = construct_database(
+            args.r_files, klist, args.sketch_size // 64, output,
+            threads=args.threads, overwrite=args.overwrite,
+            strand_preserved=args.strand_preserved,
+            min_count=args.min_kmer_count, use_exact=args.exact_count,
+            codon_phased=args.codon_phased,
+        )
+
+    sys.stderr.write(f"Calculating all-vs-all distances on {device}\n")
+    with stage("distances", sync=True):
+        sketches = read_sketches(output, names)
+        dist_mat = query_db(sketches, None, klist, self_mode=True,
+                            random_correct=True,
+                            use_rc=not args.strand_preserved, device=device)
+    store_pickle(names, names, True, dist_mat, default_dists(output))
+
+    if not args.no_plot:
+        try:
+            from poppunk_tpu.plotting import (plot_database_evaluations,
+                                              plot_scatter)
+
+            plot_scatter(dist_mat, output,
+                         os.path.basename(output) + " distances")
+            lengths, ambiguous = get_database_statistics(output)
+            plot_database_evaluations(output, lengths, ambiguous)
+        except Exception as e:  # plotting must never kill the pipeline
+            sys.stderr.write(f"Plotting failed: {e}\n")
+    if args.plot_fit > 0:
+        plot_kmer_fits(output, names, klist, args.plot_fit,
+                       not args.strand_preserved, device)
+    sys.stderr.write("Done\n")
+    return names, dist_mat
+
+
+def plot_kmer_fits(db_prefix, names, klist, count, use_rc, device, seed=42):
+    """Random sample of per-pair k-mer/Jaccard fit plots (--plot-fit,
+    reference __main__.py:407-418)."""
+    from poppunk_tpu.io.hdf5db import read_sketches
+    from poppunk_tpu.plotting import plot_fit
+
+    from ..ops.distances import query_db
+    from ..ops.kmer_fit import fit_kmer_curve_np
+
+    rng = np.random.default_rng(seed)
+    sketches = read_sketches(db_prefix, names)
+    for i in range(count):
+        a, b = rng.choice(len(names), size=2, replace=False)
+        pair = [sketches[a], sketches[b]]
+        raw, corrected = (
+            query_db(pair, None, klist, self_mode=True, jaccard=True,
+                     random_correct=rc, use_rc=use_rc, device=device)[0]
+            for rc in (False, True))
+        dists = query_db(pair, None, klist, self_mode=True, use_rc=use_rc,
+                         device=device)[0]
+        raw_fit = fit_kmer_curve_np(raw, np.asarray(klist))
+        plot_fit(klist, raw, np.array(raw_fit), corrected, np.array(dists),
+                 file_base(db_prefix) + f"_fit_example_{i + 1}",
+                 f"Example fit {i + 1} - {names[a]} vs. {names[b]}")
+
+
+def fit_model(args, device):
+    """--fit-model bgmm / --use-model (a BGMM fit) on ``device``, then the
+    network, clusters and clique-pruned references on the host."""
+    from ..models import BGMMFit, load_cluster_fit
+
+    if args.ref_db is None:
+        sys.stderr.write("Fitting a model requires --ref-db\n")
+        sys.exit(1)
+    ref_db = args.ref_db.rstrip("/")
+    output = setup_output(args.output or ref_db)
+    distances = args.distances or default_dists(ref_db)
+    if not os.path.isfile(distances + ".pkl"):
+        sys.stderr.write(
+            f"Cannot find distances at {distances}.pkl — run --create-db "
+            "first, or point --distances at an existing output\n")
+        sys.exit(1)
+    rlist, _, _, X = read_pickle(distances, enforce_self=True)
+    sys.stderr.write(f"Loaded distances for {len(rlist)} samples\n")
+
+    with stage("model_fit", sync=True):
+        if args.use_model:
+            model_dir = (args.model_dir or ref_db).rstrip("/")
+            model = load_cluster_fit(file_base(model_dir) + "_fit.pkl",
+                                     file_base(model_dir) + "_fit.npz",
+                                     out_prefix=output,
+                                     max_samples=args.model_subsample,
+                                     device=device)
+            model.set_threads(args.threads)
+            assignments = model.assign(X, args.assign_subsample)
+        else:
+            sys.stderr.write(f"Fitting bgmm model on {device}\n")
+            model = BGMMFit(output, max_samples=args.model_subsample,
+                            max_batch_size=args.assign_subsample,
+                            assign_points=not args.for_refine, device=device)
+            model.set_threads(args.threads)
+            assignments = model.fit(X, args.K)
+
+    model.save()
+    if not args.no_plot:
+        try:
+            model.plot(X, assignments)
+        except Exception as e:
+            sys.stderr.write(f"Plotting failed: {e}\n")
+
+    if args.for_refine and not args.use_model:
+        # assignments cover only the fit subsample; points are assigned
+        # when the model is refined (reference __main__.py:630-632)
+        sys.stderr.write(
+            'Initial model fit complete; points will be assigned when this '
+            'model is refined\nusing "--fit-model refine"\n')
+        sys.stderr.write("Done\n")
+        return model, assignments
+
+    with stage("network+refs"):
+        make_network_and_refs(model, assignments, rlist, X, output, args)
+    sys.stderr.write("Done\n")
+    return model, assignments
+
+
+def make_network_and_refs(model, assignments, rlist, X, output, args):
+    """fit -> network -> clusters -> clique pruning
+    (reference __main__.py:635-791)."""
+    from poppunk_tpu.io.hdf5db import remove_from_db
+    from poppunk_tpu.qc import prune_distance_matrix
+    from poppunk_tpu.utils import db_h5_path
+
+    from ..network.cliques import extract_references
+    from ..network.clusters import print_clusters
+    from ..network.construct import construct_network_from_assignments
+    from ..network.graph import save_network
+
+    G = construct_network_from_assignments(
+        rlist, rlist, assignments, within_label=model.within_label,
+        dist_mat=X, use_weights=args.graph_weights,
+        sample_size=args.summary_sample,
+        betweenness_sample=args.betweenness_sample,
+    )
+    save_network(G, prefix=output, suffix="_graph")
+    clustering, _ = print_clusters(
+        G, rlist, out_prefix=file_base(output),
+        external_cluster_csv=args.external_clustering,
+    )
+
+    # clique-based reference pruning
+    _, ref_names, _, G_ref = extract_references(
+        G, rlist, output, threads=args.threads)
+    if len(ref_names) < len(rlist):
+        sys.stderr.write(f"Pruned network to {len(ref_names)} references\n")
+        save_network(G_ref, prefix=output, suffix=".refs_graph")
+        non_refs = set(rlist) - set(ref_names)
+        prune_distance_matrix(rlist, non_refs, X,
+                              file_base(output) + ".refs.dists")
+        ref_db = args.ref_db.rstrip("/")
+        if os.path.isfile(db_h5_path(ref_db)):
+            tmp = remove_from_db(ref_db, output, non_refs)
+            os.rename(tmp, file_base(output) + ".refs.h5")
+    else:
+        sys.stderr.write("All samples kept as references\n")
+
+    # keep the full dists available under the output prefix too
+    if (args.output and args.output.rstrip("/") != args.ref_db.rstrip("/")
+            and not os.path.isfile(default_dists(output) + ".pkl")):
+        store_pickle(rlist, rlist, True, X, default_dists(output))
+        ref_h5 = db_h5_path(args.ref_db.rstrip("/"))
+        if os.path.isfile(ref_h5) and not os.path.isfile(db_h5_path(output)):
+            shutil.copy(ref_h5, db_h5_path(output))
+    return clustering
+
+
+if __name__ == "__main__":
+    main()

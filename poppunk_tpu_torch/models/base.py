@@ -1,0 +1,76 @@
+"""ClusterFit base class and model loader.
+
+Counterpart of poppunk_tpu/models/base.py (PopPUNK/models.py:81-280):
+subsample + max-scale preprocessing on the host, artefacts
+``<prefix>/<basename>_fit.npz`` + ``_fit.pkl`` with the pkl holding
+``[fit_data_or_none, type_string]``, so the files are interchangeable with
+the JAX package's and PopPUNK's. This package fits and loads BGMM models;
+other types raise with the type's name until they are ported.
+"""
+
+import os
+import sys
+
+import numpy as np
+
+
+def load_cluster_fit(pkl_file, npz_file, out_prefix="", max_samples=100000,
+                     device=None):
+    """Load a fitted model (PopPUNK/models.py:81-136); its device state
+    goes to ``device``."""
+    from .bgmm import BGMMFit
+    from .compat import tolerant_pickle_load
+
+    with open(pkl_file, "rb") as f:
+        fit_object, fit_type = tolerant_pickle_load(f)
+    if fit_type != "bgmm":
+        raise RuntimeError(
+            f"model type {fit_type!r} ({pkl_file}) is not supported by "
+            "poppunk_tpu_torch yet; only 'bgmm' models are ported")
+    sys.stderr.write("Loading BGMM 2D Gaussian model\n")
+    load_obj = BGMMFit(out_prefix, max_samples, device=device)
+    load_obj.load(np.load(npz_file, allow_pickle=True), fit_object)
+    return load_obj
+
+
+class ClusterFit:
+    """Base model (PopPUNK/models.py:195-280)."""
+
+    def __init__(self, out_prefix, seed=42):
+        self.outPrefix = out_prefix
+        if out_prefix != "" and not os.path.isdir(out_prefix):
+            os.makedirs(out_prefix, exist_ok=True)
+        self.fitted = False
+        self.threads = 1
+        self.seed = seed  # pinned (the reference leaves this unseeded)
+
+    def set_threads(self, threads):
+        self.threads = threads
+
+    def fit(self, X=None):
+        if self.outPrefix != "" and not os.path.isdir(self.outPrefix):
+            if os.path.isfile(self.outPrefix):
+                raise RuntimeError(self.outPrefix + " already exists as a file")
+            os.makedirs(self.outPrefix, exist_ok=True)
+        if getattr(self, "preprocess", False):
+            rng = np.random.default_rng(self.seed)
+            if X.shape[0] > self.max_samples:
+                idx = rng.permutation(X.shape[0])[: self.max_samples]
+                self.subsampled_X = X[idx].copy()
+            else:
+                self.subsampled_X = np.copy(X)
+            self.scale = np.amax(self.subsampled_X, axis=0)
+            self.subsampled_X /= self.scale
+
+    def copy(self, prefix):
+        self.outPrefix = prefix
+        self.save()
+
+    def _artefact(self, ext):
+        return os.path.join(
+            self.outPrefix, os.path.basename(self.outPrefix) + ext
+        )
+
+    def plot(self, X=None, y=None):
+        if not self.fitted:
+            raise RuntimeError("Trying to plot unfitted model")

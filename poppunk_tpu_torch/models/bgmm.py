@@ -1,0 +1,227 @@
+"""BGMM model: 2-D Bayesian Gaussian mixture fit + assignment in PyTorch.
+
+Counterpart of poppunk_tpu/models/bgmm.py (PopPUNK/models.py:283-464 and
+PopPUNK/bgmm.py):
+- fit on the subsampled, max-scaled distance cloud with K components
+  (VB-GMM, vbgmm.py), on the model's device;
+- within-strain component = the used component whose mean is nearest the
+  origin; between = the most-assigned component;
+- assignment of every pair = argmax of the weighted Gaussian
+  log-likelihood (PopPUNK/bgmm.py:100-174);
+- artefacts _fit.npz + _fit.pkl, identical in layout to the JAX package's.
+
+The fitted parameters live twice, as the reference keeps them: float64
+numpy attributes (the artefact form, written to and read from _fit.npz)
+and a ``GaussianMixture`` module whose float32 buffers sit on the device
+that assigns.
+"""
+
+import math
+import pickle
+import sys
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import ClusterFit
+from .vbgmm import mahalanobis
+
+
+def log_likelihood(X, weights, means, covariances, scale):
+    """Weighted Gaussian mixture log-likelihood of X [n, d] (torch twin of
+    the reference's log_likelihood_device). Returns (logprob [n],
+    lpr [n, K])."""
+    X = X / scale
+    chol = torch.linalg.cholesky(covariances)  # [K, d, d]
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    d = X.shape[1]
+    maha = mahalanobis(chol, X[:, None, :] - means[None, :, :])  # [n, K]
+    log_prob = -0.5 * (maha + d * math.log(2 * math.pi) + logdet[None, :])
+    lpr = log_prob + torch.log(weights)[None, :]
+    return torch.logsumexp(lpr, dim=1), lpr
+
+
+class GaussianMixture(nn.Module):
+    """A fitted mixture's parameters as float32 device buffers."""
+
+    def __init__(self, weights, means, covariances, scale):
+        super().__init__()
+        self.register_buffer("weights", weights)
+        self.register_buffer("means", means)
+        self.register_buffer("covariances", covariances)
+        self.register_buffer("scale", scale)
+
+    @classmethod
+    def from_numpy(cls, weights, means, covariances, scale, device=None):
+        """From the ``_fit.npz`` arrays (either package's, or PopPUNK's)."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=device)
+
+        return cls(t(weights), t(means), t(covariances), t(scale))
+
+    def log_likelihood(self, X):
+        return log_likelihood(X, self.weights, self.means, self.covariances,
+                              self.scale)
+
+    def forward(self, X):
+        """Component argmax per row of X (unscaled distances)."""
+        return self.log_likelihood(X)[1].argmax(dim=1)
+
+    def responsibilities(self, X):
+        logprob, lpr = self.log_likelihood(X)
+        return torch.exp(lpr - logprob[:, None])
+
+
+def find_within_label(means, assignments, rank=0):
+    """Used component with mean nearest the origin (PopPUNK/bgmm.py:71-97)."""
+    dists = {}
+    norms = np.linalg.norm(np.asarray(means), axis=1)
+    for comp, dist in enumerate(norms):
+        if np.any(np.asarray(assignments) == comp):
+            dists[comp] = dist
+    sorted_dists = sorted(dists.items(), key=lambda kv: kv[1])
+    return sorted_dists[rank][0]
+
+
+def find_between_label_bgmm(means, assignments):
+    """Most-assigned component (PopPUNK/bgmm.py:48-69)."""
+    assignments = np.asarray(assignments)
+    counts = [(c, int((assignments == c).sum())) for c in range(len(means))]
+    return max(counts, key=lambda kv: kv[1])[0]
+
+
+class BGMMFit(ClusterFit):
+    def __init__(self, out_prefix, max_samples=100000, max_batch_size=100000,
+                 assign_points=True, seed=42, device=None):
+        ClusterFit.__init__(self, out_prefix, seed=seed)
+        self.type = "bgmm"
+        self.preprocess = True
+        self.max_samples = max_samples
+        self.max_batch_size = max_batch_size
+        self.assign_points = assign_points
+        self.device = torch.device("cpu") if device is None else device
+        self.mixture = None
+
+    def _set_params(self, weights, means, covariances, scale):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.means = np.asarray(means, dtype=np.float64)
+        self.covariances = np.asarray(covariances, dtype=np.float64)
+        self.scale = scale
+        self.mixture = GaussianMixture.from_numpy(
+            self.weights, self.means, self.covariances, scale, self.device)
+        self.fitted = True
+
+    def fit(self, X, max_components):
+        from .vbgmm import fit_vbgmm
+
+        ClusterFit.fit(self, X)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed)
+        result = fit_vbgmm(
+            generator,
+            torch.as_tensor(self.subsampled_X, device=self.device),
+            k=int(max_components),
+        )
+        self._set_params(*(result[key].cpu().numpy() for key in
+                           ("weights", "means", "covariances")), self.scale)
+
+        if self.assign_points:
+            y = self.assign(X, max_batch_size=self.max_batch_size)
+        else:
+            y = self.assign(self.subsampled_X * self.scale,
+                            max_batch_size=self.max_batch_size)
+        self.within_label = find_within_label(self.means, y)
+        self.between_label = find_between_label_bgmm(self.means, y)
+        return y
+
+    def assign(self, X, max_batch_size=100000, values=False, progress=True):
+        """Component of every row of X (or responsibilities with
+        ``values``), computed in batches on the model's device."""
+        if not self.fitted:
+            raise RuntimeError("Trying to assign using an unfitted model")
+        if progress:
+            sys.stderr.write("Assigning distances with BGMM model\n")
+        fn = self.mixture.responsibilities if values else self.mixture
+        outs = []
+        for start in range(0, X.shape[0], max_batch_size):
+            chunk = torch.as_tensor(
+                np.asarray(X[start:start + max_batch_size]),
+                dtype=torch.float32, device=self.device)
+            outs.append(fn(chunk).cpu().numpy())
+        out = np.concatenate(outs)
+        return out if values else out.astype(int)
+
+    def save(self):
+        if not self.fitted:
+            raise RuntimeError("Trying to save unfitted model")
+        np.savez(
+            self._artefact("_fit.npz"),
+            weights=self.weights,
+            means=self.means,
+            covariances=self.covariances,
+            within=self.within_label,
+            between=self.between_label,
+            scale=self.scale,
+        )
+        with open(self._artefact("_fit.pkl"), "wb") as f:
+            # the JAX package's layout: raw parameter dict + type string
+            pickle.dump([{"weights": self.weights, "means": self.means,
+                          "covariances": self.covariances}, self.type], f)
+
+    def load(self, fit_npz, fit_obj):
+        self._set_params(fit_npz["weights"], fit_npz["means"],
+                         fit_npz["covariances"], fit_npz["scale"])
+        self.within_label = int(fit_npz["within"])
+        self.between_label = int(fit_npz["between"])
+
+    def plot(self, X, y):
+        from poppunk_tpu.plotting import plot_results  # lazy: matplotlib
+
+        ClusterFit.plot(self, X)
+        used = np.unique(y).size
+        sys.stderr.write(
+            f"Fit summary:\n\tNumber of components used\t{used}\n"
+        )
+        try:
+            plot_results(
+                X, y, self.means, self.covariances, self.scale,
+                "DPGMM fit", self._artefact("_DPGMM_fit"),
+            )
+            subsampled_y = self.assign(self.subsampled_X * self.scale,
+                                       progress=False) \
+                if hasattr(self, "subsampled_X") else y
+            self.plot_contours(subsampled_y, "DPGMM assignment boundary",
+                               self._artefact("_DPGMM_fit_contours"))
+        except Exception as e:  # plotting must never kill a fit
+            sys.stderr.write(f"Plotting failed: {e}\n")
+
+    def plot_contours(self, assignments, title, out_prefix):
+        """Mixture likelihood surface + within/between decision contour
+        (the reference's plotting.plot_contours, plot.py:375-414, with the
+        grid evaluated by this package's likelihood)."""
+        import matplotlib.pyplot as plt
+        from poppunk_tpu.plotting import get_grid
+
+        xx, yy, xy = get_grid(0, 1, 100)
+        z = self.assign(xy, values=True, progress=False)
+        within = find_within_label(self.means, assignments, 0)
+        between = find_between_label_bgmm(self.means, assignments)
+        z_diff = (z[:, within] - z[:, between]).reshape(xx.shape).T
+        unit = GaussianMixture(self.mixture.weights, self.mixture.means,
+                               self.mixture.covariances,
+                               torch.ones_like(self.mixture.scale))
+        z_ll = unit.log_likelihood(torch.as_tensor(
+            xy, dtype=torch.float32, device=self.device))[0]
+        z_ll = z_ll.cpu().numpy().reshape(xx.shape).T
+
+        plt.figure(figsize=(11, 8), dpi=160, facecolor="w", edgecolor="k")
+        plt.contour(xx, yy, z_ll, levels=np.linspace(z_ll.min(), z_ll.max(),
+                                                     25))
+        plt.contour(xx, yy, z_diff, levels=[0], colors="r", linewidths=3)
+        plt.title(title)
+        plt.xlabel("Scaled core distance")
+        plt.ylabel("Scaled accessory distance")
+        plt.savefig(out_prefix + ".pdf")
+        plt.close()

@@ -1,0 +1,218 @@
+"""Sketch distance engine: planes -> match counts -> Jaccards -> (core, acc).
+
+Counterpart of poppunk_tpu/ops/distances.py, per query chunk:
+
+    packed bit-plane sketches (int32 words on the distance device)
+      -> bin match counts          ops/match_counts.py (CUDA kernel / twin)
+      -> b-bit + random-match corrected Jaccard per k        torch ops
+      -> constrained log-linear fit across k (kmer_fit.py)   torch ops
+      -> (core, accessory) per pair, optionally classified (fused_assign)
+
+Row conventions are the reference's (PopPUNK/utils.py:199-226,
+PopPUNK/assign.py:690): self mode returns condensed i<j rows, query mode
+row ``q * n_ref + r``. Host arrays come in and go out as numpy; the
+reference planes move to the device once per call.
+"""
+
+import numpy as np
+import torch
+
+from .kmer_fit import _fit_math
+from .match_counts import match_counts
+
+_LANES = 128
+
+
+def plane_geometry(sketchsize64, bbits):
+    """(w32, Wp, pad_bits): useful words per plane row, the row length
+    padded to the reference's 128-word layout, and the pad in bits."""
+    w32 = 2 * sketchsize64
+    wp = ((w32 + _LANES - 1) // _LANES) * _LANES
+    return w32, wp, (wp - w32) * 32
+
+
+def pack_planes(sketches, klist=None):
+    """Sketch objects -> (planes uint32[n, K, P, Wp], lengths int32[n],
+    freqs f32[n, 4]) — the reference's device layout, bit for bit.
+
+    HDF5 usigs are uint64[sketchsize64 * bbits], word w plane p at index
+    w * bbits + p; each plane row holds the uint64 words split into
+    (low32, high32) pairs."""
+    ss64 = sketches[0].sketchsize64
+    bbits = sketches[0].bbits
+    if klist is None:
+        klist = sorted(sketches[0].usigs.keys())
+    w32, wp, _ = plane_geometry(ss64, bbits)
+    n = len(sketches)
+    planes = np.zeros((n, len(klist), bbits, wp), dtype=np.uint32)
+    lengths = np.zeros(n, dtype=np.int32)
+    freqs = np.zeros((n, 4), dtype=np.float32)
+    for i, sk in enumerate(sketches):
+        if sk.sketchsize64 != ss64 or sk.bbits != bbits:
+            raise ValueError("Inconsistent sketch geometry")
+        lengths[i] = sk.length
+        freqs[i] = sk.base_freq
+        for ki, k in enumerate(klist):
+            u = sk.usigs[int(k)].reshape(ss64, bbits).T  # [P, ss64] uint64
+            planes[i, ki, :, 0:w32:2] = u & np.uint64(0xFFFFFFFF)
+            planes[i, ki, :, 1:w32:2] = u >> np.uint64(32)
+    return planes, lengths, freqs
+
+
+def planes_to_tensor(planes, device=None):
+    """uint32 planes (numpy) -> int32 tensor with the same bits."""
+    return torch.from_numpy(
+        np.ascontiguousarray(planes).view(np.int32)).to(device)
+
+
+def _random_jaccard(k, len_q, len_r, freq_q, freq_r, use_rc=True):
+    """Expected Jaccard of two random sequences with these lengths and
+    base compositions (torch twin of sketch/random_match.py and the
+    reference's _random_jaccard_jnp). The 4-wide dots run in full float32
+    (TF32 is off on the card, see _device.py)."""
+    p = (freq_q @ freq_r.T) ** k  # [nq, nr]
+    if use_rc:
+        # ACGT reversed is the complement permutation
+        p = p + (freq_q @ torch.flip(freq_r, dims=[1]).T) ** k
+    n1 = (len_q.to(torch.float32) - k + 1).clamp(min=1.0)[:, None]
+    n2 = (len_r.to(torch.float32) - k + 1).clamp(min=1.0)[None, :]
+    inter = n1 * n2 * p
+    union = n1 + n2 - inter
+    r = torch.where(union <= 0, 1.0, inter / union.clamp(min=1e-30))
+    return r.clamp(0.0, 1.0 - 1e-6)
+
+
+def corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
+                       sketchsize64, bbits, random_correct=True, use_rc=True):
+    """int32 matches [nq, nr, K] -> corrected Jaccard f32 [nq, nr, K]."""
+    nbins = sketchsize64 * 64
+    expected = 2.0 ** (-bbits)
+    obs = matches.to(torch.float32) / nbins
+    j = ((obs - expected) / (1.0 - expected)).clamp(0.0, 1.0)
+    if random_correct:
+        r = torch.stack([_random_jaccard(float(k), len_q, len_r, freq_q,
+                                         freq_r, use_rc) for k in klist],
+                        dim=-1)
+        j = ((j - r) / (1.0 - r)).clamp(0.0, 1.0)
+    return j
+
+
+def core_accessory(jaccards, klist):
+    """Fit the k-mer curve for every pair: [..., K] -> f32 [..., 2]."""
+    k = torch.as_tensor(list(klist), dtype=torch.float32,
+                        device=jaccards.device)
+    core, acc = _fit_math(jaccards.to(torch.float32), k)
+    return torch.stack([core, acc], dim=-1)
+
+
+def _dist_chunk(qry, ref, klist, sketchsize64, bbits, random_correct,
+                use_rc, jaccard, post_spec=None):
+    """One query chunk against the references; ``qry`` and ``ref`` are
+    (planes, lengths, freqs) tensors on the distance device. Returns
+    dists, or (dists, classes) with a post."""
+    (planes_q, len_q, freq_q), (planes_r, len_r, freq_r) = qry, ref
+    _, _, pad_bits = plane_geometry(sketchsize64, bbits)
+    matches = match_counts(planes_q, planes_r, pad_bits)
+    j = corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
+                           sketchsize64, bbits, random_correct, use_rc)
+    if jaccard:
+        return j
+    d = core_accessory(j, klist)
+    if post_spec is None:
+        return d
+    from .fused_assign import apply_post
+
+    return d, apply_post(d, post_spec)
+
+
+class _Operands:
+    """Planes, lengths and base frequencies of a genome set, on a device."""
+
+    def __init__(self, planes, lengths, freqs, device):
+        self.planes = planes_to_tensor(planes, device)
+        self.lengths = torch.as_tensor(lengths, device=device)
+        self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
+                                     device=device)
+
+    def rows(self, start, stop):
+        return (self.planes[start:stop], self.lengths[start:stop],
+                self.freqs[start:stop])
+
+
+def _to_host(out, post_spec):
+    if post_spec is None:
+        return out.cpu().numpy()
+    return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+
+def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
+                   sketchsize64, bbits, random_correct=True, use_rc=True,
+                   jaccard=False, chunk=512, post_spec=None, device=None):
+    """Dense [nq, nr] block, chunked over queries: f32 [nq, nr, 2]
+    (core, accessory) or [nq, nr, K] Jaccards; with ``post_spec``
+    (ops/fused_assign) also the per-pair classes from the same pass."""
+    if post_spec is not None and jaccard:
+        raise ValueError("post_spec requires (core, accessory) output")
+    device = torch.device("cpu") if device is None else device
+    ref = _Operands(planes_r, len_r, freq_r, device)
+    qry = _Operands(planes_q, len_q, freq_q, device)
+    out = []
+    for start in range(0, planes_q.shape[0], chunk):
+        o = _dist_chunk(qry.rows(start, start + chunk), ref.rows(0, None),
+                        klist, sketchsize64, bbits, random_correct, use_rc,
+                        jaccard, post_spec)
+        out.append(_to_host(o, post_spec))
+    if post_spec is not None:
+        return (np.concatenate([o[0] for o in out], axis=0),
+                np.concatenate([o[1] for o in out], axis=0))
+    return np.concatenate(out, axis=0)
+
+
+def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
+                         random_correct=True, use_rc=True, jaccard=False,
+                         chunk=512, post_spec=None, device=None):
+    """Condensed i<j all-vs-all rows without the n x n square: each query
+    chunk is compared only with the genomes from its own first row on,
+    and sliced to its upper-triangle rows at once."""
+    device = torch.device("cpu") if device is None else device
+    ops = _Operands(planes, lengths, freqs, device)
+    n = planes.shape[0]
+    out, out_extra = [], []
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        o = _to_host(_dist_chunk(
+            ops.rows(start, stop), ops.rows(start, n), klist, sketchsize64,
+            bbits, random_correct, use_rc, jaccard, post_spec), post_spec)
+        block, extra = o if post_spec is not None else (o, None)
+        for local in range(stop - start):
+            out.append(block[local, local + 1:])
+            if extra is not None:
+                out_extra.append(extra[local, local + 1:])
+    if post_spec is not None:
+        return np.concatenate(out, axis=0), np.concatenate(out_extra, axis=0)
+    return np.concatenate(out, axis=0)
+
+
+def query_db(sketches_r, sketches_q, klist, random_correct=True, use_rc=True,
+             jaccard=False, self_mode=False, post_spec=None, device=None):
+    """Long-form distances in the reference's row order.
+
+    self_mode: condensed i<j rows over sketches_r (sketches_q ignored);
+    otherwise row = q * n_ref + r. Returns float32 [n_rows, 2] (core,
+    accessory) or [n_rows, K] Jaccards; with ``post_spec`` also the
+    classes [n_rows] from the same pass."""
+    ss64 = sketches_r[0].sketchsize64
+    bbits = sketches_r[0].bbits
+    planes_r, len_r, freq_r = pack_planes(sketches_r, klist)
+    if self_mode:
+        return condensed_self_block(
+            planes_r, len_r, freq_r, klist, ss64, bbits, random_correct,
+            use_rc, jaccard, post_spec=post_spec, device=device)
+    planes_q, len_q, freq_q = pack_planes(sketches_q, klist)
+    block = pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r,
+                           klist, ss64, bbits, random_correct, use_rc,
+                           jaccard, post_spec=post_spec, device=device)
+    if post_spec is not None:
+        block, extra = block
+        return block.reshape(-1, block.shape[-1]), extra.reshape(-1)
+    return block.reshape(-1, block.shape[-1])
