@@ -6,9 +6,11 @@
 Phases, each printing one JSON line with its seconds:
   A  the card: nvidia-smi name and power limit, torch / CUDA / nvcc versions
   B  build the CUDA kernels from poppunk_tpu_torch/csrc with nvcc
-  C  the match-count kernel against its plain PyTorch version on the card
-     (bit-exact) at the JAX tests' tile-edge shapes, at production geometry
-     and at the bench shape 2048 x 4096 x K 6, timed with CUDA events
+  C  both match-count kernels (standard and packed-lane) against their
+     plain PyTorch versions on the card, and the packed kernel against the
+     standard one (all bit-exact), at the JAX tests' tile-edge shapes, at
+     production geometry, at an odd sketchsize64 and at the bench shape
+     2048 x 4096 x K 6, where all four are timed with CUDA events
   D  the CLIs end to end on a synthetic population (6 strains x 8 genomes
      of 0.5 Mbp, one genome per strain held out as a query):
      create-db --gpu-dist, fit-model bgmm --gpu-model, assign --gpu-dist
@@ -19,10 +21,23 @@ Phases, each printing one JSON line with its seconds:
      network + clusters + references, fused query assignment against the
      full network; clusters must equal the planted strains, and a block of
      rows is checked against the plain version on the card.
-Then the kernel summary line ({"kernels": [...]}, launches counted over
-phases D and E only), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
-does a host without CUDA.
+  F  with KERNEL_CHOICE packed, the refine path through the CLIs on phase
+     D's population: create-db --gpu-dist (distances equal phase D's bit
+     for bit), fit-model refine --gpu-model --indiv-refine both from phase
+     D's BGMM fit (global sweeps on the card), fit-model threshold at the
+     core boundary refine found, assign --gpu-dist --gpu-model with the
+     refine model with and without --core --accessory; every cluster file
+     must equal the planted strains
+  G  with KERNEL_CHOICE packed, phase E's population: the packed
+     all-vs-all (equal to phase E's bit for bit), refine from phase E's
+     BGMM fit with the device sweep, its 40 global scores held to the host
+     native sweep on the same edges, the refine network, and fused
+     boundary-post assignment of the queries (distances equal phase E's)
+Then the kernel summary line ({"kernels": [...]}: the standard kernel's
+launches counted over phases D and E, the packed kernel's over F and G,
+each phase run with the counts set to 0 just before it), the nvidia-smi
+line, and last {"ok": true, "device": {...}}. Any failure raises and exits
+non-zero; so does a host without CUDA.
 """
 
 import csv
@@ -40,9 +55,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 SMALL = (16, 5, 3)            # ss64, bbits, K: the JAX kernel tests
 PRODUCTION = (156, 14, 5)     # sketch size 9984, k = 13..29 step 4
+ODD = (15, 5, 4)              # odd ss64: a 4-word chunk straddles two k slots
 BENCH = (156, 14, 6)          # bench.py:30-32
 KLIST = (13, 17, 21, 25, 29)
 DIST_TOL = dict(rtol=1e-5, atol=2e-5)  # tests/test_torch_distances.py
+# device against host sweep scores: both take ratios of exact integer
+# counts in float64 (the device's A @ A entries are exact in float32 below
+# 2^24), so they differ by rounding alone
+SWEEP_ATOL = 1e-9
 
 
 def emit(obj):
@@ -85,8 +105,12 @@ def phase_b():
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
+    ptxas = [line.split(":", 1)[-1].strip()
+             for line in (_build.ptxas_report or "").splitlines()
+             if "entry function" in line or "registers" in line
+             or "spill" in line]
     emit({"phase": "B", "library": os.path.relpath(path, REPO),
-          "nvcc_seconds": _build.build_seconds,
+          "nvcc_seconds": _build.build_seconds, "ptxas": ptxas,
           "seconds": time.perf_counter() - t0})
 
 
@@ -116,15 +140,24 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def max_abs_err(got, want):
+    return int((got.long() - want.long()).abs().max())
+
+
 def phase_c(torch, device):
+    """Both kernels against their plain versions (and the packed kernel
+    against the standard one), bit for bit; both timed at BENCH. Returns
+    {kernel name: {"max_abs_err", "ms", "plain_ms", ...}}."""
     from poppunk_tpu_torch.ops import match_counts as mc
     from poppunk_tpu_torch.ops.distances import plane_geometry, planes_to_tensor
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     cases = [(3, 5, SMALL), (64, 128, SMALL), (65, 129, SMALL),
-             (257, 1031, PRODUCTION), (2048, 4096, BENCH)]
-    results, max_err, timing = [], 0, None
+             (257, 1031, PRODUCTION), (65, 129, ODD), (2048, 4096, BENCH)]
+    results = []
+    kernels = {"match_counts": {"max_abs_err": 0},
+               "match_counts_packed": {"max_abs_err": 0}}
     for nq, nr, geometry in cases:
         pad_bits = plane_geometry(geometry[0], geometry[1])[2]
         pq = random_planes(rng, nq, geometry)
@@ -133,31 +166,45 @@ def phase_c(torch, device):
         pr[:m, ..., :100] = pq[:m, ..., :100]
         q = planes_to_tensor(pq, device)
         r = planes_to_tensor(pr, device)
+        qp, rp = mc.pack(q, pad_bits), mc.pack(r, pad_bits)
         got = mc.match_counts(q, r, pad_bits)
         want = mc.match_counts_torch(q, r, pad_bits)
+        got_p = mc.match_counts_packed(qp, rp)
+        want_p = mc.match_counts_packed_torch(qp, rp)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
+        err = max_abs_err(got, want)
+        err_p = max_abs_err(got_p, want_p)
+        err_ps = max_abs_err(got_p, got)
+        for name, e in (("match_counts", err),
+                        ("match_counts_packed", max(err_p, err_ps))):
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               e)
         results.append({"nq": nq, "nr": nr, "ss64": geometry[0],
                         "bbits": geometry[1], "K": geometry[2],
-                        "exact": bool(torch.equal(got, want)),
-                        "max_abs_err": err})
+                        "G": qp.g, "L": qp.bits.shape[-1],
+                        "max_abs_err": err, "packed_max_abs_err": err_p,
+                        "packed_vs_standard_max_abs_err": err_ps})
         if geometry is BENCH:
-            mc.match_counts(q, r, pad_bits)  # warm
-            ms = event_ms(torch, lambda: mc.match_counts(q, r, pad_bits), 10)
-            plain_ms = event_ms(
-                torch, lambda: mc.match_counts_torch(q, r, pad_bits), 2)
-            timing = {"shape": [nq, nr, geometry[2]], "ms": ms,
-                      "plain_ms": plain_ms,
-                      "pairs_per_s": nq * nr / (ms / 1e3),
-                      "plain_pairs_per_s": nq * nr / (plain_ms / 1e3)}
-        del q, r, got, want
-    emit({"phase": "C", "cases": results, **timing,
+            for name, kernel, plain, args in (
+                    ("match_counts", mc.match_counts, mc.match_counts_torch,
+                     (q, r, pad_bits)),
+                    ("match_counts_packed", mc.match_counts_packed,
+                     mc.match_counts_packed_torch, (qp, rp))):
+                kernel(*args)  # warm
+                ms = event_ms(torch, lambda: kernel(*args), 10)
+                plain_ms = event_ms(torch, lambda: plain(*args), 2)
+                kernels[name].update(
+                    shape=[nq, nr, geometry[2]], ms=ms, plain_ms=plain_ms,
+                    pairs_per_s=nq * nr / (ms / 1e3),
+                    plain_pairs_per_s=nq * nr / (plain_ms / 1e3))
+        del q, r, qp, rp, got, want, got_p, want_p
+    emit({"phase": "C", "cases": results, "kernels": kernels,
           "seconds": elapsed(torch, t0)})
-    if max_err:
-        raise AssertionError(f"kernel disagrees with its plain version: "
+    if any(k["max_abs_err"] for k in kernels.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version or "
+                             f"the packed kernel with the standard one: "
                              f"{results}")
-    return max_err, timing
+    return kernels
 
 
 # --------------------------------------------------------------------------
@@ -251,7 +298,9 @@ def phase_d(torch, device, workdir, n_strains=6, per_strain=8,
           "genomes": len(pop.names), "queries": len(queries),
           "clusters": len(set(ref_clusters.values())), "stages": stages,
           "launches": launches, "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, SimpleNamespace(db=db, rfile=rfile, qfile=qfile,
+                                     refs=refs, queries=queries,
+                                     strain_of=strain_of, gpu=gpu)
 
 
 # --------------------------------------------------------------------------
@@ -403,6 +452,246 @@ def phase_e(torch, device, workdir, n_ref=8192, n_query=1024, n_strains=64,
           "stages": stages, "launches": launches,
           "peak_device_bytes": peak, "spot_check_rows": spot_rows,
           "seconds": time.perf_counter() - t0})
+    return launches, SimpleNamespace(
+        planes=planes, lengths=lengths, freqs=freqs, n_ref=n_ref,
+        names=names, strain_of=strain_of, X=X, q_dists=q_dists, model=model)
+
+
+# --------------------------------------------------------------------------
+# F, G: the refine / threshold path under the packed kernel choice
+# --------------------------------------------------------------------------
+
+class RecordSweeps:
+    """Record the boundary sweeps models/refine.py runs: (kind, args,
+    scores, seconds) per call, kind "device" (ops/device_sweep.py) or
+    "host" (network/incremental.py). The functions are wrapped, not
+    replaced; both return host arrays, so a call's seconds include its
+    device work."""
+
+    def __enter__(self):
+        from poppunk_tpu_torch.models import refine
+
+        self.module, self.calls = refine, []
+        self.saved = {}
+        for kind, attr in (("device", "sweep_scores_device"),
+                           ("host", "grow_network_scores")):
+            fn = self.saved[attr] = getattr(refine, attr)
+            setattr(refine, attr, self._recorder(kind, fn))
+        return self
+
+    def _recorder(self, kind, fn):
+        def record(*args, **kwargs):
+            t = time.perf_counter()
+            scores = fn(*args, **kwargs)
+            self.calls.append((kind, args, scores, time.perf_counter() - t))
+            return scores
+        return record
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.module, attr, fn)
+
+    def global_sweeps(self, n_offsets):
+        """The calls that scored a whole offset grid (not the local
+        search's one-offset scores)."""
+        return [c for c in self.calls if c[1][4] == n_offsets]
+
+
+def read_dists(prefix):
+    """(names, X) of a database's ``.dists`` (the reference's pickle +
+    npy pair)."""
+    import pickle
+
+    stem = os.path.join(prefix, os.path.basename(prefix) + ".dists")
+    with open(stem + ".pkl", "rb") as f:
+        names = pickle.load(f)[0]
+    return names, np.load(stem + ".npy")
+
+
+def phase_f(torch, device, workdir, d):
+    """The CLIs under KERNEL_CHOICE packed on phase D's population and its
+    BGMM fit: create-db (distances equal phase D's bit for bit), refine
+    with --indiv-refine both, threshold, and assign with the refine model
+    with and without --core --accessory. Returns packed launches per
+    stage."""
+    from poppunk_tpu_torch.cli.assign import main as assign_main
+    from poppunk_tpu_torch.cli.main import main as poppunk_main
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    gpu_dist, gpu_model = d.gpu[:1], d.gpu[1:]
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    db, refined, thr = path("db_packed"), path("refined"), path("threshold")
+
+    def run(stage, fn, argv):
+        t = time.perf_counter()
+        n0 = mc.PACKED_LAUNCHES
+        result = fn(argv)
+        stages[stage] = elapsed(torch, t)
+        launches[stage] = mc.PACKED_LAUNCHES - n0
+        return result
+
+    run("create_db", poppunk_main, ["--create-db", "--r-files", d.rfile,
+                                    "--output", db, "--no-plot"] + gpu_dist)
+    names, X = read_dists(db)
+    want_names, want = read_dists(d.db)
+    if names != want_names or not np.array_equal(X, want):
+        raise AssertionError("packed create-db distances differ from the "
+                             "standard kernel's")
+
+    with RecordSweeps() as sweeps:
+        model, _ = run("fit_refine", poppunk_main, [
+            "--fit-model", "refine", "--ref-db", db, "--model-dir", d.db,
+            "--output", refined, "--indiv-refine", "both",
+            "--no-plot"] + gpu_model)
+    kinds = sorted({c[0] for c in sweeps.global_sweeps(40)})
+    if device.type == "cuda" and kinds != ["device"]:
+        raise AssertionError(f"refine's global sweeps ran on {kinds}")
+    if not model.indiv_fitted:
+        raise AssertionError("--indiv-refine both did not fit both boundaries")
+    ref_clusters = {}  # the refined networks' clusters, by fit type
+    for ext in ("", "_core", "_accessory"):
+        clusters = ref_clusters[ext] = read_clusters(os.path.join(
+            refined, f"refined{ext}_clusters.csv"))
+        if set(clusters) != set(d.refs):
+            raise AssertionError(f"refined{ext} clusters miss samples")
+        check_partition(clusters, d.strain_of)
+
+    # the threshold at the core boundary refine found, in distance units
+    threshold = float(model.core_boundary * model.scale[0])
+    run("fit_threshold", poppunk_main, [
+        "--fit-model", "threshold", "--threshold", repr(threshold),
+        "--ref-db", db, "--output", thr, "--no-plot"])
+    check_partition(read_clusters(os.path.join(thr, "threshold_clusters.csv")),
+                    d.strain_of)
+
+    for stage, flags in (("assign", []),
+                         ("assign_core_accessory", ["--core", "--accessory"])):
+        out = path(stage)
+        run(stage, assign_main, ["--db", refined, "--query", d.qfile,
+                                 "--output", out] + d.gpu + flags)
+        for ext in (("", "_core", "_accessory") if flags else ("",)):
+            name = f"{stage}{ext}{'_refined' if ext else ''}_clusters.csv"
+            q_clusters = read_clusters(os.path.join(out, name))
+            if set(q_clusters) != set(d.queries):
+                raise AssertionError(f"{name}: assigned "
+                                     f"{sorted(q_clusters)}")
+            check_queries(q_clusters, ref_clusters[ext], d.strain_of)
+
+    emit({"phase": "F", "kernel_choice": mc.KERNEL_CHOICE,
+          "threshold": threshold, "global_sweeps": kinds,
+          "boundaries": {"x": float(model.optimal_x),
+                         "y": float(model.optimal_y),
+                         "core": float(model.core_boundary),
+                         "accessory": float(model.accessory_boundary)},
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return {k: launches[k] for k in ("create_db", "assign",
+                                     "assign_core_accessory")}
+
+
+def phase_g(torch, device, workdir, e):
+    """Phase E's planted population under KERNEL_CHOICE packed: the packed
+    all-vs-all (equal to phase E's distances bit for bit), refine from
+    phase E's BGMM fit with the device sweep (its 40 global scores held to
+    the host sweep on the same edges), the refine network, and fused
+    boundary-post assignment of the queries. Returns packed launches."""
+    from poppunk_tpu_torch.assign import add_query_to_network, fetch_network
+    from poppunk_tpu_torch.cli.main import make_network_and_refs
+    from poppunk_tpu_torch.models import RefineFit
+    from poppunk_tpu_torch.network.clusters import print_clusters
+    from poppunk_tpu_torch.network.incremental import grow_network_scores
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.device_sweep import sweep_scores_device
+    from poppunk_tpu_torch.ops.distances import (condensed_self_block,
+                                                 pairwise_block)
+    from poppunk_tpu_torch.ops.fused_assign import model_post_spec
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    stages = {}
+    n0 = mc.PACKED_LAUNCHES
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        stages[name] = elapsed(torch, t)
+        return out
+
+    n = e.n_ref
+    rlist, qlist = e.names[:n], e.names[n:]
+    pr, lr, fr = e.planes[:n], e.lengths[:n], e.freqs[:n]
+    pq, lq, fq = e.planes[n:], e.lengths[n:], e.freqs[n:]
+
+    X = timed("distances", lambda: condensed_self_block(
+        pr, lr, fr, KLIST, ss64, bbits, device=device))
+    if not np.array_equal(X, e.X):
+        raise AssertionError("packed all-vs-all distances differ from the "
+                             "standard kernel's")
+
+    out = os.path.join(workdir, "planted_refine")
+    model = RefineFit(out, device=device)
+    with RecordSweeps() as sweeps:
+        y = timed("refine_fit_assign", lambda: model.fit(
+            X, rlist, e.model, max_move=0.0, min_move=0.0))
+    (kind, sweep_args, scores, sweep_s), = sweeps.global_sweeps(40)
+    if device.type == "cuda" and kind != "device":
+        raise AssertionError(f"refine's global sweep ran on the {kind}")
+
+    # the same edges through the other scorer
+    n_edges = len(sweep_args[1])
+    if kind == "device":
+        other = timed("host_sweep", lambda: grow_network_scores(
+            *sweep_args[:5], score_idx=0))
+    else:
+        other = timed("device_sweep", lambda: sweep_scores_device(
+            *sweep_args[:5], device))
+    np.testing.assert_allclose(scores, other, rtol=0, atol=SWEEP_ATOL)
+    if int(np.argmin(scores)) != int(np.argmin(other)):
+        raise AssertionError("device and host sweeps disagree on the argmin")
+
+    args = SimpleNamespace(graph_weights=False, summary_sample=None,
+                           betweenness_sample=100, external_clustering=None,
+                           threads=1, ref_db=out, output=out,
+                           indiv_refine=None)
+    timed("network_clusters_refs",
+          lambda: make_network_and_refs(model, y, rlist, X, out, args))
+    ref_clusters = read_clusters(os.path.join(out,
+                                              "planted_refine_clusters.csv"))
+    check_partition(ref_clusters, e.strain_of)
+
+    def assign():
+        dists, classes = pairwise_block(
+            pq, pr, lq, lr, fq, fr, KLIST, ss64, bbits,
+            post_spec=model_post_spec(model), device=device)
+        G, old_clusters = fetch_network(out, rlist)
+        G, _ = add_query_to_network(rlist, qlist, G, classes.reshape(-1),
+                                    model, out, kmers=list(KLIST))
+        clusters, _ = print_clusters(G, rlist + qlist,
+                                     os.path.join(out, "queries"),
+                                     old_clusters, print_ref=False)
+        return dists, {q: str(clusters[q]) for q in qlist}
+
+    q_dists, q_clusters = timed("fused_query_assign", assign)
+    launches = mc.PACKED_LAUNCHES - n0
+    if not np.array_equal(q_dists, e.q_dists):
+        raise AssertionError("packed query distances differ from the "
+                             "standard kernel's")
+    check_queries(q_clusters, ref_clusters, e.strain_of)
+
+    emit({"phase": "G", "kernel_choice": mc.KERNEL_CHOICE,
+          "references": n, "queries": len(qlist),
+          "global_sweep": kind, "global_sweep_s": sweep_s,
+          "local_sweeps": len(sweeps.calls) - 1,
+          "local_sweeps_s": sum(c[3] for c in sweeps.calls) - sweep_s,
+          "sweep_edges": n_edges,
+          "sweep_argmin": int(np.argmin(scores)),
+          "sweep_max_abs_diff": float(np.abs(scores - other).max()),
+          "boundary": [float(model.optimal_x), float(model.optimal_y)],
+          "within_pairs": int((np.asarray(y) == model.within_label).sum()),
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -426,22 +715,48 @@ def main():
     device = torch.device("cuda", 0)
     smi = phase_a(torch)
     phase_b()
-    max_err, timing = phase_c(torch, device)
+    kernels = phase_c(torch, device)
+
+    # each path runs with the launch counts set to 0 just before it; the
+    # phase reads its kernel's count just after it (before any spot check
+    # of its own, whose comparison launches count in no path)
+    launches = {"match_counts": 0, "match_counts_packed": 0}
+
+    def path(name, run, kernel, other):
+        mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
+        stages, ctx = run()
+        if not isinstance(stages, dict):
+            stages = {name: stages}
+        if min(stages.values()) < 1:
+            raise AssertionError(f"phase {name} stages skipped {kernel}: "
+                                 f"{stages}")
+        if getattr(mc, other):
+            raise AssertionError(f"phase {name} launched the other kernel "
+                                 f"({other} = {getattr(mc, other)})")
+        launches[kernel] += sum(stages.values())
+        return ctx
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        mc.LAUNCHES = 0  # count the main path's launches only
-        d = phase_d(torch, device, workdir, h5py_version=h5)
-        if min(d.values()) < 1:
-            raise AssertionError(f"phase D stages skipped the kernel: {d}")
-        e = phase_e(torch, device, workdir)
-        if e < 1:
-            raise AssertionError("phase E never launched the kernel")
+        std = ("match_counts", "PACKED_LAUNCHES")
+        packed = ("match_counts_packed", "LAUNCHES")
+        d = path("D", lambda: phase_d(torch, device, workdir,
+                                      h5py_version=h5), *std)
+        e = path("E", lambda: phase_e(torch, device, workdir), *std)
+        mc.KERNEL_CHOICE = "packed"
+        path("F", lambda: (phase_f(torch, device, workdir, d), None),
+             *packed)
+        path("G", lambda: (phase_g(torch, device, workdir, e), None),
+             *packed)
     emit({"kernels": [{
-        "name": "match_counts", "route": "cuda",
-        "source": "poppunk_tpu_torch/csrc/match_counts.cu",
-        "replaces": "poppunk_tpu/ops/pallas_jaccard.py:76",
-        "launches": sum(d.values()) + e, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"]}]})
+        "name": name, "route": "cuda",
+        "source": f"poppunk_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": kernels[name]["max_abs_err"],
+        "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+        for name, replaces in (
+            ("match_counts", "poppunk_tpu/ops/pallas_jaccard.py:76"),
+            ("match_counts_packed",
+             "poppunk_tpu/ops/pallas_jaccard.py:229"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

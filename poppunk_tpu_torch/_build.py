@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/libpoppunk_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -shared -o build/libpoppunk_kernels_<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a stale one is never loaded. The build runs at the
@@ -19,16 +21,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared"]
 
 _lib = None
 build_seconds = None  # wall time of this process's build (None: cached)
+ptxas_report = None  # ptxas's per-kernel registers / spills of that build
 
 
 def find_nvcc():
@@ -52,7 +57,7 @@ def _sources():
 
 
 def library_path():
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -60,24 +65,40 @@ def library_path():
                         f"libpoppunk_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def _run(cmds):
+    """Run nvcc commands all at once; raise with the first failure's
+    stderr. Returns their stderr, in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return errs
+
+
 def build():
     """Compile the kernels unless this source hash is built; return the
     library path."""
-    global build_seconds
+    global build_seconds, ptxas_report
     out = library_path()
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", tmp] + _sources()
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objects = [os.path.join(tmp_dir, os.path.basename(src) + ".o")
+                   for src in _sources()]
+        errs = _run([[nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+                     for src, obj in zip(_sources(), objects)])
+        tmp = os.path.join(tmp_dir, os.path.basename(out))
+        _run([[nvcc] + LINK_FLAGS + ["-o", tmp] + objects])
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
     build_seconds = time.perf_counter() - t0
+    ptxas_report = "".join(errs)
     return out
 
 
@@ -90,5 +111,9 @@ def load():
         lib.match_counts_launch.restype = ci
         lib.match_counts_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                             ci, vp]
+        ll = ctypes.c_longlong
+        lib.match_counts_packed_launch.restype = ci
+        lib.match_counts_packed_launch.argtypes = (
+            [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
         _lib = lib
     return _lib

@@ -6,7 +6,10 @@ reference distances with every pair classified in the same pass on the
 distance device, network attachment with stable cluster naming, and the
 optional database update. Sketching, the HDF5 database and QC are the
 reference's own JAX-free modules; distances, the model and the network
-are this package's. Only BGMM models load here (models/base.py).
+are this package's. BGMM and refine / threshold models load here
+(models/base.py); a refine model fitted with ``--indiv-refine`` also
+assigns on its core-only and accessory-only boundaries (``--core``,
+``--accessory``), reusing the distances of the first pass.
 """
 
 import os
@@ -39,12 +42,18 @@ def _file_base(prefix):
     return os.path.join(prefix, os.path.basename(prefix))
 
 
-def fetch_network(network_dir, ref_list, ref_graph=False):
+def fetch_network(network_dir, ref_list, ref_graph=False, core_only=False,
+                  accessory_only=False):
     """Load the network accompanying a fitted model
-    (fetchNetwork, PopPUNK/network.py:49-118).
+    (fetchNetwork, PopPUNK/network.py:49-118); ``core_only`` /
+    ``accessory_only`` pick the networks of an indiv-refine fit.
 
     Returns (graph, old_cluster_csv_path)."""
     base = _file_base(network_dir)
+    if core_only:
+        base += "_core"
+    elif accessory_only:
+        base += "_accessory"
     stems = []
     if ref_graph:
         stems.append(base + ".refs_graph")
@@ -65,17 +74,21 @@ def fetch_network(network_dir, ref_list, ref_graph=False):
 
 
 def add_query_to_network(rlist, qlist, G, assignments, model, query_db_prefix,
-                         kmers=None, query_query=False, strand_preserved=False,
+                         kmers=None, distance_type="euclidean",
+                         query_query=False, strand_preserved=False,
                          weights=None, device=None):
     """Attach queries to the reference network
-    (addQueryToNetwork, PopPUNK/network.py:1315-1442). Query-query
-    distances, when needed, run on ``device``.
+    (addQueryToNetwork, PopPUNK/network.py:1315-1442). ``distance_type``
+    ("euclidean", "core" or "accessory") picks the boundary that
+    classifies query-query pairs and the edge weights; those distances,
+    when needed, run on ``device``.
 
     Returns (new graph, qq distance matrix or None)."""
     n_ref = len(rlist)
     G = construct_network_from_assignments(
         rlist, qlist, assignments, within_label=model.within_label,
         dist_mat=weights, use_weights=weights is not None,
+        weights_type=distance_type if weights is not None else "euclidean",
         previous_network=G, summarise=False)
 
     qq_dist_mat = None
@@ -93,17 +106,24 @@ def add_query_to_network(rlist, qlist, G, assignments, model, query_db_prefix,
             sys.stderr.write("Calculating all query-query distances\n")
             add_random(query_db_prefix, qlist, kmers, strand_preserved)
             q_sketches = read_sketches(query_db_prefix, qlist)
+            qq_slope = {"core": 0, "accessory": 1}.get(distance_type)
             qq_dist_mat, qq_assign = query_db(
                 q_sketches, None, kmers, self_mode=True,
                 use_rc=not strand_preserved,
-                post_spec=model_post_spec(model), device=device)
+                post_spec=model_post_spec(model, slope=qq_slope),
+                device=device)
             edges = generate_tuples(np.asarray(qq_assign), model.within_label,
                                     self=True, int_offset=n_ref)
             w = None
             if weights is not None:
                 rows = np.flatnonzero(np.asarray(qq_assign)
                                       == model.within_label)
-                w = np.sqrt((qq_dist_mat[rows] ** 2).sum(axis=1))
+                if distance_type == "core":
+                    w = qq_dist_mat[rows, 0]
+                elif distance_type == "accessory":
+                    w = qq_dist_mat[rows, 1]
+                else:
+                    w = np.sqrt((qq_dist_mat[rows] ** 2).sum(axis=1))
             G = G.add_edges(edges, w)
     return G, qq_dist_mat
 
@@ -113,9 +133,9 @@ def assign_query(ref_db, q_files, output, qc_dict, update_db=False,
                  stable=None, threads=1, overwrite=False, plot_fit=0,
                  graph_weights=False, model_dir=None, strand_preserved=False,
                  previous_clustering=None, external_clustering=None,
-                 save_partial_query_graph=False, use_full_network=False,
-                 min_kmer_count=0, exact_count=False, dist_device=None,
-                 model_device=None):
+                 core=False, accessory=False, save_partial_query_graph=False,
+                 use_full_network=False, min_kmer_count=0, exact_count=False,
+                 dist_device=None, model_device=None):
     """Sketch queries then assign (assign_query, PopPUNK/assign.py:249)."""
     if os.path.abspath(ref_db) == os.path.abspath(output) and not overwrite:
         sys.stderr.write("--output and --db must be different to "
@@ -136,8 +156,8 @@ def assign_query(ref_db, q_files, output, qc_dict, update_db=False,
         ref_db, q_names, output, qc_dict, update_db, write_references,
         distances, serial, stable, threads, overwrite, plot_fit,
         graph_weights, model_dir, strand_preserved, previous_clustering,
-        external_clustering, save_partial_query_graph, use_full_network,
-        dist_device, model_device)
+        external_clustering, core, accessory, save_partial_query_graph,
+        use_full_network, dist_device, model_device)
 
 
 def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
@@ -145,9 +165,9 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
                       stable=None, threads=1, overwrite=False, plot_fit=0,
                       graph_weights=False, model_dir=None,
                       strand_preserved=False, previous_clustering=None,
-                      external_clustering=None, save_partial_query_graph=False,
-                      use_full_network=False, dist_device=None,
-                      model_device=None):
+                      external_clustering=None, core=False, accessory=False,
+                      save_partial_query_graph=False, use_full_network=False,
+                      dist_device=None, model_device=None):
     """Assign already-sketched queries
     (assign_query_hdf5, PopPUNK/assign.py:326)."""
     from .models import load_cluster_fit
@@ -197,138 +217,180 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
     kmers = list(read_db_params(ref_db)[0])
     prev_clustering_dir = (previous_clustering or model_prefix).rstrip("/")
 
-    if os.path.isfile(distances + ".pkl"):
-        r_names = read_pickle(distances, enforce_self=True,
-                              distances=False)[0]
-    elif update_db:
-        sys.stderr.write("Distance order .pkl missing, cannot use "
-                         "--update-db\n")
-        sys.exit(1)
-    else:
-        r_names = get_seqs_in_db(db_h5_path(ref_db))
+    fit_type_list = ["default"]
+    if model.type == "refine" and model.indiv_fitted:
+        if core:
+            fit_type_list.append("core_refined")
+        if accessory:
+            fit_type_list.append("accessory_refined")
 
-    ref_file_name = _file_base(model_prefix) + ".refs"
-    use_ref_graph = (os.path.isfile(ref_file_name) and update_db != "full"
-                     and not use_full_network)
-    if use_ref_graph:
-        with open(ref_file_name) as f:
-            ref_names = frozenset(line.rstrip() for line in f)
-        r_names = [r for r in r_names if r in ref_names]
-
-    # Name clashes: rename queries with a _query suffix
-    same_names = set(r_names).intersection(q_names)
-    if same_names:
-        warnings.warn("Names of queries match names in reference "
-                      "database\n", stacklevel=2)
-        if not write_references:
-            sys.stderr.write("Not running -- change names or add "
-                             "--write-references to override this "
-                             "behaviour\n")
+    isolate_clustering = {}
+    dist_cache_key = dist_cache = None
+    for fit_type in fit_type_list:
+        ext = "" if fit_type == "default" else "_" + fit_type
+        if os.path.isfile(distances + ".pkl"):
+            r_names = read_pickle(distances, enforce_self=True,
+                                  distances=False)[0]
+        elif update_db:
+            sys.stderr.write("Distance order .pkl missing, cannot use "
+                             "--update-db\n")
             sys.exit(1)
-        import h5py
+        else:
+            r_names = get_seqs_in_db(db_h5_path(ref_db))
 
-        with h5py.File(db_h5_path(output), "r+") as query_h5:
-            sketch_grp = query_h5["sketches"]
-            for idx, query in enumerate(q_names):
-                if query in same_names:
-                    new_name = query + "_query"
-                    q_names[idx] = new_name
-                    sketch_grp.move(query, new_name)
-
-    sys.stderr.write(f"Calculating query distances against "
-                     f"{len(r_names)} references\n")
-    # every pair is classified against the model in the distance pass
-    with stage("query_distances", sync=True):
-        r_sketches = read_sketches(ref_db, r_names)
-        q_sketches = read_sketches(output, q_names)
-        qr_dist_mat, fused_assignments = query_db(
-            r_sketches, q_sketches, kmers, use_rc=not strand_preserved,
-            post_spec=model_post_spec(model), device=dist_device)
-    if plot_fit > 0:
-        _plot_query_fits(ref_db, output, r_names, q_names, kmers, plot_fit,
-                         not strand_preserved, dist_device)
-
-    if qc_dict["run_qc"]:
-        sys.stderr.write("Running QC on distance matrix\n")
-        passing, failed_dist_qc = qc_dist_mat(qr_dist_mat, r_names,
-                                              q_names, ref_db, qc_dict)
-        failed_dist_samples = frozenset(q_names) - frozenset(passing)
-        if failed_dist_samples:
-            sys.stderr.write(
-                f"{len(failed_dist_samples)} samples failed:\n"
-                f"{','.join(failed_dist_samples)}\n")
-            write_qc_failure_report(
-                failed_dist_samples | failed_assembly_samples,
-                [failed_dist_qc, failed_assembly_qc], output)
-            if len(failed_dist_samples) == len(q_names):
-                sys.exit(1)
-            q_names, qr_dist_mat, fused_assignments = \
-                prune_query_distance_matrix(
-                    r_names, q_names, failed_dist_samples, qr_dist_mat,
-                    fused_assignments)
-
-    (genome_network, isolate_clustering, merged_queries, q_names,
-     qr_dist_mat) = _assign_network(
-        model, r_names, q_names, qr_dist_mat, fused_assignments,
-        prev_clustering_dir, output, kmers, qc_dict, serial, stable,
-        update_db, write_references, graph_weights, strand_preserved,
-        external_clustering, use_ref_graph, dist_device)
-
-    # Database update / distance persistence (assign.py:735-817)
-    dists_out = _file_base(output) + ".dists"
-    if update_db:
-        sys.stderr.write("Updating reference database to " + output + "\n")
-        join_dbs(ref_db, output, output,
-                 update_random={"strand_preserved": strand_preserved})
-        sys.stderr.write("Saving model and network\n")
-        if update_db == "full":
-            save_network(genome_network, prefix=output, suffix="_graph")
-        if os.path.abspath(output) != os.path.abspath(model.outPrefix):
-            model.copy(output)
-
-        combined_seq = list(r_names) + list(q_names)
-        store_pickle(combined_seq, combined_seq, True, None, dists_out)
-
-        if os.path.isfile(ref_file_name):
-            from .network.cliques import extract_references
-
-            sys.stderr.write(f"Finding references ({update_db})\n")
+        ref_file_name = _file_base(model_prefix) + ext + ".refs"
+        use_ref_graph = (os.path.isfile(ref_file_name)
+                         and update_db != "full" and not use_full_network)
+        if use_ref_graph:
             with open(ref_file_name) as f:
-                existing_refs = [line.rstrip() for line in f]
-            ref_idx, _, _, genome_network = extract_references(
-                genome_network, combined_seq, output,
-                merged_queries=merged_queries, existing_refs=existing_refs,
-                threads=threads, fast_mode=update_db == "fast")
-            to_remove = [combined_seq[n]
-                         for n in set(range(len(combined_seq)))
-                         .difference(ref_idx)]
-            if to_remove:
+                ref_names = frozenset(line.rstrip() for line in f)
+            r_names = [r for r in r_names if r in ref_names]
+
+        # Name clashes: rename queries with a _query suffix
+        same_names = set(r_names).intersection(q_names)
+        if same_names:
+            warnings.warn("Names of queries match names in reference "
+                          "database\n", stacklevel=2)
+            if not write_references:
+                sys.stderr.write("Not running -- change names or add "
+                                 "--write-references to override this "
+                                 "behaviour\n")
+                sys.exit(1)
+            import h5py
+
+            with h5py.File(db_h5_path(output), "r+") as query_h5:
+                sketch_grp = query_h5["sketches"]
+                for idx, query in enumerate(q_names):
+                    if query in same_names:
+                        new_name = query + "_query"
+                        q_names[idx] = new_name
+                        sketch_grp.move(query, new_name)
+
+        # the boundary that classifies pairs (reference assign.py:444-460)
+        if fit_type == "core_refined" or (model.type == "refine"
+                                          and model.threshold):
+            dist_type, fused_slope = "core", 0
+        elif fit_type == "accessory_refined":
+            dist_type, fused_slope = "accessory", 1
+        else:
+            dist_type, fused_slope = "euclidean", None
+
+        if dist_cache_key == (tuple(r_names), tuple(q_names)):
+            # same reference and query sets as the previous fit type:
+            # reuse the (already QC'd) matrix, classify it on the host
+            # (the reference reuses too, assign.py:500)
+            sys.stderr.write("Reusing distances from previous fit type\n")
+            qr_dist_mat = dist_cache
+            query_assignments = model.assign(qr_dist_mat, slope=fused_slope)
+        else:
+            sys.stderr.write(f"Calculating query distances against "
+                             f"{len(r_names)} references\n")
+            # every pair is classified against the model in the distance
+            # pass
+            with stage("query_distances", sync=True):
+                r_sketches = read_sketches(ref_db, r_names)
+                q_sketches = read_sketches(output, q_names)
+                qr_dist_mat, query_assignments = query_db(
+                    r_sketches, q_sketches, kmers,
+                    use_rc=not strand_preserved,
+                    post_spec=model_post_spec(model, slope=fused_slope),
+                    device=dist_device)
+            if fit_type == "default" and plot_fit > 0:
+                _plot_query_fits(ref_db, output, r_names, q_names, kmers,
+                                 plot_fit, not strand_preserved, dist_device)
+
+            if qc_dict["run_qc"]:
+                sys.stderr.write("Running QC on distance matrix\n")
+                passing, failed_dist_qc = qc_dist_mat(
+                    qr_dist_mat, r_names, q_names, ref_db, qc_dict)
+                failed_dist_samples = frozenset(q_names) - frozenset(passing)
+                if failed_dist_samples:
+                    sys.stderr.write(
+                        f"{len(failed_dist_samples)} samples failed:\n"
+                        f"{','.join(failed_dist_samples)}\n")
+                    write_qc_failure_report(
+                        failed_dist_samples | failed_assembly_samples,
+                        [failed_dist_qc, failed_assembly_qc], output)
+                    if len(failed_dist_samples) == len(q_names):
+                        sys.exit(1)
+                    q_names, qr_dist_mat, query_assignments = \
+                        prune_query_distance_matrix(
+                            r_names, q_names, failed_dist_samples,
+                            qr_dist_mat, query_assignments)
+
+        (genome_network, isolate_clustering, merged_queries, q_names,
+         qr_dist_mat) = _assign_network(
+            model, fit_type, ext, dist_type, r_names, q_names, qr_dist_mat,
+            query_assignments, prev_clustering_dir, output, kmers, qc_dict,
+            serial, stable, update_db, write_references, graph_weights,
+            strand_preserved, external_clustering, use_ref_graph,
+            dist_device)
+        dist_cache_key = (tuple(r_names), tuple(q_names))
+        dist_cache = qr_dist_mat
+
+        # Database update / distance persistence (assign.py:735-817)
+        dists_out = _file_base(output) + ".dists"
+        if update_db:
+            sys.stderr.write("Updating reference database to " + output
+                             + "\n")
+            if fit_type == "default":
+                join_dbs(ref_db, output, output,
+                         update_random={"strand_preserved":
+                                        strand_preserved})
+            sys.stderr.write("Saving model and network\n")
+            if update_db == "full":
                 save_network(genome_network, prefix=output,
-                             suffix=".refs_graph")
-                remove_from_db(output, output, to_remove)
-                os.rename(_file_base(output) + ".tmp.h5",
-                          _file_base(output) + ".refs.h5")
-    else:
-        store_pickle(r_names, q_names, False, qr_dist_mat, dists_out)
-        if save_partial_query_graph and not serial:
-            G_sub, pruned_names = remove_non_query_components(
-                genome_network, r_names, q_names, relabel=True)
-            save_network(G_sub, prefix=output, suffix="_graph")
-            with open(_file_base(output) + "_query.subset", "w") as f:
-                for isolate in pruned_names:
-                    f.write(isolate + "\n")
+                             suffix=ext + "_graph")
+            if os.path.abspath(output) != os.path.abspath(model.outPrefix) \
+                    and fit_type == "default":
+                model.copy(output)
+
+            combined_seq = list(r_names) + list(q_names)
+            store_pickle(combined_seq, combined_seq, True, None, dists_out)
+
+            if os.path.isfile(ref_file_name):
+                from .network.cliques import extract_references
+
+                sys.stderr.write(f"Finding references ({update_db})\n")
+                with open(ref_file_name) as f:
+                    existing_refs = [line.rstrip() for line in f]
+                ref_idx, _, _, genome_network = extract_references(
+                    genome_network, combined_seq, output,
+                    merged_queries=merged_queries, out_suffix=ext,
+                    existing_refs=existing_refs, threads=threads,
+                    fast_mode=update_db == "fast")
+                to_remove = [combined_seq[n]
+                             for n in set(range(len(combined_seq)))
+                             .difference(ref_idx)]
+                if to_remove:
+                    save_network(genome_network, prefix=output,
+                                 suffix=ext + ".refs_graph")
+                    remove_from_db(output, output, to_remove)
+                    os.rename(_file_base(output) + ".tmp.h5",
+                              _file_base(output) + ext + ".refs.h5")
+        else:
+            store_pickle(r_names, q_names, False, qr_dist_mat, dists_out)
+            if save_partial_query_graph and not serial:
+                G_sub, pruned_names = remove_non_query_components(
+                    genome_network, r_names, q_names, relabel=True)
+                save_network(G_sub, prefix=output, suffix=ext + "_graph")
+                with open(_file_base(output) + "_query.subset", "w") as f:
+                    for isolate in pruned_names:
+                        f.write(isolate + "\n")
 
     return isolate_clustering
 
 
-def _assign_network(model, r_names, q_names, qr_dist_mat, query_assignments,
-                    prev_clustering_dir, output, kmers, qc_dict, serial,
-                    stable, update_db, write_references, graph_weights,
-                    strand_preserved, external_clustering, use_ref_graph,
-                    device):
+def _assign_network(model, fit_type, ext, dist_type, r_names, q_names,
+                    qr_dist_mat, query_assignments, prev_clustering_dir,
+                    output, kmers, qc_dict, serial, stable, update_db,
+                    write_references, graph_weights, strand_preserved,
+                    external_clustering, use_ref_graph, device):
     """Attach to the network and name clusters (assign.py:576-734)."""
     genome_network, old_cluster_file = fetch_network(
-        prev_clustering_dir, r_names, ref_graph=use_ref_graph)
+        prev_clustering_dir, r_names, ref_graph=use_ref_graph,
+        core_only=fit_type == "core_refined",
+        accessory_only=fit_type == "accessory_refined")
     sys.stderr.write(f"Loading previous cluster assignments from "
                      f"{old_cluster_file}\n")
 
@@ -348,13 +410,14 @@ def _assign_network(model, r_names, q_names, qr_dist_mat, query_assignments,
                                             qr_dist_mat, query_assignments)
 
     weights = qr_dist_mat if graph_weights else None
-    output_fn = _file_base(output)
+    output_fn = _file_base(output) + ext
     merged_queries = []
 
     if not serial:
         genome_network, _ = add_query_to_network(
             r_names, q_names, genome_network, query_assignments, model,
-            output, kmers=kmers, query_query=bool(update_db),
+            output, kmers=kmers, distance_type=dist_type,
+            query_query=bool(update_db) and fit_type == "default",
             strand_preserved=strand_preserved, weights=weights,
             device=device)
         if qc_dict["run_qc"] and qc_dict.get("betweenness"):

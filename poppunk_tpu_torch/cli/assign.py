@@ -64,6 +64,8 @@ def main(arg_list=None):
         strand_preserved=args.strand_preserved,
         previous_clustering=args.previous_clustering,
         external_clustering=args.external_clustering,
+        core=args.core,
+        accessory=args.accessory,
         save_partial_query_graph=args.save_partial_query_graph,
         use_full_network=args.use_full_network,
         min_kmer_count=args.min_kmer_count,

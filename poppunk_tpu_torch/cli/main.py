@@ -1,11 +1,13 @@
-"""poppunk_tpu_torch — main CLI: --create-db, --fit-model bgmm, --use-model.
+"""poppunk_tpu_torch — main CLI: --create-db, --fit-model
+{bgmm,refine,threshold}, --use-model.
 
 Counterpart of poppunk_tpu/cli/main.py (PopPUNK/__main__.py:245-791) with
 the same parser, flags and on-disk conventions. ``--gpu-dist`` puts the
 distance engine on ``cuda:<--deviceid>``, ``--gpu-model`` the BGMM fit and
-assignment; without them a stage runs on the CPU. ``--gpu-sketch`` and
-``--gpu-graph`` parse and the work stays on the host. Model types other
-than BGMM and ``--qc-db`` exit with a message until they are ported.
+assignment and the refine boundary sweep; without them a stage runs on the
+CPU. ``--gpu-sketch`` and ``--gpu-graph`` parse and the work stays on the
+host. ``--fit-model dbscan`` / ``lineage`` and ``--qc-db`` exit with a
+message until they are ported.
 """
 
 import os
@@ -34,7 +36,7 @@ def main(arg_list=None):
 
         print_citation(args)
         sys.exit(0)
-    if args.qc_db or args.fit_model not in (False, "bgmm"):
+    if args.qc_db or args.fit_model in ("dbscan", "lineage"):
         mode = "--qc-db" if args.qc_db else f"--fit-model {args.fit_model}"
         sys.stderr.write(f"{mode} is not supported by poppunk_tpu_torch yet "
                          "(run it with poppunk_tpu)\n")
@@ -123,9 +125,9 @@ def plot_kmer_fits(db_prefix, names, klist, count, use_rc, device, seed=42):
 
 
 def fit_model(args, device):
-    """--fit-model bgmm / --use-model (a BGMM fit) on ``device``, then the
-    network, clusters and clique-pruned references on the host."""
-    from ..models import BGMMFit, load_cluster_fit
+    """--fit-model bgmm / refine / threshold or --use-model on ``device``,
+    then the network, clusters and clique-pruned references on the host."""
+    from ..models import BGMMFit, RefineFit, load_cluster_fit
 
     if args.ref_db is None:
         sys.stderr.write("Fitting a model requires --ref-db\n")
@@ -150,14 +152,43 @@ def fit_model(args, device):
                                      max_samples=args.model_subsample,
                                      device=device)
             model.set_threads(args.threads)
-            assignments = model.assign(X, args.assign_subsample)
-        else:
+            assignments = model.assign(X, *(
+                [args.assign_subsample] if model.type == "bgmm" else []))
+        elif args.fit_model == "bgmm":
             sys.stderr.write(f"Fitting bgmm model on {device}\n")
             model = BGMMFit(output, max_samples=args.model_subsample,
                             max_batch_size=args.assign_subsample,
                             assign_points=not args.for_refine, device=device)
             model.set_threads(args.threads)
             assignments = model.fit(X, args.K)
+        elif args.fit_model == "refine":
+            model_dir = (args.model_dir or ref_db).rstrip("/")
+            start_model = load_cluster_fit(
+                file_base(model_dir) + "_fit.pkl",
+                file_base(model_dir) + "_fit.npz",
+                max_samples=args.model_subsample, device=device)
+            model = RefineFit(output, device=device)
+            model.set_threads(args.threads)
+            assignments = model.fit(
+                X, rlist, start_model,
+                max_move=args.pos_shift, min_move=args.neg_shift,
+                startFile=args.manual_start,
+                indiv_refine=args.indiv_refine,
+                unconstrained=args.unconstrained,
+                multi_boundary=args.multi_boundary,
+                score_idx=args.score_idx,
+                no_local=args.no_local,
+                betweenness_sample=args.betweenness_sample,
+                sample_size=args.summary_sample,
+            )
+        else:  # threshold
+            if args.threshold is None:
+                sys.stderr.write("--fit-model threshold requires "
+                                 "--threshold\n")
+                sys.exit(1)
+            model = RefineFit(output, device=device)
+            model.set_threads(args.threads)
+            assignments = model.apply_threshold(X, args.threshold)
 
     model.save()
     if not args.no_plot:
@@ -193,19 +224,39 @@ def make_network_and_refs(model, assignments, rlist, X, output, args):
     from ..network.construct import construct_network_from_assignments
     from ..network.graph import save_network
 
-    G = construct_network_from_assignments(
-        rlist, rlist, assignments, within_label=model.within_label,
-        dist_mat=X, use_weights=args.graph_weights,
-        sample_size=args.summary_sample,
-        betweenness_sample=args.betweenness_sample,
-    )
-    save_network(G, prefix=output, suffix="_graph")
-    clustering, _ = print_clusters(
-        G, rlist, out_prefix=file_base(output),
-        external_cluster_csv=args.external_clustering,
-    )
+    # which distance projections to build networks for (indiv-refine adds
+    # core-only / accessory-only boundaries, reference __main__.py:635-654)
+    fit_types = {"combined": assignments}
+    suffixes = {"combined": ""}
+    if model.type == "refine" and model.indiv_fitted:
+        if args.indiv_refine in ("both", "core"):
+            fit_types["core"] = model.assign(X, slope=0)
+            suffixes["core"] = "_core"
+        if args.indiv_refine in ("both", "accessory"):
+            fit_types["accessory"] = model.assign(X, slope=1)
+            suffixes["accessory"] = "_accessory"
 
-    # clique-based reference pruning
+    isolate_clustering = {}
+    graphs = {}
+    for fit_type, y in fit_types.items():
+        suffix = suffixes[fit_type]
+        G = construct_network_from_assignments(
+            rlist, rlist, y, within_label=model.within_label, dist_mat=X,
+            use_weights=args.graph_weights,
+            sample_size=args.summary_sample,
+            betweenness_sample=args.betweenness_sample,
+        )
+        graphs[fit_type] = G
+        save_network(G, prefix=output, suffix=suffix + "_graph")
+        clustering, _ = print_clusters(
+            G, rlist, out_prefix=file_base(output) + suffix,
+            external_cluster_csv=args.external_clustering,
+            write_unwords=(fit_type == "combined"),
+        )
+        isolate_clustering[fit_type] = clustering
+
+    # clique-based reference pruning on the combined network
+    G = graphs["combined"]
     _, ref_names, _, G_ref = extract_references(
         G, rlist, output, threads=args.threads)
     if len(ref_names) < len(rlist):
@@ -228,7 +279,7 @@ def make_network_and_refs(model, assignments, rlist, X, output, args):
         ref_h5 = db_h5_path(args.ref_db.rstrip("/"))
         if os.path.isfile(ref_h5) and not os.path.isfile(db_h5_path(output)):
             shutil.copy(ref_h5, db_h5_path(output))
-    return clustering
+    return isolate_clustering
 
 
 if __name__ == "__main__":

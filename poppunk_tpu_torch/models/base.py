@@ -4,8 +4,9 @@ Counterpart of poppunk_tpu/models/base.py (PopPUNK/models.py:81-280):
 subsample + max-scale preprocessing on the host, artefacts
 ``<prefix>/<basename>_fit.npz`` + ``_fit.pkl`` with the pkl holding
 ``[fit_data_or_none, type_string]``, so the files are interchangeable with
-the JAX package's and PopPUNK's. This package fits and loads BGMM models;
-other types raise with the type's name until they are ported.
+the JAX package's and PopPUNK's. This package fits and loads BGMM and
+refine models (threshold fits are refine models); other types raise with
+the type's name until they are ported.
 """
 
 import os
@@ -20,15 +21,21 @@ def load_cluster_fit(pkl_file, npz_file, out_prefix="", max_samples=100000,
     goes to ``device``."""
     from .bgmm import BGMMFit
     from .compat import tolerant_pickle_load
+    from .refine import RefineFit
 
     with open(pkl_file, "rb") as f:
         fit_object, fit_type = tolerant_pickle_load(f)
-    if fit_type != "bgmm":
+    if fit_type == "bgmm":
+        sys.stderr.write("Loading BGMM 2D Gaussian model\n")
+        load_obj = BGMMFit(out_prefix, max_samples, device=device)
+    elif fit_type == "refine":
+        sys.stderr.write("Loading previously refined model\n")
+        load_obj = RefineFit(out_prefix, device=device)
+    else:
         raise RuntimeError(
             f"model type {fit_type!r} ({pkl_file}) is not supported by "
-            "poppunk_tpu_torch yet; only 'bgmm' models are ported")
-    sys.stderr.write("Loading BGMM 2D Gaussian model\n")
-    load_obj = BGMMFit(out_prefix, max_samples, device=device)
+            "poppunk_tpu_torch yet; only 'bgmm' and 'refine' models are "
+            "ported")
     load_obj.load(np.load(npz_file, allow_pickle=True), fit_object)
     return load_obj
 
@@ -36,11 +43,13 @@ def load_cluster_fit(pkl_file, npz_file, out_prefix="", max_samples=100000,
 class ClusterFit:
     """Base model (PopPUNK/models.py:195-280)."""
 
-    def __init__(self, out_prefix, seed=42):
+    def __init__(self, out_prefix, default_dtype=np.float32, seed=42):
         self.outPrefix = out_prefix
         if out_prefix != "" and not os.path.isdir(out_prefix):
             os.makedirs(out_prefix, exist_ok=True)
         self.fitted = False
+        self.indiv_fitted = False
+        self.default_dtype = default_dtype
         self.threads = 1
         self.seed = seed  # pinned (the reference leaves this unseeded)
 
@@ -52,6 +61,8 @@ class ClusterFit:
             if os.path.isfile(self.outPrefix):
                 raise RuntimeError(self.outPrefix + " already exists as a file")
             os.makedirs(self.outPrefix, exist_ok=True)
+        if X is not None:
+            self.default_dtype = X.dtype
         if getattr(self, "preprocess", False):
             rng = np.random.default_rng(self.seed)
             if X.shape[0] > self.max_samples:
@@ -61,6 +72,9 @@ class ClusterFit:
                 self.subsampled_X = np.copy(X)
             self.scale = np.amax(self.subsampled_X, axis=0)
             self.subsampled_X /= self.scale
+
+    def no_scale(self):
+        self.scale = np.array([1, 1], dtype=self.default_dtype)
 
     def copy(self, prefix):
         self.outPrefix = prefix

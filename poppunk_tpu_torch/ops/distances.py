@@ -3,7 +3,8 @@
 Counterpart of poppunk_tpu/ops/distances.py, per query chunk:
 
     packed bit-plane sketches (int32 words on the distance device)
-      -> bin match counts          ops/match_counts.py (CUDA kernel / twin)
+      -> bin match counts          ops/match_counts.py (CUDA kernel / twin;
+                                   standard or packed-lane by KERNEL_CHOICE)
       -> b-bit + random-match corrected Jaccard per k        torch ops
       -> constrained log-linear fit across k (kmer_fit.py)   torch ops
       -> (core, accessory) per pair, optionally classified (fused_assign)
@@ -11,14 +12,15 @@ Counterpart of poppunk_tpu/ops/distances.py, per query chunk:
 Row conventions are the reference's (PopPUNK/utils.py:199-226,
 PopPUNK/assign.py:690): self mode returns condensed i<j rows, query mode
 row ``q * n_ref + r``. Host arrays come in and go out as numpy; the
-reference planes move to the device once per call.
+reference planes move to the device, and under the packed choice are
+packed, once per call.
 """
 
 import numpy as np
 import torch
 
 from .kmer_fit import _fit_math
-from .match_counts import match_counts
+from . import match_counts as mc
 
 _LANES = 128
 
@@ -112,7 +114,7 @@ def _dist_chunk(qry, ref, klist, sketchsize64, bbits, random_correct,
     dists, or (dists, classes) with a post."""
     (planes_q, len_q, freq_q), (planes_r, len_r, freq_r) = qry, ref
     _, _, pad_bits = plane_geometry(sketchsize64, bbits)
-    matches = match_counts(planes_q, planes_r, pad_bits)
+    matches = mc.match_counts_device(planes_q, planes_r, pad_bits)
     j = corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
                            sketchsize64, bbits, random_correct, use_rc)
     if jaccard:
@@ -126,17 +128,23 @@ def _dist_chunk(qry, ref, klist, sketchsize64, bbits, random_correct,
 
 
 class _Operands:
-    """Planes, lengths and base frequencies of a genome set, on a device."""
+    """Planes, lengths and base frequencies of a genome set, on a device.
+    Under the packed kernel choice the planes are packed here, once, and
+    ``rows`` hands out views of the packed tensor."""
 
-    def __init__(self, planes, lengths, freqs, device):
+    def __init__(self, planes, lengths, freqs, device, pad_bits):
         self.planes = planes_to_tensor(planes, device)
+        if mc.KERNEL_CHOICE == "packed":
+            self.planes = mc.pack(self.planes, pad_bits)
         self.lengths = torch.as_tensor(lengths, device=device)
         self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                      device=device)
 
     def rows(self, start, stop):
-        return (self.planes[start:stop], self.lengths[start:stop],
-                self.freqs[start:stop])
+        planes = (self.planes.rows(start, stop)
+                  if isinstance(self.planes, mc.PackedPlanes)
+                  else self.planes[start:stop])
+        return planes, self.lengths[start:stop], self.freqs[start:stop]
 
 
 def _to_host(out, post_spec):
@@ -154,8 +162,9 @@ def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
     if post_spec is not None and jaccard:
         raise ValueError("post_spec requires (core, accessory) output")
     device = torch.device("cpu") if device is None else device
-    ref = _Operands(planes_r, len_r, freq_r, device)
-    qry = _Operands(planes_q, len_q, freq_q, device)
+    pad_bits = plane_geometry(sketchsize64, bbits)[2]
+    ref = _Operands(planes_r, len_r, freq_r, device, pad_bits)
+    qry = _Operands(planes_q, len_q, freq_q, device, pad_bits)
     out = []
     for start in range(0, planes_q.shape[0], chunk):
         o = _dist_chunk(qry.rows(start, start + chunk), ref.rows(0, None),
@@ -175,7 +184,8 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
     chunk is compared only with the genomes from its own first row on,
     and sliced to its upper-triangle rows at once."""
     device = torch.device("cpu") if device is None else device
-    ops = _Operands(planes, lengths, freqs, device)
+    ops = _Operands(planes, lengths, freqs, device,
+                    plane_geometry(sketchsize64, bbits)[2])
     n = planes.shape[0]
     out, out_extra = [], []
     for start in range(0, n, chunk):

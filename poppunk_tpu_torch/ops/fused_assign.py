@@ -1,21 +1,53 @@
-"""Model classification fused into the distance pass (BGMM).
+"""Model classification fused into the distance pass.
 
-Counterpart of poppunk_tpu/ops/fused_assign.py for BGMM models: the query
-chunk's (core, accessory) tile is classified on the device it was computed
-on, so serving fetches distances and classes in one pass instead of
-shipping the |Q| x |R| matrix to the host and back.
+Counterpart of poppunk_tpu/ops/fused_assign.py for refine / threshold
+boundaries and BGMM models: the query chunk's (core, accessory) tile is
+classified on the device it was computed on, so assignment fetches
+distances and classes in one pass instead of shipping the |Q| x |R| matrix
+to the host and back.
 
     spec = (name, static, params);  POST_FNS[name](dists, params, static)
 
-Models without a device classifier here (every type but BGMM, until ported)
-get no spec, and ``assign`` takes the two-pass route, as the reference
-does for lineage models. The reference's ``bgmm_stable`` post serves only
-poppunk_tpu/serve.py and is ported with it; ``--stable`` assignment picks
-each query's nearest reference on the host, as the reference's does.
+Models without a device classifier here (every type but refine and BGMM,
+until ported) get no spec, and ``assign`` classifies on the host, as the
+reference does for lineage models. The reference's ``*_stable`` posts
+serve only poppunk_tpu/serve.py and are ported with it; ``--stable``
+assignment picks each query's nearest reference on the host, as the
+reference's does.
 """
 
 import numpy as np
 import torch
+
+
+def _boundary_sign(dists, params, slope):
+    """int8 sign of each pair's signed distance to a line boundary (torch
+    twin of ops/boundary.assign_threshold, reference
+    src/boundary.cpp:42-80); within-strain pairs are -1."""
+    scale, x_max, y_max = params
+    Xs = dists.reshape(-1, 2) / scale
+    x0 = Xs[:, 0]
+    y0 = Xs[:, 1]
+    if slope == 2:
+        d = torch.where(
+            (x_max == 0) | (y_max == 0),
+            torch.sqrt(x0 * x0 + y0 * y0),
+            y0 * x_max + x0 * y_max - x_max * y_max,
+        )
+    elif slope == 0:
+        d = x0 - x_max
+    elif slope == 1:
+        d = y0 - y_max
+    else:
+        raise ValueError("slope must be 0, 1 or 2")
+    return torch.sign(d).to(torch.int8)
+
+
+def _post_boundary(dists, params, static):
+    """Boundary sign per pair, of shape dists.shape[:-1] (reference
+    _post_boundary)."""
+    (slope,) = static
+    return _boundary_sign(dists, params, slope).reshape(dists.shape[:-1])
 
 
 def _post_bgmm(dists, params, static):
@@ -28,19 +60,35 @@ def _post_bgmm(dists, params, static):
 
 
 POST_FNS = {
+    "boundary": _post_boundary,
     "bgmm": _post_bgmm,
 }
 
 
-def model_post_spec(model):
-    """(name, static, params) classifying pairs like ``model.assign``, or
-    None if the model has no fused classifier in this package."""
-    if getattr(model, "type", None) != "bgmm":
-        return None
-    params = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32)
-                   for a in (model.weights, model.means, model.covariances,
-                             model.scale))
-    return ("bgmm", (), params)
+def _f32(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+
+def model_post_spec(model, slope=None):
+    """(name, static, params) classifying pairs like ``model.assign`` (for
+    a refine model, like ``model.assign(X, slope=slope)``), or None if the
+    model has no fused classifier in this package."""
+    model_type = getattr(model, "type", None)
+    if model_type == "refine":
+        if slope is None:
+            slope = model.slope
+        if slope == 2:
+            x_max, y_max = model.optimal_x, model.optimal_y
+        elif slope == 0:
+            x_max, y_max = model.core_boundary, 0.0
+        else:
+            x_max, y_max = 0.0, model.accessory_boundary
+        return ("boundary", (int(slope),),
+                (_f32(model.scale), _f32(x_max), _f32(y_max)))
+    if model_type == "bgmm":
+        return ("bgmm", (), tuple(_f32(a) for a in (
+            model.weights, model.means, model.covariances, model.scale)))
+    return None
 
 
 def apply_post(dists, post_spec):

@@ -220,8 +220,8 @@ def test_load_rejects_other_model_types(tmp_path):
 
     pkl = tmp_path / "m_fit.pkl"
     with open(pkl, "wb") as f:
-        pickle.dump([None, "refine"], f)
-    with pytest.raises(RuntimeError, match="'refine'"):
+        pickle.dump([None, "dbscan"], f)
+    with pytest.raises(RuntimeError, match="'dbscan'"):
         load_cluster_fit(str(pkl), str(tmp_path / "m_fit.npz"))
 
 

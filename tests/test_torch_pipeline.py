@@ -7,6 +7,15 @@ in batch mode, with --serial, --stable and --update-db. Cluster CSVs and .refs m
 identical files; distances agree within the core/accessory tolerance of
 test_torch_distances.py (rtol 1e-5, atol 2e-5). Each package also reads
 the other's database.
+
+The refine path: both packages refine the JAX package's BGMM database
+(the same distances and start model in, so the ``_fit.npz`` boundaries
+must be equal) with --fit-model refine (default, --indiv-refine both,
+--unconstrained, --multi-boundary 3), --fit-model threshold and
+--use-model, then assign with the refine model, with and without
+--core --accessory. The port's distance passes run under both
+KERNEL_CHOICE values (standard and packed, a monkeypatched module
+attribute); every cluster CSV and .refs file must be identical.
 """
 
 import os
@@ -22,6 +31,7 @@ from poppunk_tpu.cli.main import main as jax_main
 from poppunk_tpu.utils import read_pickle
 from poppunk_tpu_torch.cli.assign import main as torch_assign
 from poppunk_tpu_torch.cli.main import main as torch_main
+from poppunk_tpu_torch.ops import match_counts as mc
 
 torch.set_num_threads(2)
 
@@ -68,10 +78,27 @@ def dbs(split, tmp_path_factory):
     return out
 
 
-def run_assign(pkg, db, qfile, mode, out):
+def run_assign(pkg, db, qfile, mode, out, extra=()):
     CLIS[pkg][1](["--db", db, "--query", qfile, "--output", out]
-                 + ASSIGN_MODES[mode])
+                 + ASSIGN_MODES[mode] + list(extra))
     return out
+
+
+def cluster_files(prefix):
+    """Names of the cluster CSVs and .refs files in an output directory
+    (not the unword CSVs: their names are drawn unseeded, as the
+    reference draws them)."""
+    return sorted(f for f in os.listdir(prefix)
+                  if (f.endswith("_clusters.csv") or f.endswith(".refs"))
+                  and not f.endswith("_unword_clusters.csv"))
+
+
+def assert_same_files(torch_dir, jax_dir):
+    names = cluster_files(jax_dir)
+    assert names and cluster_files(torch_dir) == names
+    for name in names:
+        assert read_bytes(os.path.join(torch_dir, name)) == \
+            read_bytes(os.path.join(jax_dir, name)), name
 
 
 def test_create_db_distances_agree(dbs):
@@ -173,10 +200,11 @@ def test_gpu_flag_without_cuda_raises(split, tmp_path):
 
 
 def test_port_never_imports_jax(split, tmp_path):
-    """In a fresh interpreter: after importing the package and after a CLI
-    run with plotting on, jax is not loaded."""
+    """In a fresh interpreter: after importing the package and after CLI
+    runs (create-db, BGMM, refine) with plotting on, jax is not loaded."""
     rfile, _ = split
     db = str(tmp_path / "nojax")
+    refine = str(tmp_path / "nojax_refine")
     script = f"""
 import sys
 import poppunk_tpu_torch, poppunk_tpu_torch.assign, poppunk_tpu_torch.cli.assign
@@ -186,6 +214,8 @@ main(['--create-db', '--r-files', {rfile!r}, '--output', {db!r},
       '--min-k', '13', '--max-k', '21', '--k-step', '4',
       '--sketch-size', '1024', '--plot-fit', '1'])
 main(['--fit-model', 'bgmm', '--ref-db', {db!r}, '--output', {db!r}])
+main(['--fit-model', 'refine', '--ref-db', {db!r}, '--output', {refine!r},
+      '--model-dir', {db!r}, '--indiv-refine', 'both'])
 assert 'jax' not in sys.modules, 'cli'
 print('NO_JAX_OK')
 """
@@ -197,3 +227,106 @@ print('NO_JAX_OK')
     for suffix in ("_distanceDistribution.png", "_DPGMM_fit.png",
                    "_DPGMM_fit_contours.pdf", "_fit_example_1.pdf"):
         assert os.path.isfile(base(db) + suffix), suffix
+    assert os.path.isfile(base(refine) + "_refined_fit.png")
+
+
+# --------------------------------------------------------------------------
+# refine and threshold
+# --------------------------------------------------------------------------
+
+REFINE_FITS = {
+    "refine": ["--fit-model", "refine"],
+    "indiv_both": ["--fit-model", "refine", "--indiv-refine", "both"],
+    "unconstrained": ["--fit-model", "refine", "--unconstrained"],
+    "multi_boundary": ["--fit-model", "refine", "--multi-boundary", "3"],
+    "threshold": ["--fit-model", "threshold", "--threshold", "0.01"],
+}
+
+
+@pytest.fixture(scope="module")
+def refined(dbs, tmp_path_factory):
+    """{fit: {package: output dir}}: each package's fit of the JAX
+    package's BGMM database (its distances and start model)."""
+    root = tmp_path_factory.mktemp("torch_refine")
+    out = {}
+    for fit, flags in REFINE_FITS.items():
+        out[fit] = {}
+        for pkg, (main, _) in CLIS.items():
+            out[fit][pkg] = str(root / pkg / fit)
+            main(flags + ["--ref-db", dbs["jax"], "--model-dir", dbs["jax"],
+                          "--output", out[fit][pkg], "--no-plot"])
+    return out
+
+
+@pytest.mark.parametrize("fit", sorted(REFINE_FITS))
+def test_refine_writes_identical_outputs(refined, fit):
+    assert_same_files(refined[fit]["torch"], refined[fit]["jax"])
+    fj = np.load(base(refined[fit]["jax"]) + "_fit.npz")
+    ft = np.load(base(refined[fit]["torch"]) + "_fit.npz")
+    assert sorted(ft.files) == sorted(fj.files)
+    for key in fj.files:
+        np.testing.assert_array_equal(ft[key], fj[key], err_msg=key)
+    if fit == "indiv_both":
+        for ext in ("_core_clusters.csv", "_accessory_clusters.csv"):
+            assert os.path.isfile(base(refined[fit]["torch"]) + ext), ext
+    if fit == "multi_boundary":
+        assert any("_boundary" in f
+                   for f in cluster_files(refined[fit]["torch"]))
+
+
+def test_use_model_on_a_refine_fit(dbs, refined, tmp_path):
+    outs = {}
+    for pkg, (main, _) in CLIS.items():
+        outs[pkg] = str(tmp_path / pkg / "reused")
+        main(["--use-model", "--ref-db", dbs["jax"], "--output", outs[pkg],
+              "--model-dir", refined["indiv_both"][pkg], "--no-plot"])
+    for ext in ("_clusters.csv", ".refs"):
+        assert read_bytes(base(outs["torch"]) + ext) == \
+            read_bytes(base(outs["jax"]) + ext), ext
+
+
+@pytest.mark.parametrize("choice", ["standard", "packed"])
+@pytest.mark.parametrize("flags", [[], ["--core", "--accessory"]],
+                         ids=["combined", "core_accessory"])
+def test_assign_with_a_refine_model(refined, split, choice, flags, tmp_path,
+                                    monkeypatch):
+    _, qfile = split
+    monkeypatch.setattr(mc, "KERNEL_CHOICE", choice)
+    outs = {pkg: run_assign(pkg, refined["indiv_both"][pkg], qfile, "batch",
+                            str(tmp_path / pkg / "out"), flags)
+            for pkg in CLIS}
+    assert_same_files(outs["torch"], outs["jax"])
+    if flags:
+        assert os.path.isfile(base(outs["torch"])
+                              + "_core_refined_clusters.csv")
+    _, _, _, Xj = read_pickle(base(outs["jax"]) + ".dists")
+    _, _, _, Xt = read_pickle(base(outs["torch"]) + ".dists")
+    np.testing.assert_allclose(Xt, Xj, **DIST_TOL)
+
+
+@pytest.mark.parametrize("reader,writer", [("torch", "jax"),
+                                           ("jax", "torch")])
+def test_each_package_reads_the_others_refine_database(refined, split,
+                                                       reader, writer,
+                                                       tmp_path):
+    _, qfile = split
+    db = refined["indiv_both"][writer]
+    crossed = run_assign(reader, db, qfile, "batch",
+                         str(tmp_path / "crossed" / "out"), ["--core"])
+    native = run_assign(writer, db, qfile, "batch",
+                        str(tmp_path / "native" / "out"), ["--core"])
+    assert_same_files(crossed, native)
+
+
+def test_packed_create_db_writes_the_same_distances(dbs, split, tmp_path,
+                                                    monkeypatch):
+    """--create-db under KERNEL_CHOICE packed: the .dists equal the
+    standard route's bit for bit (the counts are exact either way)."""
+    rfile, _ = split
+    db = str(tmp_path / "packed" / "db")
+    monkeypatch.setattr(mc, "KERNEL_CHOICE", "packed")
+    torch_main(["--create-db", "--r-files", rfile, "--output", db] + KARGS)
+    names, _, _, X = read_pickle(base(db) + ".dists")
+    want_names, _, _, want = read_pickle(base(dbs["torch"]) + ".dists")
+    assert names == want_names
+    np.testing.assert_array_equal(X, want)
