@@ -10,11 +10,14 @@ Phases, each printing one JSON line with its seconds:
      plain PyTorch versions on the card, and the packed kernel against the
      standard one (all bit-exact), at the JAX tests' tile-edge shapes, at
      production geometry, at an odd sketchsize64 and at the bench shape
-     2048 x 4096 x K 6, where all four are timed with CUDA events
+     2048 x 4096 x K 6, where all four are timed with CUDA events beside
+     the SM clock nvidia-smi reads, against the operation bound at that
+     clock and against torch.cdist(p=0) on the unpacked bin signatures
+     (the one PyTorch call that computes the same counts, held to them)
   D  the CLIs end to end on a synthetic population (6 strains x 8 genomes
-     of 0.5 Mbp, one genome per strain held out as a query):
-     create-db --gpu-dist, fit-model bgmm --gpu-model, assign --gpu-dist
-     --gpu-model; clusters must equal the planted strains
+     of 0.5 Mbp, one genome per strain held out as a query), on the card
+     by default (no --gpu-* flag): create-db, fit-model bgmm, assign;
+     clusters must equal the planted strains
   E  the same library path at database size: 8192 reference planes in 64
      planted strains plus 1024 queries at production geometry, made with
      numpy from a seed; all-vs-all distances, BGMM fit and assignment,
@@ -22,12 +25,11 @@ Phases, each printing one JSON line with its seconds:
      full network; clusters must equal the planted strains, and a block of
      rows is checked against the plain version on the card.
   F  with KERNEL_CHOICE packed, the refine path through the CLIs on phase
-     D's population: create-db --gpu-dist (distances equal phase D's bit
-     for bit), fit-model refine --gpu-model --indiv-refine both from phase
-     D's BGMM fit (global sweeps on the card), fit-model threshold at the
-     core boundary refine found, assign --gpu-dist --gpu-model with the
-     refine model with and without --core --accessory; every cluster file
-     must equal the planted strains
+     D's population: create-db (distances equal phase D's bit for bit),
+     fit-model refine --indiv-refine both from phase D's BGMM fit (global
+     sweeps on the card), fit-model threshold at the core boundary refine
+     found, assign with the refine model with and without --core
+     --accessory; every cluster file must equal the planted strains
   G  with KERNEL_CHOICE packed, phase E's population: the packed
      all-vs-all (equal to phase E's bit for bit), refine from phase E's
      BGMM fit with the device sweep, its 40 global scores held to the host
@@ -38,6 +40,9 @@ launches counted over phases D and E, the packed kernel's over F and G,
 each phase run with the counts set to 0 just before it), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; so does a host without CUDA.
+
+The CPU rehearsal of phases D-G (the README's) sets
+POPPUNK_TPU_TORCH_DEVICE=cpu: the port runs on the card unless asked.
 """
 
 import csv
@@ -59,6 +64,11 @@ ODD = (15, 5, 4)              # odd ss64: a 4-word chunk straddles two k slots
 BENCH = (156, 14, 6)          # bench.py:30-32
 KLIST = (13, 17, 21, 25, 29)
 DIST_TOL = dict(rtol=1e-5, atol=2e-5)  # tests/test_torch_distances.py
+# the operation bound of the match-count kernels: per (pair, word) P fused
+# XOR-OR logic ops (LOP3), at 64 a clock on each SM (32-bit bitwise ops,
+# compute capability 9.0); HBM3 at 3.35 TB/s for the bytes bound
+LOP3_PER_SM_CLOCK = 64
+HBM_BYTES_PER_S = 3.35e12
 # device against host sweep scores: both take ratios of exact integer
 # counts in float64 (the device's A @ A entries are exact in float32 below
 # 2^24), so they differ by rounding alone
@@ -144,6 +154,71 @@ def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max())
 
 
+def sm_clock_sampler():
+    """Start nvidia-smi sampling the SM clock (MHz) every 50 ms."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+
+
+def stop_sampler(proc):
+    """Stop a sampler; the median SM clock it read, in MHz."""
+    proc.terminate()
+    out = proc.communicate()[0]
+    mhz = [int(x) for x in out.split() if x.isdigit()]
+    if not mhz:
+        raise AssertionError("nvidia-smi read no SM clock")
+    return float(np.median(mhz))
+
+
+def unpack_signatures(torch, planes, w32, chunk=128):
+    """int32 planes [n, K, P, Wp] -> float32 [K, n, 32 * w32]: bin b's
+    P-bit signature sum_p bit(plane p, b) << p, exact in float32."""
+    n, K, P, _ = planes.shape
+    out = torch.empty((K, n, 32 * w32), dtype=torch.float32,
+                      device=planes.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    weights = (1 << torch.arange(P, dtype=torch.int32,
+                                 device=planes.device))[:, None, None]
+    for start in range(0, n, chunk):
+        x = planes[start:start + chunk, :, :, :w32]  # [c, K, P, w32]
+        bits = (x[..., None] >> shifts) & 1  # [c, K, P, w32, 32]
+        sig = (bits * weights).sum(dim=2, dtype=torch.int32)  # [c, K, w32, 32]
+        out[:, start:start + chunk] = sig.reshape(
+            x.shape[0], K, 32 * w32).transpose(0, 1).float()
+    return out
+
+
+def bound(torch, nq, nr, K, P, w32, in_bytes, sm_mhz):
+    """(bound_ms, bound_by): the larger of the LOP3 count at the measured
+    SM clock and the bytes (each input once, the int32 output once) at
+    HBM rate."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = nq * nr * K * w32 * P / (LOP3_PER_SM_CLOCK * sms
+                                      * sm_mhz * 1e6) * 1e3
+    bytes_ms = (in_bytes + nq * nr * K * 4) / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def time_cdist(torch, q, r, counts, w32):
+    """torch.cdist(p=0) on the bins' signatures, unpacked once to float32
+    [K, n, 32 * w32]: the number of bins whose signatures differ, so
+    32 * w32 - cdist must equal the kernel's ``counts``. Returns its ms
+    (CUDA events, 2 calls after the checked one)."""
+    x1 = unpack_signatures(torch, q, w32)
+    x2 = unpack_signatures(torch, r, w32)
+    diff = torch.cdist(x1, x2, p=0)
+    if not torch.equal((32 * w32 - diff).to(torch.int32),
+                       counts.permute(2, 0, 1)):
+        raise AssertionError("32 * w32 - cdist(p=0) differs from the "
+                             "kernel's counts")
+    del diff
+    ms = event_ms(torch, lambda: torch.cdist(x1, x2, p=0), 2)
+    del x1, x2
+    return ms
+
+
 def phase_c(torch, device):
     """Both kernels against their plain versions (and the packed kernel
     against the standard one), bit for bit; both timed at BENCH. Returns
@@ -185,16 +260,27 @@ def phase_c(torch, device):
                         "max_abs_err": err, "packed_max_abs_err": err_p,
                         "packed_vs_standard_max_abs_err": err_ps})
         if geometry is BENCH:
+            w32 = plane_geometry(geometry[0], geometry[1])[0]
+            library_ms = time_cdist(torch, q, r, got, w32)
             for name, kernel, plain, args in (
                     ("match_counts", mc.match_counts, mc.match_counts_torch,
                      (q, r, pad_bits)),
                     ("match_counts_packed", mc.match_counts_packed,
                      mc.match_counts_packed_torch, (qp, rp))):
                 kernel(*args)  # warm
-                ms = event_ms(torch, lambda: kernel(*args), 10)
+                sampler = sm_clock_sampler()
+                ms = event_ms(torch, lambda: kernel(*args), 20)
+                sm_mhz = stop_sampler(sampler)
                 plain_ms = event_ms(torch, lambda: plain(*args), 2)
+                in_bytes = sum(t.numel() * 4 for t in (
+                    (q, r) if name == "match_counts" else (qp.bits, rp.bits)))
+                bound_ms, bound_by = bound(torch, nq, nr, geometry[2],
+                                           geometry[1], w32, in_bytes, sm_mhz)
                 kernels[name].update(
                     shape=[nq, nr, geometry[2]], ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_share=bound_ms / ms,
+                    sm_clock_mhz=sm_mhz,
                     pairs_per_s=nq * nr / (ms / 1e3),
                     plain_pairs_per_s=nq * nr / (plain_ms / 1e3))
         del q, r, qp, rp, got, want, got_p, want_p
@@ -261,7 +347,6 @@ def phase_d(torch, device, workdir, n_strains=6, per_strain=8,
     rfile = pop.subset_rfile(fasta, refs, "refs.txt")
     qfile = pop.subset_rfile(fasta, queries, "queries.txt")
     strain_of = {n: pop.strain_of[n] for n in pop.names}
-    gpu = ["--gpu-dist", "--gpu-model"] if device.type == "cuda" else []
     db = os.path.join(workdir, "db")
     out = os.path.join(workdir, "assigned")
     stages, launches = {}, {}
@@ -269,20 +354,20 @@ def phase_d(torch, device, workdir, n_strains=6, per_strain=8,
     t = time.perf_counter()
     n0 = mc.LAUNCHES
     poppunk_main(["--create-db", "--r-files", rfile, "--output", db,
-                  "--no-plot"] + gpu[:1])
+                  "--no-plot"])
     stages["create_db"] = elapsed(torch, t)
     launches["create_db"] = mc.LAUNCHES - n0
 
     t = time.perf_counter()
     model, _ = poppunk_main(["--fit-model", "bgmm", "--ref-db", db,
-                             "--output", db, "--no-plot"] + gpu[1:])
+                             "--output", db, "--no-plot"])
     stages["fit_bgmm"] = elapsed(torch, t)
     if model.mixture.means.device.type != device.type:
         raise AssertionError(f"BGMM on {model.mixture.means.device}")
 
     t = time.perf_counter()
     n0 = mc.LAUNCHES
-    assign_main(["--db", db, "--query", qfile, "--output", out] + gpu)
+    assign_main(["--db", db, "--query", qfile, "--output", out])
     stages["assign"] = elapsed(torch, t)
     launches["assign"] = mc.LAUNCHES - n0
 
@@ -300,7 +385,7 @@ def phase_d(torch, device, workdir, n_strains=6, per_strain=8,
           "launches": launches, "seconds": time.perf_counter() - t0})
     return launches, SimpleNamespace(db=db, rfile=rfile, qfile=qfile,
                                      refs=refs, queries=queries,
-                                     strain_of=strain_of, gpu=gpu)
+                                     strain_of=strain_of)
 
 
 # --------------------------------------------------------------------------
@@ -520,7 +605,6 @@ def phase_f(torch, device, workdir, d):
 
     t0 = time.perf_counter()
     stages, launches = {}, {}
-    gpu_dist, gpu_model = d.gpu[:1], d.gpu[1:]
     path = lambda name: os.path.join(workdir, name)  # noqa: E731
     db, refined, thr = path("db_packed"), path("refined"), path("threshold")
 
@@ -533,7 +617,7 @@ def phase_f(torch, device, workdir, d):
         return result
 
     run("create_db", poppunk_main, ["--create-db", "--r-files", d.rfile,
-                                    "--output", db, "--no-plot"] + gpu_dist)
+                                    "--output", db, "--no-plot"])
     names, X = read_dists(db)
     want_names, want = read_dists(d.db)
     if names != want_names or not np.array_equal(X, want):
@@ -543,8 +627,7 @@ def phase_f(torch, device, workdir, d):
     with RecordSweeps() as sweeps:
         model, _ = run("fit_refine", poppunk_main, [
             "--fit-model", "refine", "--ref-db", db, "--model-dir", d.db,
-            "--output", refined, "--indiv-refine", "both",
-            "--no-plot"] + gpu_model)
+            "--output", refined, "--indiv-refine", "both", "--no-plot"])
     kinds = sorted({c[0] for c in sweeps.global_sweeps(40)})
     if device.type == "cuda" and kinds != ["device"]:
         raise AssertionError(f"refine's global sweeps ran on {kinds}")
@@ -570,7 +653,7 @@ def phase_f(torch, device, workdir, d):
                          ("assign_core_accessory", ["--core", "--accessory"])):
         out = path(stage)
         run(stage, assign_main, ["--db", refined, "--query", d.qfile,
-                                 "--output", out] + d.gpu + flags)
+                                 "--output", out] + flags)
         for ext in (("", "_core", "_accessory") if flags else ("",)):
             name = f"{stage}{ext}{'_refined' if ext else ''}_clusters.csv"
             q_clusters = read_clusters(os.path.join(out, name))
@@ -747,12 +830,19 @@ def main():
              *packed)
         path("G", lambda: (phase_g(torch, device, workdir, e), None),
              *packed)
+    # the card's host has jax installed: an import of it or of the JAX
+    # package anywhere on the paths above would go unnoticed but for this
+    loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")
+                    or m.startswith(("jax.", "poppunk_tpu.")))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded}")
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"poppunk_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
-        "max_abs_err": kernels[name]["max_abs_err"],
-        "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+        **{key: kernels[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "sm_clock_mhz")}}
         for name, replaces in (
             ("match_counts", "poppunk_tpu/ops/pallas_jaccard.py:76"),
             ("match_counts_packed",

@@ -2,14 +2,17 @@
 
 Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started
 together, and the objects are linked into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes). The
+kernels reach the driver's ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint``, so nothing links against libcuda:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
     nvcc -shared -o build/libpoppunk_kernels_<hash>.so *.o
 
-The library name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a stale one is never loaded. The build runs at the
+The library name carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt and
+a stale library is never loaded. The build runs at the
 first CUDA use in a process; it needs ``nvcc`` (``$CUDA_HOME/bin``, then
 ``PATH``, then ``/usr/local/cuda/bin``) and raises with nvcc's stderr if
 the compiler is missing or refuses the source.
@@ -56,9 +59,14 @@ def _sources():
     return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
 def library_path():
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
+        digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR,
@@ -102,18 +110,21 @@ def build():
     return out
 
 
+def bind(path):
+    """Load a kernel library and declare its C functions' signatures."""
+    lib = ctypes.CDLL(path)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.match_counts_launch.restype = ci
+    lib.match_counts_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
+    lib.match_counts_packed_launch.restype = ci
+    lib.match_counts_packed_launch.argtypes = (
+        [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
+    return lib
+
+
 def load():
     """The kernels' ctypes library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.match_counts_launch.restype = ci
-        lib.match_counts_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                            ci, vp]
-        ll = ctypes.c_longlong
-        lib.match_counts_packed_launch.restype = ci
-        lib.match_counts_packed_launch.argtypes = (
-            [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
-        _lib = lib
+        _lib = bind(build())
     return _lib

@@ -1,13 +1,24 @@
-"""Resolve the compute device of each pipeline stage once, from the CLI.
+"""Where compute runs: the card, unless the caller asks for the CPU.
 
-PopPUNK's own meaning of its GPU flags (PopPUNK/__main__.py:216-220):
-``--gpu-dist`` moves the distance engine to the card, ``--gpu-model`` the
-model fit and assignment, ``--deviceid`` picks the card. Without a flag the
-stage runs on the CPU. A flag given where CUDA is absent is an error, never
-a silent CPU run.
+``resolve`` is the one place a device is chosen. A ``device`` given by the
+caller is used as it is: passing ``torch.device("cpu")`` is how a library
+caller asks for the CPU. Without one, the stage runs on ``cuda:<deviceid>``
+unless the environment variable ``POPPUNK_TPU_TORCH_DEVICE`` is ``cpu``,
+which is how the CLIs (whose flags are the JAX package's) and the CPU
+tests ask for the CPU. Without CUDA and without that request, ``resolve``
+raises: nothing falls back to the CPU silently.
+
+The CLIs keep PopPUNK's GPU flags (PopPUNK/__main__.py:216-220):
+``--gpu-dist`` and ``--gpu-model`` ask for the card for the distance
+engine and the model fit, whatever the environment says, and
+``--deviceid`` picks the card.
 """
 
+import os
+
 import torch
+
+ENV = "POPPUNK_TPU_TORCH_DEVICE"
 
 
 def set_full_precision():
@@ -17,14 +28,13 @@ def set_full_precision():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve(use_gpu, deviceid=0):
-    """``cuda:<deviceid>`` if ``use_gpu`` else the CPU."""
-    if not use_gpu:
-        return torch.device("cpu")
+def _card(deviceid):
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "a --gpu-* flag was given but torch.cuda.is_available() is "
-            "False; drop the flag to run this stage on the CPU")
+            "poppunk_tpu_torch runs on a CUDA card, but "
+            "torch.cuda.is_available() is False; set "
+            f"{ENV}=cpu (or pass device=torch.device('cpu')) to run on the "
+            "CPU")
     if not 0 <= deviceid < torch.cuda.device_count():
         raise RuntimeError(
             f"--deviceid {deviceid}: only {torch.cuda.device_count()} CUDA "
@@ -33,8 +43,27 @@ def resolve(use_gpu, deviceid=0):
     return torch.device("cuda", deviceid)
 
 
+def resolve(device=None, deviceid=0):
+    """The device to compute on: ``device`` if given, else the CPU when
+    ``POPPUNK_TPU_TORCH_DEVICE=cpu``, else ``cuda:<deviceid>``."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            set_full_precision()
+        return device
+    choice = os.environ.get(ENV, "").strip().lower()
+    if choice not in ("", "cpu", "cuda"):
+        raise ValueError(f"{ENV}={choice!r}: expected 'cpu' or 'cuda'")
+    if choice == "cpu":
+        return torch.device("cpu")
+    return _card(deviceid)
+
+
 def stage_devices(args):
-    """(distance device, model device) for parsed CLI ``args``."""
+    """(distance device, model device) for parsed CLI ``args``: the card
+    for a stage whose ``--gpu-*`` flag is set, else ``resolve``'s
+    choice."""
     deviceid = getattr(args, "deviceid", 0)
-    return (resolve(getattr(args, "gpu_dist", False), deviceid),
-            resolve(getattr(args, "gpu_model", False), deviceid))
+    return tuple(_card(deviceid) if getattr(args, flag, False)
+                 else resolve(None, deviceid)
+                 for flag in ("gpu_dist", "gpu_model"))

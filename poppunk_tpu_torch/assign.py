@@ -4,10 +4,11 @@ Counterpart of poppunk_tpu/assign.py (PopPUNK/assign.py: assign_query
 :249, assign_query_hdf5 :326): sketch queries on the host, query-vs-
 reference distances with every pair classified in the same pass on the
 distance device, network attachment with stable cluster naming, and the
-optional database update. Sketching, the HDF5 database and QC are the
-reference's own JAX-free modules; distances, the model and the network
-are this package's. BGMM and refine / threshold models load here
-(models/base.py); a refine model fitted with ``--indiv-refine`` also
+optional database update. Sketching, the HDF5 database and QC are copies
+of the reference's host modules. The distances and the model run on
+``dist_device`` / ``model_device`` (None: ``_device.resolve``'s choice,
+the card unless the CPU is asked for). BGMM and refine / threshold
+models load here (models/base.py); a refine model fitted with ``--indiv-refine`` also
 assigns on its core-only and accessory-only boundaries (``--core``,
 ``--accessory``), reusing the distances of the first pass.
 """
@@ -19,23 +20,21 @@ from collections import defaultdict
 
 import numpy as np
 
-from poppunk_tpu.io.hdf5db import (add_random, construct_database,
-                                   create_database_dir, get_seqs_in_db,
-                                   join_dbs, read_db_params, read_sketches,
-                                   remove_from_db)
-from poppunk_tpu.ops.boundary import generate_tuples
-from poppunk_tpu.qc import (prune_query_distance_matrix, qc_dist_mat,
-                            qc_query_assignments, sketch_qc,
-                            write_qc_failure_report)
-from poppunk_tpu.utils import db_h5_path, read_pickle, store_pickle
-
+from . import _device
+from .io.hdf5db import (add_random, construct_database, create_database_dir,
+                        get_seqs_in_db, join_dbs, read_db_params,
+                        read_sketches, remove_from_db)
 from .network.clusters import print_clusters, print_external_clusters
 from .network.construct import (construct_network_from_assignments,
                                 network_vertex_check)
 from .network.graph import (GRAPH_SUFFIX, load_network_file,
                             remove_non_query_components, save_network)
+from .ops.boundary import generate_tuples
 from .ops.distances import query_db
 from .ops.fused_assign import model_post_spec
+from .qc import (prune_query_distance_matrix, qc_dist_mat,
+                 qc_query_assignments, sketch_qc, write_qc_failure_report)
+from .utils import db_h5_path, read_pickle, store_pickle
 
 
 def _file_base(prefix):
@@ -137,6 +136,8 @@ def assign_query(ref_db, q_files, output, qc_dict, update_db=False,
                  use_full_network=False, min_kmer_count=0, exact_count=False,
                  dist_device=None, model_device=None):
     """Sketch queries then assign (assign_query, PopPUNK/assign.py:249)."""
+    dist_device = _device.resolve(dist_device)
+    model_device = _device.resolve(model_device)
     if os.path.abspath(ref_db) == os.path.abspath(output) and not overwrite:
         sys.stderr.write("--output and --db must be different to "
                          "prevent overwrite.\n")
@@ -173,6 +174,8 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
     from .models import load_cluster_fit
     from .profiling import stage
 
+    dist_device = _device.resolve(dist_device)
+    model_device = _device.resolve(model_device)
     ref_db = ref_db.rstrip("/")
     output = output.rstrip("/")
     if distances is None:
@@ -428,7 +431,7 @@ def _assign_network(model, fit_type, ext, dist_type, r_names, q_names,
             print_ref=write_references or bool(update_db))
     elif stable is not None:
         sys.stderr.write("Assigning stably\n")
-        from poppunk_tpu.utils import read_isolate_type_from_csv
+        from .utils import read_isolate_type_from_csv
 
         ref_clustering = read_isolate_type_from_csv(
             old_cluster_file, mode="clusters", return_dict=True)["Cluster"]
@@ -492,7 +495,7 @@ def _plot_query_fits(ref_db, query_db_prefix, r_names, q_names, kmers,
                      count, use_rc, device, seed=42):
     """Random query-vs-reference k-mer fit plots (--plot-fit)."""
     try:
-        from poppunk_tpu.plotting import plot_fit
+        from .plotting import plot_fit
 
         from .ops.kmer_fit import fit_kmer_curve_np
 

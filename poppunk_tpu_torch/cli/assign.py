@@ -1,29 +1,104 @@
 """poppunk_tpu_torch_assign — query assignment CLI.
 
-Counterpart of poppunk_tpu/cli/assign.py (PopPUNK/assign.py:28-247): the
-reference parser, plus PopPUNK's ``--gpu-model`` (the JAX package's parser
-does not register it). ``--gpu-dist`` runs the query distances and their
-fused classification on ``cuda:<--deviceid>``, ``--gpu-model`` loads the
-model there; ``--warmup`` (jit pre-compilation) has no counterpart here.
+Counterpart of poppunk_tpu/cli/assign.py (PopPUNK/assign.py:28-247) with a
+copy of its parser, plus PopPUNK's ``--gpu-model`` (the JAX package's
+parser does not register it). Query distances and their fused
+classification, and the model, run on ``cuda:<--deviceid>`` unless
+``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU; ``--gpu-dist`` /
+``--gpu-model`` keep their stage on the card even then (_device.py).
+``--warmup`` (jit pre-compilation) has no counterpart here.
 """
 
 import argparse
 import sys
 
-from poppunk_tpu.cli.assign import get_options as _reference_options
-from poppunk_tpu.cli.common import qc_dict_from_args
-
-from .. import _device
+from .. import __version__, _device
+from .common import qc_dict_from_args
 
 
 def get_options(arg_list=None):
-    pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    pre.add_argument("--gpu-model", action="store_true")
-    known, rest = pre.parse_known_args(
-        sys.argv[1:] if arg_list is None else arg_list)
-    args = _reference_options(rest)
-    args.gpu_model = known.gpu_model
-    return args
+    parser = argparse.ArgumentParser(
+        prog="poppunk_tpu_torch_assign",
+        description="Assign queries to strains using a fitted "
+                    "poppunk_tpu database, in PyTorch on a CUDA card",
+    )
+    io_group = parser.add_argument_group("Input files")
+    io_group.add_argument("--db", required=True,
+                          help="Location of built reference database")
+    io_group.add_argument("--query", required="--warmup" not in
+                          (arg_list if arg_list is not None else sys.argv),
+                          help="File listing query input assemblies")
+    io_group.add_argument("--warmup", action="store_true",
+                          help="Pre-compile the serving programs for this "
+                               "database's geometry (one per query-batch "
+                               "bucket size) and exit — no request then "
+                               "pays a first-compile")
+    io_group.add_argument("--distances",
+                          help="Prefix of input pickle of pre-calculated distances")
+    io_group.add_argument("--external-clustering",
+                          help="File with cluster definitions or other labels")
+
+    out_group = parser.add_argument_group("Output options")
+    out_group.add_argument("--output", required=True,
+                           help="Prefix for output files (required)")
+    out_group.add_argument("--plot-fit", type=int, default=0)
+    out_group.add_argument("--write-references", action="store_true",
+                           help="Write reference database isolates' cluster assignments too")
+    out_group.add_argument("--update-db", default=False,
+                           choices=["full", "fast", False],
+                           help="Update reference database with query sequences")
+    out_group.add_argument("--overwrite", action="store_true")
+    out_group.add_argument("--graph-weights", action="store_true")
+    out_group.add_argument("--save-partial-query-graph", action="store_true")
+
+    kmer_group = parser.add_argument_group("Kmer comparison options")
+    kmer_group.add_argument("--min-kmer-count", type=int, default=0)
+    kmer_group.add_argument("--exact-count", action="store_true")
+    kmer_group.add_argument("--strand-preserved", action="store_true")
+
+    qc_group = parser.add_argument_group("Quality control options")
+    qc_group.add_argument("--run-qc", action="store_true")
+    qc_group.add_argument("--retain-failures", action="store_true")
+    qc_group.add_argument("--max-a-dist", type=float, default=0.5)
+    qc_group.add_argument("--max-pi-dist", type=float, default=0.1)
+    qc_group.add_argument("--max-zero-dist", type=float, default=0.05)
+    qc_group.add_argument("--max-merge", type=int, default=-1)
+    qc_group.add_argument("--betweenness", action="store_true")
+    qc_group.add_argument("--length-sigma", type=int, default=None)
+    qc_group.add_argument("--length-range", nargs=2, type=int,
+                          default=[None, None])
+    qc_group.add_argument("--prop-n", type=float, default=None)
+    qc_group.add_argument("--upper-n", type=int, default=None)
+
+    query_group = parser.add_argument_group("Database querying options")
+    query_group.add_argument("--serial", action="store_true",
+                             help="Assign queries one-by-one, not treating them as a clique")
+    query_group.add_argument("--stable", default=None,
+                             choices=["core", "accessory"],
+                             help="Use nearest neighbour rather than network for cluster assignment")
+    query_group.add_argument("--model-dir",
+                             help="Directory containing the model to use")
+    query_group.add_argument("--previous-clustering",
+                             help="Directory containing previous cluster definitions and network")
+    query_group.add_argument("--core", action="store_true",
+                             help="Use core-distance boundary (refine models)")
+    query_group.add_argument("--accessory", action="store_true",
+                             help="Use accessory-distance boundary (refine models)")
+    query_group.add_argument("--use-full-network", action="store_true")
+
+    other = parser.add_argument_group("Other options")
+    other.add_argument("--threads", type=int, default=1)
+    other.add_argument("--profile", action="store_true",
+                       help="Print per-stage timings at exit")
+    other.add_argument("--version", action="version",
+                       version="%(prog)s " + __version__)
+    other.add_argument("--citation", action="store_true")
+
+    from .common import add_accel_compat_flags
+
+    add_accel_compat_flags(parser, "gpu-sketch", "gpu-dist", "gpu-model",
+                           "gpu-graph", "deviceid")
+    return parser.parse_args(arg_list)
 
 
 def main(arg_list=None):
@@ -33,7 +108,7 @@ def main(arg_list=None):
 
         enable(True)
     if args.citation:
-        from poppunk_tpu.citation import print_citation
+        from ..citation import print_citation
 
         args.ref_db = args.db
         print_citation(args, assign=True)

@@ -2,27 +2,165 @@
 {bgmm,refine,threshold}, --use-model.
 
 Counterpart of poppunk_tpu/cli/main.py (PopPUNK/__main__.py:245-791) with
-the same parser, flags and on-disk conventions. ``--gpu-dist`` puts the
-distance engine on ``cuda:<--deviceid>``, ``--gpu-model`` the BGMM fit and
-assignment and the refine boundary sweep; without them a stage runs on the
-CPU. ``--gpu-sketch`` and ``--gpu-graph`` parse and the work stays on the
-host. ``--fit-model dbscan`` / ``lineage`` and ``--qc-db`` exit with a
-message until they are ported.
+a copy of its parser (the same flags and defaults) and the same on-disk
+conventions. The distance engine, the BGMM fit and assignment and the
+refine boundary sweep run on ``cuda:<--deviceid>`` unless
+``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU; ``--gpu-dist`` /
+``--gpu-model`` keep their stage on the card even then (_device.py).
+``--gpu-sketch`` and ``--gpu-graph`` parse and the work stays on the host.
+``--fit-model dbscan`` / ``lineage`` and ``--qc-db`` exit with a message
+until they are ported.
 """
 
+import argparse
 import os
 import shutil
 import sys
 
 import numpy as np
 
-from poppunk_tpu.cli.common import (default_dists, file_base, parse_kmers,
-                                    setup_output)
-from poppunk_tpu.cli.main import get_options
-from poppunk_tpu.utils import read_pickle, store_pickle
-
-from .. import _device
+from .. import __version__, _device
 from ..profiling import stage
+from ..utils import read_pickle, store_pickle
+from .common import default_dists, file_base, parse_kmers, setup_output
+
+# Defaults (reference __main__.py:17-26)
+DEFAULT_MAX_A_DIST = 0.5
+DEFAULT_MAX_PI_DIST = 0.1
+DEFAULT_MAX_ZERO = 0.05
+DEFAULT_LENGTH_SIGMA = 5
+DEFAULT_PROP_N = 0.1
+BETWEENNESS_SAMPLE_DEFAULT = 100
+DEFAULT_X = 0.2
+DEFAULT_R = 50
+
+
+def get_options(arg_list=None):
+    parser = argparse.ArgumentParser(
+        prog="poppunk_tpu_torch",
+        description="PopPUNK in PyTorch on a CUDA card: population "
+                    "partitioning using nucleotide k-mers",
+    )
+    mode_group = parser.add_argument_group("Mode of operation")
+    mode = mode_group.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--create-db", action="store_true",
+                      help="Sketch input assemblies and calculate distances")
+    mode.add_argument("--qc-db", action="store_true",
+                      help="Run quality control on a database")
+    mode.add_argument("--fit-model",
+                      choices=["bgmm", "dbscan", "refine", "lineage",
+                               "threshold"],
+                      default=False,
+                      help="Fit a model to a database's distances")
+    mode.add_argument("--use-model", action="store_true",
+                      help="Apply a previously fitted model to a database")
+
+    io_group = parser.add_argument_group("Input files")
+    io_group.add_argument("--ref-db", help="Location of built reference database")
+    io_group.add_argument("--r-files", help="File listing reference input assemblies")
+    io_group.add_argument("--distances", help="Prefix of input pickle of pre-calculated distances")
+    io_group.add_argument("--external-clustering",
+                          help="File with cluster definitions or other labels")
+
+    out_group = parser.add_argument_group("Output options")
+    out_group.add_argument("--output", help="Prefix for output files")
+    out_group.add_argument("--plot-fit", type=int, default=0,
+                           help="Create this many plots of k-mer/distance fits")
+    out_group.add_argument("--overwrite", action="store_true",
+                           help="Overwrite any existing database files")
+    out_group.add_argument("--graph-weights", action="store_true",
+                           help="Save within-strain Euclidean distances into the graph")
+
+    kmer_group = parser.add_argument_group("Create DB options")
+    kmer_group.add_argument("--min-k", type=int, default=13)
+    kmer_group.add_argument("--max-k", type=int, default=29)
+    kmer_group.add_argument("--k-step", type=int, default=4)
+    kmer_group.add_argument("--sketch-size", type=int, default=10000)
+    kmer_group.add_argument("--codon-phased", action="store_true")
+    kmer_group.add_argument("--min-kmer-count", type=int, default=0)
+    kmer_group.add_argument("--exact-count", action="store_true")
+    kmer_group.add_argument("--strand-preserved", action="store_true")
+
+    qc_group = parser.add_argument_group("Quality control options")
+    qc_group.add_argument("--qc-keep", action="store_true",
+                          help="Only write failing sequences to a file, do not remove")
+    qc_group.add_argument("--remove-samples",
+                          help="A list of names to remove from the database")
+    qc_group.add_argument("--retain-failures", action="store_true")
+    qc_group.add_argument("--max-a-dist", type=float, default=DEFAULT_MAX_A_DIST)
+    qc_group.add_argument("--max-pi-dist", type=float, default=DEFAULT_MAX_PI_DIST)
+    qc_group.add_argument("--max-zero-dist", type=float, default=DEFAULT_MAX_ZERO)
+    qc_group.add_argument("--length-sigma", type=int, default=DEFAULT_LENGTH_SIGMA)
+    qc_group.add_argument("--length-range", nargs=2, type=int, default=[None, None])
+    qc_group.add_argument("--prop-n", type=float, default=DEFAULT_PROP_N)
+    qc_group.add_argument("--upper-n", type=int, default=None)
+    qc_group.add_argument("--auto-max-dists",
+                          choices=["core", "accessory", "both"],
+                          default=None,
+                          help="Find the optimal maximum distances to "
+                               "permit by percentile jump detection")
+    qc_group.add_argument("--x", type=float, default=DEFAULT_X)
+    qc_group.add_argument("--r", type=int, default=DEFAULT_R)
+
+    model_group = parser.add_argument_group("Model fit options")
+    model_group.add_argument("--model-subsample", type=int, default=100000)
+    model_group.add_argument("--assign-subsample", type=int, default=5000)
+    model_group.add_argument("--for-refine", action="store_true",
+                             help="Fit only to be used as a refine start (skip full assignment)")
+    model_group.add_argument("--K", type=int, default=2,
+                             help="Maximum number of mixture components")
+    model_group.add_argument("--D", type=int, default=100,
+                             help="Maximum number of clusters in DBSCAN fitting")
+    model_group.add_argument("--min-cluster-prop", type=float, default=0.0001)
+    model_group.add_argument("--dbscan-grid-assign", action="store_true",
+                             help="Assign pairs to DBSCAN clusters via the "
+                                  "quantised decision grid (~100x faster; "
+                                  "exact beyond half a grid cell from "
+                                  "decision boundaries)")
+    model_group.add_argument("--threshold", type=float,
+                             help="Cutoff if using --fit-model threshold")
+
+    refine_group = parser.add_argument_group("Refine model options")
+    refine_group.add_argument("--pos-shift", type=float, default=0.0)
+    refine_group.add_argument("--neg-shift", type=float, default=0.0)
+    refine_group.add_argument("--manual-start",
+                              help="A file containing a start point")
+    refine_group.add_argument("--model-dir", help="Directory containing model to use")
+    refine_group.add_argument("--score-idx", type=int, default=0, choices=[0, 1, 2])
+    refine_group.add_argument("--summary-sample", type=int, default=None)
+    refine_group.add_argument("--betweenness-sample", type=int,
+                              default=BETWEENNESS_SAMPLE_DEFAULT)
+    refine_mode = refine_group.add_mutually_exclusive_group()
+    refine_mode.add_argument("--unconstrained", action="store_true")
+    refine_mode.add_argument("--multi-boundary", type=int, default=0)
+    refine_group.add_argument("--indiv-refine", choices=["both", "core", "accessory"],
+                              default=None)
+
+    lineage_group = parser.add_argument_group("Lineage analysis options")
+    lineage_group.add_argument("--ranks", default="1,2,3")
+    lineage_group.add_argument("--count-unique-distances", action="store_true")
+    lineage_group.add_argument("--reciprocal-only", action="store_true")
+    lineage_group.add_argument("--max-search-depth", type=int, default=10000)
+    lineage_group.add_argument("--write-lineage-networks", action="store_true")
+    lineage_group.add_argument("--use-accessory", action="store_true")
+    lineage_group.add_argument("--lineage-resolution", type=float, default=1e-10)
+
+    other = parser.add_argument_group("Other options")
+    other.add_argument("--threads", type=int, default=1)
+    other.add_argument("--no-plot", action="store_true")
+    other.add_argument("--profile", action="store_true",
+                       help="Print per-stage timings at exit")
+    other.add_argument("--no-local", action="store_true")
+    other.add_argument("--version", action="version",
+                       version="%(prog)s " + __version__)
+    other.add_argument("--citation", action="store_true",
+                       help="Give a methods paragraph and citations")
+
+    from .common import add_accel_compat_flags
+
+    add_accel_compat_flags(parser, "gpu-sketch", "gpu-dist", "gpu-model",
+                           "gpu-graph", "deviceid")
+    return parser.parse_args(arg_list)
 
 
 def main(arg_list=None):
@@ -32,7 +170,7 @@ def main(arg_list=None):
 
         enable(True)
     if args.citation:
-        from poppunk_tpu.citation import print_citation
+        from ..citation import print_citation
 
         print_citation(args)
         sys.exit(0)
@@ -49,9 +187,8 @@ def main(arg_list=None):
 
 def create_db(args, device):
     """Sketch on the host, then all-vs-all distances on ``device``."""
-    from poppunk_tpu.io.hdf5db import (construct_database,
-                                       create_database_dir,
-                                       get_database_statistics, read_sketches)
+    from ..io.hdf5db import (construct_database, create_database_dir,
+                             get_database_statistics, read_sketches)
 
     from ..ops.distances import query_db
 
@@ -82,8 +219,7 @@ def create_db(args, device):
 
     if not args.no_plot:
         try:
-            from poppunk_tpu.plotting import (plot_database_evaluations,
-                                              plot_scatter)
+            from ..plotting import plot_database_evaluations, plot_scatter
 
             plot_scatter(dist_mat, output,
                          os.path.basename(output) + " distances")
@@ -101,8 +237,8 @@ def create_db(args, device):
 def plot_kmer_fits(db_prefix, names, klist, count, use_rc, device, seed=42):
     """Random sample of per-pair k-mer/Jaccard fit plots (--plot-fit,
     reference __main__.py:407-418)."""
-    from poppunk_tpu.io.hdf5db import read_sketches
-    from poppunk_tpu.plotting import plot_fit
+    from ..io.hdf5db import read_sketches
+    from ..plotting import plot_fit
 
     from ..ops.distances import query_db
     from ..ops.kmer_fit import fit_kmer_curve_np
@@ -215,14 +351,13 @@ def fit_model(args, device):
 def make_network_and_refs(model, assignments, rlist, X, output, args):
     """fit -> network -> clusters -> clique pruning
     (reference __main__.py:635-791)."""
-    from poppunk_tpu.io.hdf5db import remove_from_db
-    from poppunk_tpu.qc import prune_distance_matrix
-    from poppunk_tpu.utils import db_h5_path
-
+    from ..io.hdf5db import remove_from_db
     from ..network.cliques import extract_references
     from ..network.clusters import print_clusters
     from ..network.construct import construct_network_from_assignments
     from ..network.graph import save_network
+    from ..qc import prune_distance_matrix
+    from ..utils import db_h5_path
 
     # which distance projections to build networks for (indiv-refine adds
     # core-only / accessory-only boundaries, reference __main__.py:635-654)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _device
 from .base import ClusterFit
 from .vbgmm import mahalanobis
 
@@ -54,7 +55,10 @@ class GaussianMixture(nn.Module):
 
     @classmethod
     def from_numpy(cls, weights, means, covariances, scale, device=None):
-        """From the ``_fit.npz`` arrays (either package's, or PopPUNK's)."""
+        """From the ``_fit.npz`` arrays (either package's, or PopPUNK's),
+        on ``device`` (None: ``_device.resolve``'s choice)."""
+        device = _device.resolve(device)
+
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                    device=device)
@@ -101,7 +105,7 @@ class BGMMFit(ClusterFit):
         self.max_samples = max_samples
         self.max_batch_size = max_batch_size
         self.assign_points = assign_points
-        self.device = torch.device("cpu") if device is None else device
+        self.device = _device.resolve(device)
         self.mixture = None
 
     def _set_params(self, weights, means, covariances, scale):
@@ -177,7 +181,7 @@ class BGMMFit(ClusterFit):
         self.between_label = int(fit_npz["between"])
 
     def plot(self, X, y):
-        from poppunk_tpu.plotting import plot_results  # lazy: matplotlib
+        from ..plotting import plot_contours, plot_results  # matplotlib
 
         ClusterFit.plot(self, X)
         used = np.unique(y).size
@@ -192,36 +196,7 @@ class BGMMFit(ClusterFit):
             subsampled_y = self.assign(self.subsampled_X * self.scale,
                                        progress=False) \
                 if hasattr(self, "subsampled_X") else y
-            self.plot_contours(subsampled_y, "DPGMM assignment boundary",
-                               self._artefact("_DPGMM_fit_contours"))
+            plot_contours(self, subsampled_y, "DPGMM assignment boundary",
+                          self._artefact("_DPGMM_fit_contours"))
         except Exception as e:  # plotting must never kill a fit
             sys.stderr.write(f"Plotting failed: {e}\n")
-
-    def plot_contours(self, assignments, title, out_prefix):
-        """Mixture likelihood surface + within/between decision contour
-        (the reference's plotting.plot_contours, plot.py:375-414, with the
-        grid evaluated by this package's likelihood)."""
-        import matplotlib.pyplot as plt
-        from poppunk_tpu.plotting import get_grid
-
-        xx, yy, xy = get_grid(0, 1, 100)
-        z = self.assign(xy, values=True, progress=False)
-        within = find_within_label(self.means, assignments, 0)
-        between = find_between_label_bgmm(self.means, assignments)
-        z_diff = (z[:, within] - z[:, between]).reshape(xx.shape).T
-        unit = GaussianMixture(self.mixture.weights, self.mixture.means,
-                               self.mixture.covariances,
-                               torch.ones_like(self.mixture.scale))
-        z_ll = unit.log_likelihood(torch.as_tensor(
-            xy, dtype=torch.float32, device=self.device))[0]
-        z_ll = z_ll.cpu().numpy().reshape(xx.shape).T
-
-        plt.figure(figsize=(11, 8), dpi=160, facecolor="w", edgecolor="k")
-        plt.contour(xx, yy, z_ll, levels=np.linspace(z_ll.min(), z_ll.max(),
-                                                     25))
-        plt.contour(xx, yy, z_diff, levels=[0], colors="r", linewidths=3)
-        plt.title(title)
-        plt.xlabel("Scaled core distance")
-        plt.ylabel("Scaled accessory distance")
-        plt.savefig(out_prefix + ".pdf")
-        plt.close()

@@ -8,7 +8,7 @@ refineFit / multi_refine optimisers (PopPUNK/refine.py:51-312):
   (or a manual start file); a DBSCAN start model waits for the DBSCAN
   port;
 - global 1-D search: 40 offsets along the line, one sorted boundary sweep
-  (poppunk_tpu.ops.boundary.threshold_iterate_1d) scored on the model
+  (ops/boundary.py threshold_iterate_1d) scored on the model
   device (ops/device_sweep.py) or incrementally on the host
   (network/incremental.py);
 - unconstrained 2-D search: 20x20 (x_max, y_max) grid, swept per y row;
@@ -29,11 +29,11 @@ from math import sqrt
 import numpy as np
 import scipy.optimize
 
-from poppunk_tpu.ops import boundary as bops
-from poppunk_tpu.utils import decision_boundary, transform_line
-
+from .. import _device
 from ..network.incremental import grow_network_scores
+from ..ops import boundary as bops
 from ..ops.device_sweep import sweep_scores_device, use_device_sweep
+from ..utils import decision_boundary, transform_line
 from .base import ClusterFit
 
 BETWEENNESS_SAMPLE_DEFAULT = 100
@@ -259,7 +259,8 @@ def multi_refine(dist_mat, sample_names, mean0, mean1, scale, s_max,
 class RefineFit(ClusterFit):
     def __init__(self, out_prefix, seed=42, device=None):
         ClusterFit.__init__(self, out_prefix, seed=seed)
-        self.device = device  # where the global sweep runs (None: host)
+        # where the global sweep runs: the card, or the host for a CPU device
+        self.device = _device.resolve(device)
         self.type = "refine"
         self.preprocess = False
         self.within_label = -1
@@ -397,7 +398,7 @@ class RefineFit(ClusterFit):
     def plot(self, X, y=None):
         ClusterFit.plot(self, X)
         try:
-            from poppunk_tpu.plotting import plot_refined_results
+            from ..plotting import plot_refined_results
 
             plot_refined_results(
                 X, self.assign(X), self.optimal_x, self.optimal_y,

@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/cliques.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 Clique-based reference extraction.
 

@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/clusters.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 Cluster naming from network components.
 
@@ -18,7 +17,7 @@ from collections import Counter
 
 from scipy.stats import rankdata
 
-from poppunk_tpu.utils import read_isolate_type_from_csv
+from ..utils import read_isolate_type_from_csv
 from .components import connected_components
 from .unwords import gen_unword
 

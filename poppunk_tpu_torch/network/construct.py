@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/construct.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 Network construction from model assignments / distance rows.
 
@@ -15,7 +14,7 @@ import sys
 
 import numpy as np
 
-from poppunk_tpu.ops.boundary import generate_tuples
+from ..ops.boundary import generate_tuples
 from .graph import Graph
 from .summary import print_network_summary
 

@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/graph.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 Array-native undirected graph.
 
@@ -192,6 +191,48 @@ def load_network_file(fn):
     if fn.endswith(".csv.gz"):
         return Graph.load_csv_gz(fn)
     return Graph.load(fn)
+
+
+def remove_nodes_from_graph(G, reflist, samples_to_keep):
+    """Induced subgraph keeping only the named samples
+    (PopPUNK/network.py:1988-2027).
+
+    Indices beyond the graph's vertex count are ignored — prune_graph
+    passes the full database name list even to `.refs_graph` files whose
+    vertex set is the reference subset (the reference's graph-tool
+    filtering is equally lenient, and its loop saves the correctly-pruned
+    `_graph` last)."""
+    keep_set = frozenset(samples_to_keep)
+    vertices = np.array(
+        [i for i, name in enumerate(reflist)
+         if name in keep_set and i < G.n_vertices],
+        dtype=np.int64,
+    )
+    G_new, _ = G.subgraph(vertices, relabel=True)
+    return G_new
+
+
+def prune_graph(prefix, reflist, samples_to_keep, output_db_name):
+    """Prune every network artefact found under prefix to the kept samples
+    (PopPUNK/network.py:1948-1986)."""
+    import sys
+
+    network_found = False
+    for graph_name in (
+        "_core.refs_graph", "_core_graph", "_accessory.refs_graph",
+        "_accessory_graph", ".refs_graph", "_graph",
+    ):
+        network_fn = os.path.join(
+            prefix, os.path.basename(prefix) + graph_name + GRAPH_SUFFIX
+        )
+        if os.path.exists(network_fn):
+            network_found = True
+            sys.stderr.write("Loading network from " + network_fn + "\n")
+            G = load_network_file(network_fn)
+            G_new = remove_nodes_from_graph(G, reflist, samples_to_keep)
+            save_network(G_new, prefix=output_db_name, suffix="_graph")
+    if not network_found:
+        sys.stderr.write("No network file found for pruning\n")
 
 
 def remove_non_query_components(G, rlist, qlist, relabel=False):

@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/gt_format.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 graph-tool ``.gt`` binary format reader (the JAX package's module also
 writes the format; this package only reads it).

@@ -1,6 +1,5 @@
 """Host network code, copied from poppunk_tpu/network/unwords.py (that
-package loads jax on import); imports point at this package or at the
-reference's JAX-free modules.
+package loads jax on import); its imports point at this package.
 
 Pronounceable non-word cluster name generator.
 

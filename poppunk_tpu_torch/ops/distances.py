@@ -19,6 +19,7 @@ packed, once per call.
 import numpy as np
 import torch
 
+from .. import _device
 from .kmer_fit import _fit_math
 from . import match_counts as mc
 
@@ -62,9 +63,11 @@ def pack_planes(sketches, klist=None):
 
 
 def planes_to_tensor(planes, device=None):
-    """uint32 planes (numpy) -> int32 tensor with the same bits."""
+    """uint32 planes (numpy) -> int32 tensor with the same bits, on
+    ``device`` (None: ``_device.resolve``'s choice)."""
     return torch.from_numpy(
-        np.ascontiguousarray(planes).view(np.int32)).to(device)
+        np.ascontiguousarray(planes).view(np.int32)).to(
+            _device.resolve(device))
 
 
 def _random_jaccard(k, len_q, len_r, freq_q, freq_r, use_rc=True):
@@ -158,10 +161,11 @@ def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
                    jaccard=False, chunk=512, post_spec=None, device=None):
     """Dense [nq, nr] block, chunked over queries: f32 [nq, nr, 2]
     (core, accessory) or [nq, nr, K] Jaccards; with ``post_spec``
-    (ops/fused_assign) also the per-pair classes from the same pass."""
+    (ops/fused_assign) also the per-pair classes from the same pass. It
+    runs on ``device`` (None: ``_device.resolve``'s choice)."""
     if post_spec is not None and jaccard:
         raise ValueError("post_spec requires (core, accessory) output")
-    device = torch.device("cpu") if device is None else device
+    device = _device.resolve(device)
     pad_bits = plane_geometry(sketchsize64, bbits)[2]
     ref = _Operands(planes_r, len_r, freq_r, device, pad_bits)
     qry = _Operands(planes_q, len_q, freq_q, device, pad_bits)
@@ -182,8 +186,9 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
                          chunk=512, post_spec=None, device=None):
     """Condensed i<j all-vs-all rows without the n x n square: each query
     chunk is compared only with the genomes from its own first row on,
-    and sliced to its upper-triangle rows at once."""
-    device = torch.device("cpu") if device is None else device
+    and sliced to its upper-triangle rows at once. It runs on ``device``
+    (None: ``_device.resolve``'s choice)."""
+    device = _device.resolve(device)
     ops = _Operands(planes, lengths, freqs, device,
                     plane_geometry(sketchsize64, bbits)[2])
     n = planes.shape[0]

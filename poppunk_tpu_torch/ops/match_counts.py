@@ -51,6 +51,8 @@ _LANES = 128
 
 # plain-version working set per step: an int32 [cq, cr, K, w32] diff tile
 _PLAIN_TILE_BYTES = 1 << 27
+# csrc/match_counts_mainloop.cuh: mc::ENCODE_ERROR
+_ENCODE_ERROR = 10000
 
 
 def _geometry(planes_q, planes_r, pad_bits):
@@ -107,6 +109,16 @@ def match_counts_torch(planes_q, planes_r, pad_bits):
     return out
 
 
+def _check_launch(name, err):
+    """Raise on a launch function's non-zero return: a CUDA error, or
+    _ENCODE_ERROR + the CUresult of a tensor map the driver refused."""
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused the "
+                           f"operand layout (CUresult {err - _ENCODE_ERROR})")
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def match_counts(planes_q, planes_r, pad_bits):
     """int32 [nq, nr, K] bin-match counts: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
@@ -122,9 +134,9 @@ def match_counts(planes_q, planes_r, pad_bits):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("CUDA planes must be contiguous and 16-byte "
                              "aligned")
-    if Wp % 4 or -(-w32 // 4) * 4 > Wp:
-        raise ValueError(f"kernel reads 4-word chunks: Wp={Wp} must be a "
-                         f"multiple of 4 holding w32={w32} rounded up to 4")
+    if Wp % 4:
+        raise ValueError(f"the kernel's TMA needs 16-byte plane rows: Wp={Wp} "
+                         "must be a multiple of 4")
     if nq > 65535 * 64:
         raise ValueError(f"nq={nq} exceeds the kernel grid; chunk queries")
     out = torch.empty((nq, nr, K), dtype=torch.int32, device=planes_q.device)
@@ -136,9 +148,7 @@ def match_counts(planes_q, planes_r, pad_bits):
         err = lib.match_counts_launch(
             planes_q.data_ptr(), planes_r.data_ptr(), out.data_ptr(),
             nq, nr, K, P, Wp, w32, stream)
-    if err:
-        raise RuntimeError(f"match_counts kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_launch("match_counts", err)
     LAUNCHES += 1
     return out
 
@@ -274,10 +284,6 @@ def match_counts_packed(q, r):
             raise ValueError("CUDA packed planes need unit word stride, "
                              "strides of whole 16-byte chunks and a 16-byte "
                              f"aligned start; got strides {t.stride()}")
-    if L % 4 or -(-q.g * q.w32 // 4) * 4 > L:
-        raise ValueError(f"kernel reads 4-word chunks: L={L} must be a "
-                         f"multiple of 4 holding G * w32 = {q.g * q.w32} "
-                         "rounded up to 4")
     if nq > 65535 * 64:
         raise ValueError(f"nq={nq} exceeds the kernel grid; chunk queries")
     out = torch.empty((nq, nr, q.k), dtype=torch.int32, device=q.bits.device)
@@ -290,9 +296,7 @@ def match_counts_packed(q, r):
             q.bits.data_ptr(), r.bits.data_ptr(), out.data_ptr(), nq, nr,
             q.k, kg, P, q.g, q.w32, *q.bits.stride()[:3],
             *r.bits.stride()[:3], stream)
-    if err:
-        raise RuntimeError(f"match_counts_packed kernel launch failed: CUDA "
-                           f"error {err}")
+    _check_launch("match_counts_packed", err)
     PACKED_LAUNCHES += 1
     return out
 

@@ -36,6 +36,16 @@ from poppunk_tpu_torch.ops import fused_assign as tfa
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def on_the_cpu():
+    """The port computes on the card unless asked for the CPU (_device.py);
+    this file's tests ask for it, as a CPU-only host must."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("POPPUNK_TPU_TORCH_DEVICE", "cpu")
+        yield
+
+
 EM_TOL = dict(rtol=1e-4, atol=1e-5)
 LOGRESP_TOL = dict(rtol=1e-4, atol=5e-4)
 LL_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -35,6 +35,16 @@ from poppunk_tpu_torch.ops.kmer_fit import fit_kmer_curve_np
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def on_the_cpu():
+    """The port computes on the card unless asked for the CPU (_device.py);
+    this file's tests ask for it, as a CPU-only host must."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("POPPUNK_TPU_TORCH_DEVICE", "cpu")
+        yield
+
+
 JACCARD_TOL = dict(rtol=1e-6, atol=1e-9)
 CORRECTED_TOL = dict(rtol=1e-6, atol=1e-7)
 DIST_TOL = dict(rtol=1e-5, atol=2e-5)

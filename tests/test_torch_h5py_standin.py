@@ -1,6 +1,7 @@
 """A pickle-backed stand-in for h5py, and its test against h5py.
 
-The sketch database (poppunk_tpu/io/hdf5db.py) is HDF5 through h5py. Hosts
+The sketch database (poppunk_tpu_torch/io/hdf5db.py, a copy of
+poppunk_tpu/io/hdf5db.py) is HDF5 through h5py. Hosts
 without h5py run the port's CLIs on this stand-in instead: chip_smoke.py
 installs it there as ``sys.modules["h5py"]``. These classes behave as
 h5py's groups, datasets and attributes do for every call hdf5db makes

@@ -20,8 +20,20 @@ from poppunk_tpu_torch.ops.distances import plane_geometry, planes_to_tensor
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def on_the_cpu():
+    """The port computes on the card unless asked for the CPU (_device.py);
+    this file's tests ask for it, as a CPU-only host must."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("POPPUNK_TPU_TORCH_DEVICE", "cpu")
+        yield
+
+
 SMALL = (16, 5, 3)  # ss64, bbits, K — the JAX kernel tests' geometry
 PRODUCTION = (156, 14, 5)  # sketch size 9984, 14 planes, k = 13..29 step 4
+SHORT = (2, 5, 3)  # w32 4: fewer 8-word stages per k than the ring holds
+ODD = (15, 5, 4)  # w32 30: the last stage of each k is partial
 
 
 def random_planes(n, ss64, bbits, K, rng):
@@ -138,9 +150,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nr,geometry", [(3, 5, SMALL), (64, 128, SMALL),
-                                            (65, 129, SMALL),
-                                            (257, 1031, PRODUCTION)])
+@pytest.mark.parametrize("nq,nr,geometry", [
+    (3, 5, SMALL), (64, 128, SMALL), (65, 129, SMALL),
+    (257, 1031, PRODUCTION),
+    # 64 x 64 block tiles: a single pair, and ragged edges either way
+    (1, 1, SMALL), (127, 129, SMALL), (129, 65, PRODUCTION),
+    (9, 17, SHORT), (65, 129, ODD)])
 def test_kernel_equals_plain(cuda_device, nq, nr, geometry):
     pq, pr, pad_bits = pair(nq, nr, geometry, nq + nr)
     q = planes_to_tensor(pq, cuda_device)
@@ -159,3 +174,18 @@ def test_kernel_rejects_wrong_dtype(cuda_device):
     q = torch.from_numpy(pq.astype(np.int64)).to(cuda_device)
     with pytest.raises(TypeError, match="int32"):
         mc.match_counts(q, planes_to_tensor(pr, cuda_device), pad_bits)
+
+
+@pytest.mark.cuda
+def test_kernel_on_row_slices(cuda_device):
+    """Query chunks are row slices of one planes tensor (ops/distances.py):
+    views with a non-zero base offset, read through the tensor map as
+    they are."""
+    pq, pr, pad_bits = pair(70, 130, ODD, 11)
+    q = planes_to_tensor(pq, cuda_device)
+    r = planes_to_tensor(pr, cuda_device)
+    whole = mc.match_counts(q, r, pad_bits)
+    got = mc.match_counts(q[5:69], r[3:], pad_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole[5:69, 3:])
+    assert torch.equal(got, mc.match_counts_torch(q[5:69], r[3:], pad_bits))

@@ -26,9 +26,20 @@ from poppunk_tpu_torch.ops.distances import plane_geometry, planes_to_tensor
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def on_the_cpu():
+    """The port computes on the card unless asked for the CPU (_device.py);
+    this file's tests ask for it, as a CPU-only host must."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("POPPUNK_TPU_TORCH_DEVICE", "cpu")
+        yield
+
+
 SMALL = (16, 5)  # ss64, bbits: the JAX kernel tests' geometry
 ODD = (15, 5)  # w32 = 30: a 16-byte chunk straddles two k slots
 PRODUCTION = (156, 14)  # sketch size 9984, 14 planes
+SHORT = (2, 5)  # w32 4: fewer 8-word stages per group than the ring holds
 
 # the JAX package's packed cases (test_sketch.py:256-257) plus an odd ss64
 PACKED_CASES = [(3, 5, 3, None, SMALL), (64, 128, 3, 2, SMALL),
@@ -254,7 +265,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nr,K,g,geometry", PACKED_CASES + [
-    (257, 1031, 5, None, PRODUCTION), (130, 200, 6, None, PRODUCTION)])
+    (257, 1031, 5, None, PRODUCTION), (130, 200, 6, None, PRODUCTION),
+    # 64 x 64 block tiles: a single pair, and ragged edges either way
+    (1, 1, 3, None, SMALL), (127, 129, 5, 2, SMALL),
+    (129, 65, 6, None, PRODUCTION), (9, 17, 3, None, SHORT),
+    (9, 17, 5, 2, SHORT)])
 def test_packed_kernel_equals_plain_and_standard(cuda_device, nq, nr, K, g,
                                                  geometry):
     pq, pr, w32, pad_bits = pair(nq, nr, K, geometry, nq + nr + K)
@@ -271,3 +286,21 @@ def test_packed_kernel_equals_plain_and_standard(cuda_device, nq, nr, K, g,
     # a row slice of the packed references: strided, no copy
     part = r.rows(3, nr - 1)
     assert torch.equal(mc.match_counts_packed(q, part), got[:, 3:nr - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [ODD, PRODUCTION])
+def test_packed_kernel_on_row_views_with_offsets(cuda_device, geometry):
+    """Both operands as row views of packed tensors, starting past row 0:
+    a non-zero base offset in the tensor map, rows past the view's end
+    unread."""
+    pq, pr, w32, pad_bits = pair(70, 130, 5, geometry, 23)
+    q = mc.pack(planes_to_tensor(pq, cuda_device), pad_bits)
+    r = mc.pack(planes_to_tensor(pr, cuda_device), pad_bits)
+    got = mc.match_counts_packed(q.rows(5, 69), r.rows(3, 129))
+    torch.cuda.synchronize()
+    std = mc.match_counts(planes_to_tensor(pq[5:69], cuda_device),
+                          planes_to_tensor(pr[3:129], cuda_device), pad_bits)
+    assert torch.equal(got, std)
+    assert torch.equal(got, mc.match_counts_packed_torch(q.rows(5, 69),
+                                                         r.rows(3, 129)))

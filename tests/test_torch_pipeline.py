@@ -35,6 +35,16 @@ from poppunk_tpu_torch.ops import match_counts as mc
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def on_the_cpu():
+    """The port computes on the card unless asked for the CPU (_device.py);
+    this file's tests ask for it, as a CPU-only host must."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("POPPUNK_TPU_TORCH_DEVICE", "cpu")
+        yield
+
+
 KARGS = ["--min-k", "13", "--max-k", "25", "--k-step", "4",
          "--sketch-size", "2048", "--no-plot"]
 DIST_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -167,7 +177,7 @@ def test_cli_path_with_h5py_standin(dbs, split, tmp_path, monkeypatch):
     and assignments as with h5py."""
     from test_torch_h5py_standin import h5py_standin as make_standin
 
-    from poppunk_tpu.io import hdf5db
+    from poppunk_tpu_torch.io import hdf5db
 
     h5py_standin = make_standin()
     rfile, qfile = split
@@ -201,14 +211,20 @@ def test_gpu_flag_without_cuda_raises(split, tmp_path):
 
 def test_port_never_imports_jax(split, tmp_path):
     """In a fresh interpreter: after importing the package and after CLI
-    runs (create-db, BGMM, refine) with plotting on, jax is not loaded."""
+    runs (create-db, BGMM, refine) with plotting on, neither jax nor any
+    module of the JAX package is loaded."""
     rfile, _ = split
     db = str(tmp_path / "nojax")
     refine = str(tmp_path / "nojax_refine")
     script = f"""
 import sys
+
+def jax_modules():
+    return sorted(m for m in sys.modules if m == 'jax' or m == 'poppunk_tpu'
+                  or m.startswith(('jax.', 'poppunk_tpu.')))
+
 import poppunk_tpu_torch, poppunk_tpu_torch.assign, poppunk_tpu_torch.cli.assign
-assert 'jax' not in sys.modules, 'import'
+assert not jax_modules(), jax_modules()
 from poppunk_tpu_torch.cli.main import main
 main(['--create-db', '--r-files', {rfile!r}, '--output', {db!r},
       '--min-k', '13', '--max-k', '21', '--k-step', '4',
@@ -216,10 +232,11 @@ main(['--create-db', '--r-files', {rfile!r}, '--output', {db!r},
 main(['--fit-model', 'bgmm', '--ref-db', {db!r}, '--output', {db!r}])
 main(['--fit-model', 'refine', '--ref-db', {db!r}, '--output', {refine!r},
       '--model-dir', {db!r}, '--indiv-refine', 'both'])
-assert 'jax' not in sys.modules, 'cli'
+assert not jax_modules(), jax_modules()
 print('NO_JAX_OK')
 """
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               POPPUNK_TPU_TORCH_DEVICE="cpu")
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=600, env=env,
                           cwd=os.path.dirname(os.path.dirname(__file__)))
