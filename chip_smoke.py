@@ -51,7 +51,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from datetime import datetime
 from types import SimpleNamespace
 
 import numpy as np
@@ -154,21 +156,46 @@ def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max())
 
 
-def sm_clock_sampler():
-    """Start nvidia-smi sampling the SM clock (MHz) every 50 ms."""
-    return subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+def timed_at_sm_clock(torch, fn, reps):
+    """(ms per call of ``fn`` by CUDA events over ``reps`` calls, the median
+    SM clock in MHz over the samples nvidia-smi took inside that window,
+    the number of those samples). nvidia-smi samples every 50 ms and stamps
+    each sample with its wall-clock time; the window opens once the first
+    sample was read (or after 10 s, should nvidia-smi hold its output back
+    until it exits), and samples outside it are dropped."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    lines, first = [], threading.Event()
 
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            first.set()
 
-def stop_sampler(proc):
-    """Stop a sampler; the median SM clock it read, in MHz."""
-    proc.terminate()
-    out = proc.communicate()[0]
-    mhz = [int(x) for x in out.split() if x.isdigit()]
-    if not mhz:
-        raise AssertionError("nvidia-smi read no SM clock")
-    return float(np.median(mhz))
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        first.wait(10)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ms = event_ms(torch, fn, reps)
+        t1 = time.time()
+    finally:
+        proc.terminate()
+        proc.wait()
+        reader.join()
+    mhz = []
+    for line in lines:
+        stamp, value = line.rsplit(",", 1)
+        t = datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
+        if t0 <= t.timestamp() <= t1:
+            mhz.append(int(value))
+    if len(mhz) < 3:
+        raise AssertionError(f"{len(mhz)} SM clock samples inside a "
+                             f"{(t1 - t0) * 1e3:.0f} ms window: {lines}")
+    return ms, float(np.median(mhz)), len(mhz)
 
 
 def unpack_signatures(torch, planes, w32, chunk=128):
@@ -268,9 +295,9 @@ def phase_c(torch, device):
                     ("match_counts_packed", mc.match_counts_packed,
                      mc.match_counts_packed_torch, (qp, rp))):
                 kernel(*args)  # warm
-                sampler = sm_clock_sampler()
-                ms = event_ms(torch, lambda: kernel(*args), 20)
-                sm_mhz = stop_sampler(sampler)
+                # ~1 s of calls: some 20 clock samples fall inside
+                ms, sm_mhz, samples = timed_at_sm_clock(
+                    torch, lambda: kernel(*args), 60)
                 plain_ms = event_ms(torch, lambda: plain(*args), 2)
                 in_bytes = sum(t.numel() * 4 for t in (
                     (q, r) if name == "match_counts" else (qp.bits, rp.bits)))
@@ -280,7 +307,7 @@ def phase_c(torch, device):
                     shape=[nq, nr, geometry[2]], ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms,
                     bound_by=bound_by, bound_share=bound_ms / ms,
-                    sm_clock_mhz=sm_mhz,
+                    sm_clock_mhz=sm_mhz, sm_clock_samples=samples,
                     pairs_per_s=nq * nr / (ms / 1e3),
                     plain_pairs_per_s=nq * nr / (plain_ms / 1e3))
         del q, r, qp, rp, got, want, got_p, want_p

@@ -110,21 +110,17 @@ def build():
     return out
 
 
-def bind(path):
-    """Load a kernel library and declare its C functions' signatures."""
-    lib = ctypes.CDLL(path)
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.match_counts_launch.restype = ci
-    lib.match_counts_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
-    lib.match_counts_packed_launch.restype = ci
-    lib.match_counts_packed_launch.argtypes = (
-        [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
-    return lib
-
-
 def load():
-    """The kernels' ctypes library, built on first use."""
+    """The kernels' ctypes library, built on first use, with its C
+    functions' signatures declared."""
     global _lib
     if _lib is None:
-        _lib = bind(build())
+        lib = ctypes.CDLL(build())
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.match_counts_launch.restype = ci
+        lib.match_counts_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
+        lib.match_counts_packed_launch.restype = ci
+        lib.match_counts_packed_launch.argtypes = (
+            [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
+        _lib = lib
     return _lib

@@ -5,7 +5,8 @@ caller is used as it is: passing ``torch.device("cpu")`` is how a library
 caller asks for the CPU. Without one, the stage runs on ``cuda:<deviceid>``
 unless the environment variable ``POPPUNK_TPU_TORCH_DEVICE`` is ``cpu``,
 which is how the CLIs (whose flags are the JAX package's) and the CPU
-tests ask for the CPU. Without CUDA and without that request, ``resolve``
+tests ask for the CPU; any other value is refused. Without CUDA and
+without that request, ``resolve``
 raises: nothing falls back to the CPU silently.
 
 The CLIs keep PopPUNK's GPU flags (PopPUNK/__main__.py:216-220):
@@ -52,10 +53,10 @@ def resolve(device=None, deviceid=0):
             set_full_precision()
         return device
     choice = os.environ.get(ENV, "").strip().lower()
-    if choice not in ("", "cpu", "cuda"):
-        raise ValueError(f"{ENV}={choice!r}: expected 'cpu' or 'cuda'")
     if choice == "cpu":
         return torch.device("cpu")
+    if choice:
+        raise ValueError(f"{ENV}={choice!r}: expected 'cpu' or unset")
     return _card(deviceid)
 
 

@@ -27,8 +27,8 @@ __global__ void __launch_bounds__(mc::THREADS, 1)
 match_counts_kernel(__grid_constant__ const CUtensorMap map_q,
                     __grid_constant__ const CUtensorMap map_r,
                     int* __restrict__ out, int nq, int nr, int K, int P,
-                    int w32, int stages) {
-  mc::mainloop<false>(&map_q, &map_r, out, nq, nr, K, K, 1, w32, P, stages);
+                    int w32) {
+  mc::mainloop<false>(&map_q, &map_r, out, nq, nr, K, K, 1, w32, P);
 }
 
 }  // namespace
@@ -49,13 +49,12 @@ extern "C" int match_counts_launch(const void* planes_q, const void* planes_r,
   if (!err)
     err = mc::encode(&map_r, planes_r, w32, nr, P, K, row, Wp,
                      (long long)P * Wp);
-  int stages = 0;
   size_t smem = 0;
-  if (!err) err = mc::ring_geometry(match_counts_kernel, P, &stages, &smem);
+  if (!err) err = mc::ring_smem(match_counts_kernel, P, &smem);
   if (err) return err;
   const dim3 grid((nr + mc::TR - 1) / mc::TR, (nq + mc::TQ - 1) / mc::TQ);
   match_counts_kernel<<<grid, mc::THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_r, static_cast<int*>(out), nq, nr, K, P, w32, stages);
+      map_q, map_r, static_cast<int*>(out), nq, nr, K, P, w32);
   return int(cudaGetLastError());
 }

@@ -19,13 +19,13 @@
 // blocks, ~1 GB per call at 2048 x 4096 x K 6, a fraction of a millisecond.
 //
 // What the design does about it:
-//  - a ring of `stages` (>= 3) buffers in shared memory, each holding one
+//  - a ring of STAGES (3) buffers in shared memory, each holding one
 //    32-byte sector (8 words) of every plane row of the block's 64 query and
 //    64 reference genomes. Thread 0 keeps the ring full with one TMA copy
 //    per operand per stage, completion counted on a "full" mbarrier; the 8
 //    warps wait on it once per stage, compute, and release the buffer
 //    through an "empty" mbarrier, one arrive per warp, after which thread 0
-//    refills it with the stage `stages` ahead. Copies of the next stages
+//    refills it with the stage STAGES ahead. Copies of the next stages
 //    overlap the logic ops on this one, and no thread spends integer
 //    instructions on staging addresses: the TMA computes them, and fills
 //    rows past n and words past the segment with zeros (the ragged edges
@@ -53,18 +53,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Compile-time knobs, fixed by the defaults below; chip_variants.py builds
-// other values to compare them on the card.
-#ifndef MC_MAX_STAGES
-#define MC_MAX_STAGES 3  // ring depth, if the shared memory holds it
-#endif
-#ifndef MC_SWIZZLE
-#define MC_SWIZZLE 1  // 32-byte TMA swizzle (0: plain row-major stages)
-#endif
-#ifndef MC_UNROLL_HALVES
-#define MC_UNROLL_HALVES 0  // 1: one body for a stage's two halves
-#endif
-
 namespace mc {
 
 constexpr int TQ = 64;                   // queries per block tile
@@ -75,13 +63,9 @@ constexpr int GQ = TQ / MQ;              // consumer thread rows (16)
 constexpr int GR = TR / MR;              // consumer thread columns (16)
 constexpr int THREADS = GQ * GR;         // 256: 8 warps
 constexpr int WORDS = 8;                 // words per stage: one sector per row
-constexpr int MAX_STAGES = MC_MAX_STAGES;
-constexpr int MIN_STAGES = 3;
-constexpr int HALF_UNROLL = MC_UNROLL_HALVES ? 2 : 1;
+constexpr int STAGES = 3;                // ring depth
 constexpr int ALIGN = 1024;              // stage buffers' alignment (swizzle)
 constexpr int ENCODE_ERROR = 10000;      // + CUresult of a refused tensor map
-
-static_assert(MAX_STAGES >= MIN_STAGES, "the ring needs >= 3 stages");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -137,15 +121,15 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
                                          const CUtensorMap* map_r,
                                          int* __restrict__ out, int nq, int nr,
                                          int K, int nseg, int G, int w32,
-                                         int P, int stages) {
+                                         int P) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   uint8_t* smem = smem_raw + (((raw + ALIGN - 1) & ~uint32_t(ALIGN - 1)) - raw);
   const uint32_t q_bytes = uint32_t(P) * TQ * WORDS * 4;
   const uint32_t stage_bytes = uint32_t(P) * (TQ + TR) * WORDS * 4;
   const uint32_t ring = smem_addr(smem);
-  const uint32_t full = ring + stages * stage_bytes;  // mbarriers, 8 B each
-  const uint32_t empty = full + MAX_STAGES * 8;
+  const uint32_t full = ring + STAGES * stage_bytes;  // mbarriers, 8 B each
+  const uint32_t empty = full + STAGES * 8;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.y * TQ;
@@ -167,7 +151,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
   };
 
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, THREADS / 32);
     }
@@ -177,7 +161,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
                      reinterpret_cast<uint64_t>(map_q)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(
                      reinterpret_cast<uint64_t>(map_r)) : "memory");
-    for (int s = 0; s < stages && pseg < nseg; ++s) load_next(s);
+    for (int s = 0; s < STAGES && pseg < nseg; ++s) load_next(s);
   }
   __syncthreads();
 
@@ -185,8 +169,8 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
   const int ty = tid / GR;
   // the 32-byte swizzle moves half h of row g to h ^ (bit 2 of g); a
   // thread's rows ty + i * GQ (tx + j * GR) all share bit 2
-  const int swq = MC_SWIZZLE ? (ty >> 2) & 1 : 0;
-  const int swr = MC_SWIZZLE ? (tx >> 2) & 1 : 0;
+  const int swq = (ty >> 2) & 1;
+  const int swr = (tx >> 2) & 1;
   const int total_bits = 32 * w32;
   int s = 0;
   uint32_t phase = 0;
@@ -227,7 +211,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
       const uint4* sq = reinterpret_cast<const uint4*>(smem + s * stage_bytes);
       const uint4* sr =
           reinterpret_cast<const uint4*>(smem + s * stage_bytes + q_bytes);
-#pragma unroll HALF_UNROLL
+#pragma unroll 1  // unrolled, the standard kernel needs 255 registers
       for (int h = 0; h < 2; ++h) {
         // uint4 index of (plane p, row g, half h): (p * T + g) * 2 + h'
         const uint4* q_half = sq + ty * 2 + (h ^ swq);
@@ -298,7 +282,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_q,
         mbar_wait(empty + 8 * s, phase);
         load_next(s);
       }
-      if (++s == stages) {
+      if (++s == STAGES) {
         s = 0;
         phase ^= 1;
       }
@@ -346,29 +330,25 @@ inline int encode(CUtensorMap* map, const void* base, long long words,
   const CUresult res = encode_tiled(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      MC_SWIZZLE ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + int(res);
 }
 
-// The ring depth that P planes allow (up to MAX_STAGES) and the dynamic
-// shared memory it takes, after raising `kernel`'s limit to it. Returns 0
-// or an error.
+// The dynamic shared memory of a STAGES-deep ring for P planes, after
+// raising `kernel`'s limit to it. Returns 0 or an error: P too large for the
+// card's opt-in shared memory is cudaErrorInvalidValue.
 template <typename Kernel>
-inline int ring_geometry(Kernel kernel, int P, int* stages, size_t* smem) {
+inline int ring_smem(Kernel kernel, int P, size_t* smem) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return int(err);
-  const size_t stage = size_t(P) * (TQ + TR) * WORDS * 4;
-  const size_t fixed = ALIGN + 2 * MAX_STAGES * 8;  // alignment, mbarriers
-  if (size_t(optin) < fixed + MIN_STAGES * stage)
-    return int(cudaErrorInvalidValue);  // P too large for a 3-stage ring
-  const int fit = int((size_t(optin) - fixed) / stage);
-  *stages = fit < MAX_STAGES ? fit : MAX_STAGES;
-  *smem = fixed + size_t(*stages) * stage;
+  // the alignment slack, the stages and their two mbarriers each
+  *smem = ALIGN + size_t(STAGES) * (size_t(P) * (TQ + TR) * WORDS * 4 + 16);
+  if (*smem > size_t(optin)) return int(cudaErrorInvalidValue);
   return int(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem)));
 }

@@ -44,8 +44,8 @@ __global__ void __launch_bounds__(mc::THREADS, 1)
 match_counts_packed_kernel(__grid_constant__ const CUtensorMap map_q,
                            __grid_constant__ const CUtensorMap map_r,
                            int* __restrict__ out, int nq, int nr, int K,
-                           int KG, int P, int G, int w32, int stages) {
-  mc::mainloop<true>(&map_q, &map_r, out, nq, nr, K, KG, G, w32, P, stages);
+                           int KG, int P, int G, int w32) {
+  mc::mainloop<true>(&map_q, &map_r, out, nq, nr, K, KG, G, w32, P);
 }
 
 }  // namespace
@@ -65,15 +65,12 @@ extern "C" int match_counts_packed_launch(
   CUtensorMap map_q, map_r;
   int err = mc::encode(&map_q, q, words, nq, P, KG, qsn, qsp, qsg);
   if (!err) err = mc::encode(&map_r, r, words, nr, P, KG, rsn, rsp, rsg);
-  int stages = 0;
   size_t smem = 0;
-  if (!err)
-    err = mc::ring_geometry(match_counts_packed_kernel, P, &stages, &smem);
+  if (!err) err = mc::ring_smem(match_counts_packed_kernel, P, &smem);
   if (err) return err;
   const dim3 grid((nr + mc::TR - 1) / mc::TR, (nq + mc::TQ - 1) / mc::TQ);
   match_counts_packed_kernel<<<grid, mc::THREADS, smem,
                                static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_r, static_cast<int*>(out), nq, nr, K, KG, P, G, w32,
-      stages);
+      map_q, map_r, static_cast<int*>(out), nq, nr, K, KG, P, G, w32);
   return int(cudaGetLastError());
 }
