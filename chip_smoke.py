@@ -35,19 +35,37 @@ Phases, each printing one JSON line with its seconds:
      BGMM fit with the device sweep, its 40 global scores held to the host
      native sweep on the same edges, the refine network, and fused
      boundary-post assignment of the queries (distances equal phase E's)
+  H  with KERNEL_CHOICE standard again, the DBSCAN, lineage and QC CLIs
+     on phase D's population and database: --qc-db removing one reference
+     by name; --fit-model dbscan (clusters equal the planted strains) and
+     assign with it through the fused dbscan post on the card; dbscan
+     --for-refine, then refine from it (strain-pure clusters); lineage
+     --ranks 1,2 and assign with it, with and without --update-db full
+     (a Status column; rank-1 lineages strain-pure)
+  I  phase E's population through the DBSCAN model at the CLI defaults:
+     the fit on the 100,000-pair subsample with the HDBSCAN Boruvka sweep
+     on the card (seconds and rounds of every MST, the cascade's steps),
+     the exact assignment of all pairs, timed apart, and the decision-grid
+     assignment beside it; network, clusters and references (the planted
+     strains); fused dbscan-post assignment of the queries (distances
+     equal phase E's); the card's Boruvka on 8192 of the subsample held to
+     the same function on the CPU and to the host Prim oracle; a lineage
+     fit (ranks 1-3, depth 30) extended with the queries, whose
+     query-query distances run on the card (rank-1 lineages strain-pure)
 Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D and E, the packed kernel's over F and G,
-each phase run with the counts set to 0 just before it), the nvidia-smi
-line, and last {"ok": true, "device": {...}}. Any failure raises and exits
-non-zero; so does a host without CUDA.
+launches counted over phases D, E, H and I, the packed kernel's over F and
+G, each phase run with the counts set to 0 just before it), the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero; so does a host without CUDA.
 
-The CPU rehearsal of phases D-G (the README's) sets
+The CPU rehearsal of phases D-I (the README's) sets
 POPPUNK_TPU_TORCH_DEVICE=cpu: the port runs on the card unless asked.
 """
 
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -75,6 +93,10 @@ HBM_BYTES_PER_S = 3.35e12
 # counts in float64 (the device's A @ A entries are exact in float32 below
 # 2^24), so they differ by rounding alone
 SWEEP_ATOL = 1e-9
+# the card's Boruvka MST weights against the CPU's (both float32 torch ops)
+# and against the host Prim oracle in float64 (tests/test_hdbscan_shapes.py)
+BORUVKA_ATOL = 1e-6
+PRIM_ATOL = 1e-5
 
 
 def emit(obj):
@@ -528,7 +550,7 @@ def phase_e(torch, device, workdir, n_ref=8192, n_query=1024, n_strains=64,
         dists, classes = pairwise_block(
             pq, pr, lq, lr, fq, fr, KLIST, ss64, bbits,
             post_spec=model_post_spec(model), device=device)
-        G, old_clusters = fetch_network(out, rlist)
+        G, old_clusters = fetch_network(out, model, rlist)
         G, _ = add_query_to_network(rlist, qlist, G, classes.reshape(-1),
                                     model, out, kmers=list(KLIST))
         clusters, _ = print_clusters(G, rlist + qlist,
@@ -775,7 +797,7 @@ def phase_g(torch, device, workdir, e):
         dists, classes = pairwise_block(
             pq, pr, lq, lr, fq, fr, KLIST, ss64, bbits,
             post_spec=model_post_spec(model), device=device)
-        G, old_clusters = fetch_network(out, rlist)
+        G, old_clusters = fetch_network(out, model, rlist)
         G, _ = add_query_to_network(rlist, qlist, G, classes.reshape(-1),
                                     model, out, kmers=list(KLIST))
         clusters, _ = print_clusters(G, rlist + qlist,
@@ -802,6 +824,365 @@ def phase_g(torch, device, workdir, e):
           "within_pairs": int((np.asarray(y) == model.within_label).sum()),
           "stages": stages, "launches": launches,
           "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# --------------------------------------------------------------------------
+# H, I: the DBSCAN and lineage models, and --qc-db
+# --------------------------------------------------------------------------
+
+def check_pure(clusters, strain_of, what):
+    """No cluster holds two strains (a strain may span several)."""
+    by_cluster = {}
+    for name, cl in clusters.items():
+        by_cluster.setdefault(cl, set()).add(strain_of[name])
+    mixed = {cl: s for cl, s in by_cluster.items() if len(s) > 1}
+    if mixed:
+        raise AssertionError(f"{what}: clusters mix strains: {mixed}")
+
+
+def read_lineages(path):
+    """(header, {name: row}) of a _lineages.csv."""
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], {row[0]: row for row in rows[1:]}
+
+
+class RecordPosts:
+    """Record the device of every tile the fused ``name`` post classifies
+    (ops/fused_assign.py; wrapped, not replaced)."""
+
+    def __init__(self, name):
+        self.name, self.devices = name, set()
+
+    def __enter__(self):
+        from poppunk_tpu_torch.ops import fused_assign
+
+        self.table = fused_assign.POST_FNS
+        fn = self.saved = self.table[self.name]
+
+        def record(dists, params, static):
+            self.devices.add(dists.device.type)
+            return fn(dists, params, static)
+        self.table[self.name] = record
+        return self
+
+    def __exit__(self, *exc):
+        self.table[self.name] = self.saved
+
+
+class RecordBoruvka:
+    """Record the HDBSCAN fits ops/hdbscan.py runs: each fit's
+    (min_samples, min_cluster_size), and per Boruvka MST its size, rounds,
+    the devices its rounds ran on, its seconds and the seconds of its
+    sweeps (each round's result is copied to the host right after it, so
+    the synchronise that ends a sweep's timing moves no work). The
+    functions are wrapped, not replaced."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from poppunk_tpu_torch.ops import hdbscan
+
+        self.module, self.steps, self.msts = hdbscan, [], []
+        self.saved = {name: getattr(hdbscan, name) for name in
+                      ("boruvka_mst_device", "_boruvka_round")}
+        self.saved_fit = hdbscan.HDBSCAN.fit
+        rounds = []
+
+        def boruvka_round(X, *args, **kwargs):
+            t = time.perf_counter()
+            out = self.saved["_boruvka_round"](X, *args, **kwargs)
+            rounds.append((X.device.type, elapsed(self.torch, t)))
+            return out
+
+        def boruvka_mst(X, *args, **kwargs):
+            rounds.clear()
+            t = time.perf_counter()
+            edges = self.saved["boruvka_mst_device"](X, *args, **kwargs)
+            self.msts.append({"n": int(X.shape[0]), "rounds": len(rounds),
+                              "devices": sorted({r[0] for r in rounds}),
+                              "seconds": time.perf_counter() - t,
+                              "sweep_seconds": [r[1] for r in rounds]})
+            return edges
+
+        def fit(model, X):
+            self.steps.append([int(model.min_samples),
+                               int(model.min_cluster_size)])
+            return self.saved_fit(model, X)
+
+        hdbscan._boruvka_round = boruvka_round
+        hdbscan.boruvka_mst_device = boruvka_mst
+        hdbscan.HDBSCAN.fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+        self.module.HDBSCAN.fit = self.saved_fit
+
+
+def phase_h(torch, device, workdir, d):
+    """The DBSCAN, lineage and QC CLIs under KERNEL_CHOICE standard on
+    phase D's population and database. Returns standard launches for the
+    stages that compute distances."""
+    from poppunk_tpu_torch.cli.assign import main as assign_main
+    from poppunk_tpu_torch.cli.main import main as poppunk_main
+    from poppunk_tpu_torch.io.hdf5db import get_seqs_in_db
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.utils import db_h5_path
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+
+    def run(stage, fn, argv, counted=False):
+        t = time.perf_counter()
+        n0 = mc.LAUNCHES
+        result = fn(argv)
+        stages[stage] = elapsed(torch, t)
+        if counted:
+            launches[stage] = mc.LAUNCHES - n0
+        return result
+
+    # --qc-db: one reference removed by name (the distance thresholds
+    # opened wide: at the defaults, 0.1 core, the other strains' members
+    # fail against the first genome's strain)
+    removed = d.refs[0]
+    listing = path("remove.txt")
+    with open(listing, "w") as f:
+        f.write(removed + "\n")
+    qc = path("qc")
+    run("qc_db", poppunk_main, ["--qc-db", "--ref-db", d.db, "--output", qc,
+                                "--remove-samples", listing,
+                                "--max-pi-dist", "1", "--max-a-dist", "1",
+                                "--max-zero-dist", "1"])
+    names, _ = read_dists(qc)
+    with open(os.path.join(qc, "qc_qcreport.txt")) as f:
+        report = f.read()
+    if (names != [n for n in d.refs if n != removed]
+            or sorted(get_seqs_in_db(db_h5_path(qc))) != sorted(names)
+            or report != f"{removed}\tRequested removal\n"):
+        raise AssertionError(f"--qc-db kept {names}, reported {report!r}")
+
+    # DBSCAN: fit, then assign through the fused dbscan post
+    dbscan = path("dbscan")
+    run("fit_dbscan", poppunk_main, ["--fit-model", "dbscan", "--ref-db",
+                                     d.db, "--output", dbscan, "--no-plot"])
+    ref_clusters = read_clusters(os.path.join(dbscan, "dbscan_clusters.csv"))
+    if set(ref_clusters) != set(d.refs):
+        raise AssertionError("DBSCAN clusters miss samples")
+    check_partition(ref_clusters, d.strain_of)
+    with RecordPosts("dbscan") as posts:
+        run("dbscan_assign", assign_main, [
+            "--db", dbscan, "--query", d.qfile, "--output",
+            path("dbscan_assign")], counted=True)
+    if posts.devices != {device.type}:
+        raise AssertionError(f"the dbscan post ran on {posts.devices}")
+    q_clusters = read_clusters(path("dbscan_assign/dbscan_assign_clusters.csv"))
+    if set(q_clusters) != set(d.queries):
+        raise AssertionError(f"DBSCAN assigned {sorted(q_clusters)}")
+    check_queries(q_clusters, ref_clusters, d.strain_of)
+
+    # a DBSCAN start model for refine
+    run("fit_dbscan_for_refine", poppunk_main, [
+        "--fit-model", "dbscan", "--ref-db", d.db, "--output",
+        path("dbscan_fr"), "--for-refine", "--no-plot"])
+    run("fit_refine_from_dbscan", poppunk_main, [
+        "--fit-model", "refine", "--ref-db", d.db, "--model-dir",
+        path("dbscan_fr"), "--output", path("refine_dbscan"), "--no-plot"])
+    refined = read_clusters(
+        path("refine_dbscan/refine_dbscan_clusters.csv"))
+    if set(refined) != set(d.refs):
+        raise AssertionError("refine-from-DBSCAN clusters miss samples")
+    check_pure(refined, d.strain_of, "refine from DBSCAN")
+
+    # lineage: fitted in place on a copy of the database, then assigned
+    lineage = path("lineage/db")
+    shutil.copytree(d.db, lineage)
+    run("fit_lineage", poppunk_main, [
+        "--fit-model", "lineage", "--ranks", "1,2", "--ref-db", lineage,
+        "--output", lineage, "--no-plot"])
+    rank1 = {}
+    for stage, flags in (("lineage_assign", []),
+                         ("lineage_assign_update", ["--update-db", "full"])):
+        run(stage, assign_main, ["--db", lineage, "--query", d.qfile,
+                                 "--output", path(stage)] + flags,
+            counted=True)
+        header, rows = read_lineages(
+            os.path.join(path(stage), f"{stage}_lineages.csv"))
+        if header != ["id", "Rank_1", "Rank_2", "overall", "Status"] or \
+                set(rows) != set(d.refs) | set(d.queries):
+            raise AssertionError(f"{stage}: {header}, {sorted(rows)}")
+        statuses = {name: row[-1] for name, row in rows.items()}
+        if any(statuses[q] != "Query" for q in d.queries) or \
+                any(statuses[r] != "Reference" for r in d.refs):
+            raise AssertionError(f"{stage}: statuses {statuses}")
+        rank1[stage] = {name: row[1] for name, row in rows.items()}
+        check_pure(rank1[stage], d.strain_of, f"{stage} rank 1")
+
+    emit({"phase": "H", "kernel_choice": mc.KERNEL_CHOICE,
+          "qc_removed": removed, "dbscan_clusters":
+          len(set(ref_clusters.values())),
+          "refine_from_dbscan_clusters": len(set(refined.values())),
+          "rank1_lineages": {k: len(set(v.values()))
+                             for k, v in rank1.items()},
+          "post_devices": sorted(posts.devices),
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_i(torch, device, workdir, e, max_samples=100000,
+            check_points=8192):
+    """Phase E's population through the DBSCAN model at the CLI defaults
+    (the HDBSCAN Boruvka sweep on the card), its network and fused
+    dbscan-post query assignment, the Boruvka check and a lineage fit
+    extended with the queries. Returns standard launches for the stages
+    that compute distances."""
+    from poppunk_tpu_torch.assign import add_query_to_network, fetch_network
+    from poppunk_tpu_torch.cli.main import make_network_and_refs
+    from poppunk_tpu_torch.models import DBSCANFit, LineageFit
+    from poppunk_tpu_torch.network import Graph, connected_components
+    from poppunk_tpu_torch.network.clusters import print_clusters
+    from poppunk_tpu_torch.ops import hdbscan
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.distances import (condensed_self_block,
+                                                 pairwise_block)
+    from poppunk_tpu_torch.ops.fused_assign import model_post_spec
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        stages[name] = elapsed(torch, t)
+        return out
+
+    n = e.n_ref
+    rlist, qlist = e.names[:n], e.names[n:]
+    pr, lr, fr = e.planes[:n], e.lengths[:n], e.freqs[:n]
+    pq, lq, fq = e.planes[n:], e.lengths[n:], e.freqs[n:]
+
+    # the fit at the CLI defaults; its exact assignment of every pair
+    # (DBSCANFit.assign, host kNN over the fitted points) is timed apart
+    out = os.path.join(workdir, "planted_dbscan")
+    model = DBSCANFit(out, max_samples=max_samples, max_batch_size=5000,
+                      device=device)
+    assign_calls = []
+
+    def timed_assign(X, *args, **kwargs):
+        t = time.perf_counter()
+        y = DBSCANFit.assign(model, X, *args, **kwargs)
+        assign_calls.append((X.shape[0], time.perf_counter() - t))
+        return y
+
+    model.assign = timed_assign
+    with RecordBoruvka(torch) as boruvka:
+        y = timed("dbscan_fit", lambda: model.fit(e.X, 100, 0.0001))
+    del model.assign
+    stages["dbscan_assign"] = sum(s for rows, s in assign_calls
+                                  if rows == e.X.shape[0])
+    stages["dbscan_fit"] -= stages["dbscan_assign"]
+    if not boruvka.msts or any(m["devices"] != [device.type]
+                               for m in boruvka.msts):
+        raise AssertionError(f"Boruvka MSTs: {boruvka.msts}")
+    y_grid = timed("dbscan_grid_assign",
+                   lambda: model.assign(e.X, use_grid=True))
+
+    args = SimpleNamespace(graph_weights=False, summary_sample=None,
+                           betweenness_sample=100, external_clustering=None,
+                           threads=1, ref_db=out, output=out,
+                           indiv_refine=None)
+    timed("network_clusters_refs",
+          lambda: make_network_and_refs(model, y, rlist, e.X, out, args))
+    ref_clusters = read_clusters(os.path.join(out,
+                                              "planted_dbscan_clusters.csv"))
+    check_partition(ref_clusters, e.strain_of)
+
+    def assign():
+        dists, classes = pairwise_block(
+            pq, pr, lq, lr, fq, fr, KLIST, ss64, bbits,
+            post_spec=model_post_spec(model), device=device)
+        G, old_clusters = fetch_network(out, model, rlist)
+        G, _ = add_query_to_network(rlist, qlist, G, classes.reshape(-1),
+                                    model, out, kmers=list(KLIST))
+        clusters, _ = print_clusters(G, rlist + qlist,
+                                     os.path.join(out, "queries"),
+                                     old_clusters, print_ref=False)
+        return dists, {q: str(clusters[q]) for q in qlist}
+
+    n0 = mc.LAUNCHES
+    with RecordPosts("dbscan") as posts:
+        q_dists, q_clusters = timed("fused_query_assign", assign)
+    launches["fused_query_assign"] = mc.LAUNCHES - n0
+    if posts.devices != {device.type}:
+        raise AssertionError(f"the dbscan post ran on {posts.devices}")
+    if not np.array_equal(q_dists, e.q_dists):
+        raise AssertionError("DBSCAN-post query distances differ from "
+                             "phase E's")
+    check_queries(q_clusters, ref_clusters, e.strain_of)
+
+    # lineage: ranks 1-3 at depth 30 (SEARCH_DEPTH_FACTOR x the top rank),
+    # extended with the queries; their query-query distances on the card
+    def lineage():
+        fit = LineageFit(os.path.join(workdir, "planted_lineage"), [1, 2, 3],
+                         30, False, False, 1e-10, dist_col=0)
+        fit.fit(e.X)
+        qq = condensed_self_block(pq, lq, fq, KLIST, ss64, bbits,
+                                  device=device)
+        fit.extend(qq, q_dists.reshape(-1, 2))
+        return fit
+
+    n0 = mc.LAUNCHES
+    lineage_fit = timed("lineage_fit_extend", lineage)
+    launches["lineage_fit_extend"] = mc.LAUNCHES - n0
+    edges = np.asarray(lineage_fit.assign(1), dtype=np.int64).reshape(-1, 2)
+    labels, _ = connected_components(Graph(len(e.names), edges))
+    check_pure(dict(zip(e.names, labels.tolist())), e.strain_of,
+               "rank-1 lineages")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    # the card's Boruvka against the same function on the CPU and the host
+    # Prim oracle, on points of the fit's subsample above the 4096 gate
+    sub = model.subsampled_X[:check_points].astype(np.float64)
+    core, _ = hdbscan.core_distances(sub, boruvka.steps[0][0])
+    x32, core32 = sub.astype(np.float32), core.astype(np.float32)
+    weights = {}
+    for name, fn in (
+            ("card", lambda: hdbscan.boruvka_mst_device(x32, core32,
+                                                        device=device)),
+            ("cpu", lambda: hdbscan.boruvka_mst_device(
+                x32, core32, device=torch.device("cpu"))),
+            ("prim", lambda: hdbscan.prim_mst(sub, core))):
+        weights[name] = np.sort(timed(f"boruvka_check_{name}", fn)[:, 2])
+    cpu_err = float(np.abs(weights["card"] - weights["cpu"]).max())
+    prim_err = float(np.abs(weights["card"] - weights["prim"]).max())
+    if cpu_err > BORUVKA_ATOL or prim_err > PRIM_ATOL:
+        raise AssertionError(f"Boruvka on {check_points} points: card vs "
+                             f"CPU {cpu_err}, card vs Prim {prim_err}")
+
+    emit({"phase": "I", "references": n, "queries": len(qlist),
+          "pairs_all_vs_all": int(e.X.shape[0]),
+          "subsample": int(model.subsampled_X.shape[0]),
+          "cascade_steps": boruvka.steps, "boruvka_msts": boruvka.msts,
+          "clusters": int(model.n_clusters),
+          "within_label": int(model.within_label),
+          "between_label": int(model.between_label),
+          "within_pairs": int((np.asarray(y) == model.within_label).sum()),
+          "grid_agreement": float(np.mean(y_grid == y)),
+          "boruvka_check": {"points": int(sub.shape[0]),
+                            "card_vs_cpu_max_abs": cpu_err,
+                            "card_vs_prim_max_abs": prim_err},
+          "rank1_lineages": int(len(set(labels.tolist()))),
+          "stages": stages, "launches": launches,
+          "peak_device_bytes": peak, "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -857,6 +1238,9 @@ def main():
              *packed)
         path("G", lambda: (phase_g(torch, device, workdir, e), None),
              *packed)
+        mc.KERNEL_CHOICE = "standard"
+        path("H", lambda: (phase_h(torch, device, workdir, d), None), *std)
+        path("I", lambda: (phase_i(torch, device, workdir, e), None), *std)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

@@ -1,6 +1,6 @@
-"""poppunk_tpu_torch — PopPUNK's create-db -> fit (BGMM, refine, threshold)
--> assign path in PyTorch, with hand-written CUDA kernels for the sketch
-bin-match popcount.
+"""poppunk_tpu_torch — PopPUNK's create-db / qc-db -> fit (BGMM, DBSCAN,
+refine, threshold, lineage) -> assign path in PyTorch, with hand-written
+CUDA kernels for the sketch bin-match popcount.
 
 The JAX package ``poppunk_tpu`` beside it is the frozen reference: module
 names here mirror it (``poppunk_tpu/ops/distances.py`` <->
@@ -8,8 +8,9 @@ names here mirror it (``poppunk_tpu/ops/distances.py`` <->
 the tests hold every module against its JAX counterpart. This package
 imports nothing of the JAX package and never imports jax: the reference's
 host modules it needs (sketching, the HDF5 database, QC, pair indexing,
-boundary tuples, the CLI parsers, the plots it draws) are copies under the
-same relative names.
+boundary tuples, the sparse kNN and lineage model, HDBSCAN's host code,
+the CLI parsers, the plots it draws) are copies under the same relative
+names.
 
 Compute runs on the card, ``cuda:<deviceid>``, unless the caller asks for
 the CPU: a library caller by passing ``torch.device("cpu")``, anyone by

@@ -7,10 +7,14 @@ distance device, network attachment with stable cluster naming, and the
 optional database update. Sketching, the HDF5 database and QC are copies
 of the reference's host modules. The distances and the model run on
 ``dist_device`` / ``model_device`` (None: ``_device.resolve``'s choice,
-the card unless the CPU is asked for). BGMM and refine / threshold
-models load here (models/base.py); a refine model fitted with ``--indiv-refine`` also
+the card unless the CPU is asked for). Every model type assigns here
+(models/base.py): BGMM, DBSCAN (through the decision grid of the fused
+``dbscan`` post) and refine / threshold models attach queries to the
+reference network; a refine model fitted with ``--indiv-refine`` also
 assigns on its core-only and accessory-only boundaries (``--core``,
-``--accessory``), reusing the distances of the first pass.
+``--accessory``), reusing the distances of the first pass. A lineage model
+classifies nothing on the device: the query-query distances extend its kNN
+on the host, and ``_lineages.csv`` gives every sample's lineage per rank.
 """
 
 import os
@@ -27,7 +31,7 @@ from .io.hdf5db import (add_random, construct_database, create_database_dir,
 from .network.clusters import print_clusters, print_external_clusters
 from .network.construct import (construct_network_from_assignments,
                                 network_vertex_check)
-from .network.graph import (GRAPH_SUFFIX, load_network_file,
+from .network.graph import (GRAPH_SUFFIX, Graph, load_network_file,
                             remove_non_query_components, save_network)
 from .ops.boundary import generate_tuples
 from .ops.distances import query_db
@@ -41,22 +45,27 @@ def _file_base(prefix):
     return os.path.join(prefix, os.path.basename(prefix))
 
 
-def fetch_network(network_dir, ref_list, ref_graph=False, core_only=False,
-                  accessory_only=False):
+def fetch_network(network_dir, model, ref_list, ref_graph=False,
+                  core_only=False, accessory_only=False):
     """Load the network accompanying a fitted model
     (fetchNetwork, PopPUNK/network.py:49-118); ``core_only`` /
-    ``accessory_only`` pick the networks of an indiv-refine fit.
+    ``accessory_only`` pick the networks of an indiv-refine fit, and a
+    lineage model's lowest-rank network comes first.
 
     Returns (graph, old_cluster_csv_path)."""
     base = _file_base(network_dir)
     if core_only:
-        base += "_core"
+        suffix = "_core"
     elif accessory_only:
-        base += "_accessory"
+        suffix = "_accessory"
+    else:
+        suffix = ""
     stems = []
     if ref_graph:
-        stems.append(base + ".refs_graph")
-    stems.append(base + "_graph")
+        stems.append(base + suffix + ".refs_graph")
+    stems.append(base + suffix + "_graph")
+    if model.type == "lineage":
+        stems.insert(0, base + "_rank_" + str(min(model.ranks)) + "_graph")
     # native format first, then the reference's graph-tool .gt and its
     # GPU-mode cugraph edge list (PopPUNK/network.py:120-176)
     candidates = [stem + ext for stem in stems
@@ -69,7 +78,7 @@ def fetch_network(network_dir, ref_list, ref_graph=False, core_only=False,
     sys.stderr.write("Loading network from " + network_file + "\n")
     G = load_network_file(network_file)
     network_vertex_check(G, len(ref_list))
-    return G, base + "_clusters.csv"
+    return G, base + suffix + "_clusters.csv"
 
 
 def add_query_to_network(rlist, qlist, G, assignments, model, query_db_prefix,
@@ -106,11 +115,16 @@ def add_query_to_network(rlist, qlist, G, assignments, model, query_db_prefix,
             add_random(query_db_prefix, qlist, kmers, strand_preserved)
             q_sketches = read_sketches(query_db_prefix, qlist)
             qq_slope = {"core": 0, "accessory": 1}.get(distance_type)
-            qq_dist_mat, qq_assign = query_db(
-                q_sketches, None, kmers, self_mode=True,
-                use_rc=not strand_preserved,
-                post_spec=model_post_spec(model, slope=qq_slope),
-                device=device)
+            post_spec = model_post_spec(model, slope=qq_slope)
+            out = query_db(q_sketches, None, kmers, self_mode=True,
+                           use_rc=not strand_preserved, post_spec=post_spec,
+                           device=device)
+            if post_spec is not None:
+                qq_dist_mat, qq_assign = out
+            else:
+                qq_dist_mat = out
+                qq_assign = (model.assign(qq_dist_mat) if qq_slope is None
+                             else model.assign(qq_dist_mat, slope=qq_slope))
             edges = generate_tuples(np.asarray(qq_assign), model.within_label,
                                     self=True, int_offset=n_ref)
             w = None
@@ -216,6 +230,9 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
             "Cannot assign points with an incompletely-fitted model\n"
             "Please refit the model without --for-refine\n")
         sys.exit(1)
+    if model.type == "lineage" and (serial or stable):
+        raise RuntimeError("lineage models cannot be used with --serial or "
+                           "--stable")
     model.set_threads(threads)
     kmers = list(read_db_params(ref_db)[0])
     prev_clustering_dir = (previous_clustering or model_prefix).rstrip("/")
@@ -243,7 +260,8 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
 
         ref_file_name = _file_base(model_prefix) + ext + ".refs"
         use_ref_graph = (os.path.isfile(ref_file_name)
-                         and update_db != "full" and not use_full_network)
+                         and update_db != "full" and model.type != "lineage"
+                         and not use_full_network)
         if use_ref_graph:
             with open(ref_file_name) as f:
                 ref_names = frozenset(line.rstrip() for line in f)
@@ -289,15 +307,16 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
             sys.stderr.write(f"Calculating query distances against "
                              f"{len(r_names)} references\n")
             # every pair is classified against the model in the distance
-            # pass
+            # pass (a lineage model has no classifier: distances only)
+            post_spec = model_post_spec(model, slope=fused_slope)
             with stage("query_distances", sync=True):
                 r_sketches = read_sketches(ref_db, r_names)
                 q_sketches = read_sketches(output, q_names)
-                qr_dist_mat, query_assignments = query_db(
-                    r_sketches, q_sketches, kmers,
-                    use_rc=not strand_preserved,
-                    post_spec=model_post_spec(model, slope=fused_slope),
-                    device=dist_device)
+                out = query_db(r_sketches, q_sketches, kmers,
+                               use_rc=not strand_preserved,
+                               post_spec=post_spec, device=dist_device)
+            qr_dist_mat, query_assignments = (
+                out if post_spec is not None else (out, None))
             if fit_type == "default" and plot_fit > 0:
                 _plot_query_fits(ref_db, output, r_names, q_names, kmers,
                                  plot_fit, not strand_preserved, dist_device)
@@ -321,13 +340,19 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
                             r_names, q_names, failed_dist_samples,
                             qr_dist_mat, query_assignments)
 
-        (genome_network, isolate_clustering, merged_queries, q_names,
-         qr_dist_mat) = _assign_network(
-            model, fit_type, ext, dist_type, r_names, q_names, qr_dist_mat,
-            query_assignments, prev_clustering_dir, output, kmers, qc_dict,
-            serial, stable, update_db, write_references, graph_weights,
-            strand_preserved, external_clustering, use_ref_graph,
-            dist_device)
+        if model.type == "lineage":
+            genome_network, isolate_clustering = _assign_lineage(
+                model, r_names, q_names, qr_dist_mat, output, kmers,
+                strand_preserved, graph_weights, dist_device)
+            merged_queries = []
+        else:
+            (genome_network, isolate_clustering, merged_queries, q_names,
+             qr_dist_mat) = _assign_network(
+                model, fit_type, ext, dist_type, r_names, q_names,
+                qr_dist_mat, query_assignments, prev_clustering_dir, output,
+                kmers, qc_dict, serial, stable, update_db, write_references,
+                graph_weights, strand_preserved, external_clustering,
+                use_ref_graph, dist_device)
         dist_cache_key = (tuple(r_names), tuple(q_names))
         dist_cache = qr_dist_mat
 
@@ -341,17 +366,22 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
                          update_random={"strand_preserved":
                                         strand_preserved})
             sys.stderr.write("Saving model and network\n")
-            if update_db == "full":
+            if model.type == "lineage":
+                save_network(genome_network[min(model.ranks)], prefix=output,
+                             suffix="_graph")
+                model.outPrefix = output
+                model.save()
+            elif update_db == "full":
                 save_network(genome_network, prefix=output,
                              suffix=ext + "_graph")
             if os.path.abspath(output) != os.path.abspath(model.outPrefix) \
-                    and fit_type == "default":
+                    and fit_type == "default" and model.type != "lineage":
                 model.copy(output)
 
             combined_seq = list(r_names) + list(q_names)
             store_pickle(combined_seq, combined_seq, True, None, dists_out)
 
-            if os.path.isfile(ref_file_name):
+            if model.type != "lineage" and os.path.isfile(ref_file_name):
                 from .network.cliques import extract_references
 
                 sys.stderr.write(f"Finding references ({update_db})\n")
@@ -374,14 +404,62 @@ def assign_query_hdf5(ref_db, q_names, output, qc_dict, update_db=False,
         else:
             store_pickle(r_names, q_names, False, qr_dist_mat, dists_out)
             if save_partial_query_graph and not serial:
+                lineage = model.type == "lineage"
                 G_sub, pruned_names = remove_non_query_components(
-                    genome_network, r_names, q_names, relabel=True)
-                save_network(G_sub, prefix=output, suffix=ext + "_graph")
+                    genome_network[min(model.ranks)] if lineage
+                    else genome_network, r_names, q_names, relabel=True)
+                save_network(G_sub, prefix=output,
+                             suffix="_graph" if lineage else ext + "_graph")
                 with open(_file_base(output) + "_query.subset", "w") as f:
                     for isolate in pruned_names:
                         f.write(isolate + "\n")
 
     return isolate_clustering
+
+
+def _assign_lineage(model, r_names, q_names, qr_dist_mat, output, kmers,
+                    strand_preserved, graph_weights, device):
+    """Lineage-model assignment: the query-query distances on ``device``,
+    then the kNN extension and per-rank networks on the host
+    (assign.py:528-573)."""
+    from .utils import create_overall_lineage
+
+    add_random(output, q_names, kmers, strand_preserved, overwrite=True)
+    q_sketches = read_sketches(output, q_names)
+    if len(q_names) > 1:
+        qq_dist_mat = query_db(q_sketches, None, kmers, self_mode=True,
+                               use_rc=not strand_preserved, device=device)
+    else:
+        qq_dist_mat = np.zeros((0, 2), dtype=np.float32)
+    model.extend(qq_dist_mat, qr_dist_mat)
+
+    all_names = list(r_names) + list(q_names)
+    genome_network = {}
+    lineage_clusters = defaultdict(dict)
+    for rank in model.ranks:
+        edges = model.assign(rank)
+        weights = model.edge_weights(rank) if graph_weights else None
+        G = Graph(len(all_names),
+                  np.asarray(edges, dtype=np.int64).reshape(-1, 2), weights)
+        genome_network[rank] = G
+        clustering, _ = print_clusters(G, all_names, print_csv=False,
+                                       write_unwords=False)
+        lineage_clusters[rank] = dict(clustering)
+
+    overall = create_overall_lineage(model.ranks, lineage_clusters)
+    _write_lineage_csv(_file_base(output) + "_lineages.csv", all_names,
+                       model.ranks, overall, query_names=set(q_names))
+    return genome_network, overall
+
+
+def _write_lineage_csv(path, names, ranks, overall, query_names=()):
+    with open(path, "w") as f:
+        cols = ["Rank_" + str(r) for r in ranks] + ["overall"]
+        f.write(",".join(["id"] + cols + ["Status"]) + "\n")
+        for name in names:
+            status = "Query" if name in query_names else "Reference"
+            f.write(",".join([name] + [str(overall[c][name]) for c in cols]
+                             + [status]) + "\n")
 
 
 def _assign_network(model, fit_type, ext, dist_type, r_names, q_names,
@@ -391,7 +469,7 @@ def _assign_network(model, fit_type, ext, dist_type, r_names, q_names,
                     external_clustering, use_ref_graph, device):
     """Attach to the network and name clusters (assign.py:576-734)."""
     genome_network, old_cluster_file = fetch_network(
-        prev_clustering_dir, r_names, ref_graph=use_ref_graph,
+        prev_clustering_dir, model, r_names, ref_graph=use_ref_graph,
         core_only=fit_type == "core_refined",
         accessory_only=fit_type == "accessory_refined")
     sys.stderr.write(f"Loading previous cluster assignments from "

@@ -2,7 +2,10 @@
 
 Counterpart of poppunk_tpu/cli/assign.py (PopPUNK/assign.py:28-247) with a
 copy of its parser, plus PopPUNK's ``--gpu-model`` (the JAX package's
-parser does not register it). Query distances and their fused
+parser does not register it). It assigns with any fitted model: BGMM,
+DBSCAN, refine / threshold (queries join the reference network) and
+lineage (the kNN is extended, ``_lineages.csv`` written; not with
+``--serial`` or ``--stable``). Query distances and their fused
 classification, and the model, run on ``cuda:<--deviceid>`` unless
 ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU; ``--gpu-dist`` /
 ``--gpu-model`` keep their stage on the card even then (_device.py).

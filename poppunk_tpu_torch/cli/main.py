@@ -1,15 +1,14 @@
-"""poppunk_tpu_torch — main CLI: --create-db, --fit-model
-{bgmm,refine,threshold}, --use-model.
+"""poppunk_tpu_torch — main CLI: --create-db, --qc-db, --fit-model
+{bgmm,dbscan,refine,lineage,threshold}, --use-model.
 
 Counterpart of poppunk_tpu/cli/main.py (PopPUNK/__main__.py:245-791) with
 a copy of its parser (the same flags and defaults) and the same on-disk
-conventions. The distance engine, the BGMM fit and assignment and the
-refine boundary sweep run on ``cuda:<--deviceid>`` unless
-``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU; ``--gpu-dist`` /
-``--gpu-model`` keep their stage on the card even then (_device.py).
-``--gpu-sketch`` and ``--gpu-graph`` parse and the work stays on the host.
-``--fit-model dbscan`` / ``lineage`` and ``--qc-db`` exit with a message
-until they are ported.
+conventions. The distance engine, the BGMM fit and assignment, the HDBSCAN
+Boruvka sweep of the DBSCAN fit and the refine boundary sweep run on
+``cuda:<--deviceid>`` unless ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the
+CPU; ``--gpu-dist`` / ``--gpu-model`` keep their stage on the card even
+then (_device.py). ``--gpu-sketch`` and ``--gpu-graph`` parse and the work
+stays on the host, as do ``--qc-db`` and the lineage fit (host kNN).
 """
 
 import argparse
@@ -21,8 +20,9 @@ import numpy as np
 
 from .. import __version__, _device
 from ..profiling import stage
-from ..utils import read_pickle, store_pickle
-from .common import default_dists, file_base, parse_kmers, setup_output
+from ..utils import create_overall_lineage, read_pickle, store_pickle
+from .common import (default_dists, file_base, parse_kmers, qc_dict_from_args,
+                     setup_output)
 
 # Defaults (reference __main__.py:17-26)
 DEFAULT_MAX_A_DIST = 0.5
@@ -174,11 +174,8 @@ def main(arg_list=None):
 
         print_citation(args)
         sys.exit(0)
-    if args.qc_db or args.fit_model in ("dbscan", "lineage"):
-        mode = "--qc-db" if args.qc_db else f"--fit-model {args.fit_model}"
-        sys.stderr.write(f"{mode} is not supported by poppunk_tpu_torch yet "
-                         "(run it with poppunk_tpu)\n")
-        sys.exit(1)
+    if args.qc_db:
+        return qc_db(args)  # host only: sketch attributes and distances
     dist_device, model_device = _device.stage_devices(args)
     if args.create_db:
         return create_db(args, dist_device)
@@ -260,10 +257,65 @@ def plot_kmer_fits(db_prefix, names, klist, count, use_rc, device, seed=42):
                  f"Example fit {i + 1} - {names[a]} vs. {names[b]}")
 
 
+def qc_db(args):
+    """Sketch and distance QC of a database, removing the failures and
+    the ``--remove-samples`` list (reference __main__.py:421-470)."""
+    from ..qc import (auto_dist_find, qc_dist_mat, remove_qc_fail, sketch_qc)
+
+    if args.ref_db is None:
+        sys.stderr.write("--qc-db requires --ref-db\n")
+        sys.exit(1)
+    ref_db = args.ref_db.rstrip("/")
+    output = args.output.rstrip("/") if args.output else ref_db
+    if output != ref_db:
+        setup_output(output)
+
+    distances = args.distances or default_dists(ref_db)
+    rlist, qlist, self_mode, X = read_pickle(distances, enforce_self=True)
+
+    qc_dict = qc_dict_from_args(args)
+    if args.auto_max_dists:
+        auto_max_pi, auto_max_a = auto_dist_find(X, qc_dict)
+        if args.auto_max_dists in ("both", "core"):
+            qc_dict["max_pi_dist"] = auto_max_pi
+        if args.auto_max_dists in ("both", "accessory"):
+            qc_dict["max_a_dist"] = auto_max_a
+
+    fail_dicts = []
+    pass_sketch, fail_sketch = sketch_qc(ref_db, rlist, qc_dict)
+    fail_dicts.append(fail_sketch)
+    pass_dist, fail_dist = qc_dist_mat(X, rlist, rlist, ref_db, qc_dict)
+    fail_dicts.append(fail_dist)
+    passed = [x for x in pass_sketch if x in set(pass_dist)]
+
+    if args.remove_samples:
+        with open(args.remove_samples) as f:
+            to_remove = set(line.strip() for line in f if line.strip())
+        fail_dicts.append({s: ["Requested removal"] for s in to_remove
+                           if s in set(passed)})
+        passed = [x for x in passed if x not in to_remove]
+
+    if len(passed) < len(rlist):
+        remove_qc_fail(qc_dict, rlist, passed, fail_dicts, ref_db, X,
+                       output, strand_preserved=args.strand_preserved,
+                       threads=args.threads)
+        sys.stderr.write(
+            f"{len(rlist) - len(passed)} samples failed QC and were removed\n"
+        )
+    else:
+        sys.stderr.write("All samples passed QC\n")
+        if output != ref_db:
+            store_pickle(rlist, rlist, True, X, default_dists(output))
+    sys.stderr.write("Done\n")
+
+
 def fit_model(args, device):
-    """--fit-model bgmm / refine / threshold or --use-model on ``device``,
-    then the network, clusters and clique-pruned references on the host."""
-    from ..models import BGMMFit, RefineFit, load_cluster_fit
+    """--fit-model bgmm / dbscan / refine / threshold / lineage or
+    --use-model on ``device``, then the network, clusters and clique-pruned
+    references (a lineage model: its per-rank networks and lineage CSV) on
+    the host."""
+    from ..models import (BGMMFit, DBSCANFit, LineageFit, RefineFit,
+                          load_cluster_fit)
 
     if args.ref_db is None:
         sys.stderr.write("Fitting a model requires --ref-db\n")
@@ -279,6 +331,7 @@ def fit_model(args, device):
     rlist, _, _, X = read_pickle(distances, enforce_self=True)
     sys.stderr.write(f"Loaded distances for {len(rlist)} samples\n")
 
+    assignments = None
     with stage("model_fit", sync=True):
         if args.use_model:
             model_dir = (args.model_dir or ref_db).rstrip("/")
@@ -288,8 +341,14 @@ def fit_model(args, device):
                                      max_samples=args.model_subsample,
                                      device=device)
             model.set_threads(args.threads)
-            assignments = model.assign(X, *(
-                [args.assign_subsample] if model.type == "bgmm" else []))
+            if model.type == "lineage":
+                model.fit(X)
+            elif model.type == "dbscan":
+                assignments = model.assign(
+                    X, use_grid=args.dbscan_grid_assign)
+            else:
+                assignments = model.assign(X, *(
+                    [args.assign_subsample] if model.type == "bgmm" else []))
         elif args.fit_model == "bgmm":
             sys.stderr.write(f"Fitting bgmm model on {device}\n")
             model = BGMMFit(output, max_samples=args.model_subsample,
@@ -297,6 +356,15 @@ def fit_model(args, device):
                             assign_points=not args.for_refine, device=device)
             model.set_threads(args.threads)
             assignments = model.fit(X, args.K)
+        elif args.fit_model == "dbscan":
+            sys.stderr.write(f"Fitting dbscan model on {device}\n")
+            model = DBSCANFit(output, max_samples=args.model_subsample,
+                              max_batch_size=args.assign_subsample,
+                              assign_points=not args.for_refine,
+                              grid_assign=args.dbscan_grid_assign,
+                              device=device)
+            model.set_threads(args.threads)
+            assignments = model.fit(X, args.D, args.min_cluster_prop)
         elif args.fit_model == "refine":
             model_dir = (args.model_dir or ref_db).rstrip("/")
             start_model = load_cluster_fit(
@@ -317,7 +385,7 @@ def fit_model(args, device):
                 betweenness_sample=args.betweenness_sample,
                 sample_size=args.summary_sample,
             )
-        else:  # threshold
+        elif args.fit_model == "threshold":
             if args.threshold is None:
                 sys.stderr.write("--fit-model threshold requires "
                                  "--threshold\n")
@@ -325,6 +393,19 @@ def fit_model(args, device):
             model = RefineFit(output, device=device)
             model.set_threads(args.threads)
             assignments = model.apply_threshold(X, args.threshold)
+        else:  # lineage
+            from .. import SEARCH_DEPTH_FACTOR
+
+            ranks = sorted(int(x) for x in args.ranks.split(","))
+            max_search = args.max_search_depth or max(
+                int(SEARCH_DEPTH_FACTOR * max(ranks)), 25)
+            model = LineageFit(
+                output, ranks, max_search, args.reciprocal_only,
+                args.count_unique_distances, args.lineage_resolution,
+                dist_col=1 if args.use_accessory else 0,
+            )
+            model.set_threads(args.threads)
+            model.fit(X)
 
     model.save()
     if not args.no_plot:
@@ -342,10 +423,57 @@ def fit_model(args, device):
         sys.stderr.write("Done\n")
         return model, assignments
 
+    if model.type == "lineage":
+        lineage_clusters = fit_lineage_networks(model, rlist, X, output, args)
+        sys.stderr.write("Done\n")
+        return model, lineage_clusters
+
     with stage("network+refs"):
         make_network_and_refs(model, assignments, rlist, X, output, args)
     sys.stderr.write("Done\n")
     return model, assignments
+
+
+def fit_lineage_networks(model, rlist, X, output, args):
+    """Per-rank networks + lineage CSV (reference __main__.py:655-700)."""
+    from ..network import Graph, print_clusters
+    from ..network.graph import save_network
+
+    n = len(rlist)
+    lineage_clusters = {}
+    for rank in model.ranks:
+        sys.stderr.write(f"Network for rank {rank}\n")
+        edges = model.assign(rank)
+        weights = model.edge_weights(rank) if args.graph_weights else None
+        G = Graph(n, np.asarray(edges, dtype=np.int64).reshape(-1, 2), weights)
+        clustering, _ = print_clusters(
+            G, rlist, out_prefix=file_base(output) + f"_rank{rank}",
+            print_csv=False, write_unwords=False,
+        )
+        lineage_clusters[rank] = {
+            name: clustering[name] for name in rlist
+        }
+        if args.write_lineage_networks:
+            save_network(G, prefix=output, suffix=f"_rank_{rank}_graph")
+        if rank == min(model.ranks):
+            # the lowest rank's network is the overall one (reference
+            # __main__.py keeps it as the output _graph)
+            save_network(G, prefix=output, suffix="_graph")
+
+    overall = create_overall_lineage(model.ranks, lineage_clusters)
+    write_lineage_csv(file_base(output) + "_lineages.csv", rlist, model.ranks,
+                      overall)
+    # the overall-rank network is the lowest rank's
+    return lineage_clusters
+
+
+def write_lineage_csv(path, rlist, ranks, overall):
+    with open(path, "w") as f:
+        cols = ["Rank_" + str(r) for r in ranks] + ["overall"]
+        f.write(",".join(["id"] + cols) + "\n")
+        for name in rlist:
+            f.write(",".join([name] + [str(overall[c][name]) for c in cols])
+                    + "\n")
 
 
 def make_network_and_refs(model, assignments, rlist, X, output, args):

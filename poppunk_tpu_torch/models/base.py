@@ -4,15 +4,17 @@ Counterpart of poppunk_tpu/models/base.py (PopPUNK/models.py:81-280):
 subsample + max-scale preprocessing on the host, artefacts
 ``<prefix>/<basename>_fit.npz`` + ``_fit.pkl`` with the pkl holding
 ``[fit_data_or_none, type_string]``, so the files are interchangeable with
-the JAX package's and PopPUNK's. This package fits and loads BGMM and
-refine models (threshold fits are refine models); other types raise with
-the type's name until they are ported.
+the JAX package's and PopPUNK's. Every model type loads: BGMM, DBSCAN,
+refine (threshold fits are refine models) and lineage, whose fit data is
+``<prefix>_sparse_dists.npz`` rather than the npz.
 """
 
 import os
+import re
 import sys
 
 import numpy as np
+import scipy.sparse
 
 
 def load_cluster_fit(pkl_file, npz_file, out_prefix="", max_samples=100000,
@@ -21,22 +23,43 @@ def load_cluster_fit(pkl_file, npz_file, out_prefix="", max_samples=100000,
     goes to ``device``."""
     from .bgmm import BGMMFit
     from .compat import tolerant_pickle_load
+    from .dbscan import DBSCANFit
+    from .lineage import LineageFit
     from .refine import RefineFit
 
+    # The reference pickles live library objects (sklearn BGMM, an
+    # hdbscan.HDBSCAN — models.py:341-354, 613-630); tolerant_pickle_load
+    # stubs classes this environment cannot import so published PopPUNK
+    # databases still open. Parameters are reconstructed from the npz.
     with open(pkl_file, "rb") as f:
         fit_object, fit_type = tolerant_pickle_load(f)
+
+    if fit_type == "lineage":
+        prefix = re.match(r"^(.+)_fit\.pkl$", os.path.basename(pkl_file))
+        rank_file = os.path.join(
+            os.path.dirname(pkl_file), prefix.group(1) + "_sparse_dists.npz"
+        )
+        fit_data = scipy.sparse.load_npz(rank_file)
+    else:
+        fit_data = np.load(npz_file, allow_pickle=True)
+
     if fit_type == "bgmm":
         sys.stderr.write("Loading BGMM 2D Gaussian model\n")
         load_obj = BGMMFit(out_prefix, max_samples, device=device)
+    elif fit_type == "dbscan":
+        sys.stderr.write("Loading DBSCAN model\n")
+        load_obj = DBSCANFit(out_prefix, max_samples=max_samples,
+                             device=device)
     elif fit_type == "refine":
         sys.stderr.write("Loading previously refined model\n")
         load_obj = RefineFit(out_prefix, device=device)
+    elif fit_type == "lineage":
+        sys.stderr.write("Loading lineage cluster model\n")
+        load_obj = LineageFit(out_prefix, *fit_object)
     else:
-        raise RuntimeError(
-            f"model type {fit_type!r} ({pkl_file}) is not supported by "
-            "poppunk_tpu_torch yet; only 'bgmm' and 'refine' models are "
-            "ported")
-    load_obj.load(np.load(npz_file, allow_pickle=True), fit_object)
+        raise RuntimeError("Undefined model type: " + str(fit_type))
+
+    load_obj.load(fit_data, fit_object)
     return load_obj
 
 

@@ -4,9 +4,8 @@ Copied from poppunk_tpu/models/refine.py (that package loads jax on
 import); it reimplements RefineFit (PopPUNK/models.py:786-1091) and the
 refineFit / multi_refine optimisers (PopPUNK/refine.py:51-312):
 
-- start line between the within/between component means of a BGMM fit
-  (or a manual start file); a DBSCAN start model waits for the DBSCAN
-  port;
+- start line between the within/between component means of a BGMM or
+  DBSCAN fit (or a manual start file);
 - global 1-D search: 40 offsets along the line, one sorted boundary sweep
   (ops/boundary.py threshold_iterate_1d) scored on the model
   device (ops/device_sweep.py) or incrementally on the host
@@ -285,6 +284,10 @@ class RefineFit(ClusterFit):
             if not scaled:
                 self.mean0 /= self.scale
                 self.mean1 /= self.scale
+        elif model.type == "dbscan":
+            sys.stderr.write("Initial model-based network construction based on DBSCAN fit\n")
+            self.mean0 = model.cluster_means[model.within_label, :]
+            self.mean1 = model.cluster_means[model.between_label, :]
         elif model.type == "bgmm":
             sys.stderr.write("Initial model-based network construction based on Gaussian fit\n")
             self.mean0 = model.means[model.within_label, :]

@@ -1,19 +1,18 @@
 """Model classification fused into the distance pass.
 
 Counterpart of poppunk_tpu/ops/fused_assign.py for refine / threshold
-boundaries and BGMM models: the query chunk's (core, accessory) tile is
-classified on the device it was computed on, so assignment fetches
-distances and classes in one pass instead of shipping the |Q| x |R| matrix
-to the host and back.
+boundaries, BGMM and DBSCAN models: the query chunk's (core, accessory)
+tile is classified on the device it was computed on, so assignment
+fetches distances and classes in one pass instead of shipping the
+|Q| x |R| matrix to the host and back.
 
     spec = (name, static, params);  POST_FNS[name](dists, params, static)
 
-Models without a device classifier here (every type but refine and BGMM,
-until ported) get no spec, and ``assign`` classifies on the host, as the
-reference does for lineage models. The reference's ``*_stable`` posts
-serve only poppunk_tpu/serve.py and are ported with it; ``--stable``
-assignment picks each query's nearest reference on the host, as the
-reference's does.
+A lineage model has no device classifier and gets no spec: ``assign``
+keeps the distances and extends the model's kNN on the host, as the
+reference does. The reference's ``*_stable`` posts serve only
+poppunk_tpu/serve.py and are ported with it; ``--stable`` assignment picks
+each query's nearest reference on the host, as the reference's does.
 """
 
 import numpy as np
@@ -59,9 +58,29 @@ def _post_bgmm(dists, params, static):
     return lpr.argmax(dim=1).to(torch.int8).reshape(dists.shape[:-1])
 
 
+def _dbscan_grid_label(dists, params):
+    """Cluster label per pair from the quantised approximate_predict grid
+    (DBSCANFit.decision_grid): scale, locate the cell by float32 division
+    and truncation, clip, gather (reference _dbscan_grid_label)."""
+    grid, x0, dx, y0, dy, scale = params
+    res = grid.shape[0]
+    Xs = dists.reshape(-1, 2) / scale
+    ix = ((Xs[:, 0] - x0) / dx).to(torch.int32).clamp_(0, res - 1)
+    iy = ((Xs[:, 1] - y0) / dy).to(torch.int32).clamp_(0, res - 1)
+    return grid[ix.long(), iy.long()]
+
+
+def _post_dbscan(dists, params, static):
+    """Predicted HDBSCAN cluster per pair, int16 of shape dists.shape[:-1]
+    (reference _post_dbscan: PopPUNK/models.py:192 approximate_predict
+    semantics, grid-quantised)."""
+    return _dbscan_grid_label(dists, params).reshape(dists.shape[:-1])
+
+
 POST_FNS = {
     "boundary": _post_boundary,
     "bgmm": _post_bgmm,
+    "dbscan": _post_dbscan,
 }
 
 
@@ -72,7 +91,9 @@ def _f32(a):
 def model_post_spec(model, slope=None):
     """(name, static, params) classifying pairs like ``model.assign`` (for
     a refine model, like ``model.assign(X, slope=slope)``), or None if the
-    model has no fused classifier in this package."""
+    model has no device classifier (lineage). DBSCAN uses the quantised
+    decision grid built from the exact host predictor: exact for any pair
+    more than half a grid cell from a decision boundary."""
     model_type = getattr(model, "type", None)
     if model_type == "refine":
         if slope is None:
@@ -88,6 +109,11 @@ def model_post_spec(model, slope=None):
     if model_type == "bgmm":
         return ("bgmm", (), tuple(_f32(a) for a in (
             model.weights, model.means, model.covariances, model.scale)))
+    if model_type == "dbscan" and hasattr(model, "hdb"):
+        grid, x0, dx, y0, dy = model.decision_grid()
+        return ("dbscan", (), (torch.as_tensor(grid),
+                               *(_f32(a) for a in (x0, dx, y0, dy,
+                                                   model.scale))))
     return None
 
 

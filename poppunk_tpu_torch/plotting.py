@@ -1,14 +1,15 @@
 """The plots the port draws, copied from poppunk_tpu/plotting.py.
 
 Re-implements the reference's PopPUNK/plot.py on matplotlib (Agg). Output
-filenames match the reference exactly (plot.py:31-414):
+filenames match the reference exactly (plot.py:31-466):
 
 - ``<p>_distanceDistribution.png``  (plot_scatter, plot.py:31)
 - ``<p>_genome_lengths.png`` / ``<p>_ambiguous_base_counts.png`` (plot.py:84)
 - ``<p>.pdf`` k-mer fit (plot_fit, plot.py:135)
-- ``<p>.png`` model fits (plot_results / plot_refined_results,
-  plot.py:182-372)
+- ``<p>.png`` model fits (plot_results / plot_dbscan_results /
+  plot_refined_results, plot.py:182-372)
 - ``<p>.pdf`` contours (plot_contours, plot.py:375)
+- ``<p>_rank_<r>_histogram.png`` (distHistogram, plot.py:443)
 
 Only the functions this package calls are copied; they are unchanged but
 for plot_contours, whose likelihood grid is this package's
@@ -173,6 +174,23 @@ def plot_results(X, Y, means, covariances, scale, title, out_prefix):
     plt.close(fig)
 
 
+def plot_dbscan_results(X, y, n_clusters, out_prefix):
+    """HDBSCAN fit: noise in black, clusters over a spectral colormap in
+    two vectorised scatter calls (output contract of the reference's
+    plot_dbscan_results, plot.py:237-283)."""
+    X = np.asarray(X)
+    y = np.asarray(y)
+    fig, ax = plt.subplots(figsize=(11, 8), dpi=160)
+    noise = y == -1
+    ax.scatter(X[noise, 0], X[noise, 1], s=1, color="k", marker=".")
+    ax.scatter(X[~noise, 0], X[~noise, 1], s=2, c=y[~noise],
+               cmap="Spectral", marker=".")
+    _dist_axes(ax,
+               "HDBSCAN – estimated number of spatial clusters: %d" % n_clusters)
+    fig.savefig(out_prefix + ".png")
+    plt.close(fig)
+
+
 def plot_refined_results(X, Y, x_boundary, y_boundary, core_boundary,
                          accessory_boundary, mean0, mean1, min_move, max_move,
                          scale, threshold, indiv_boundaries, unconstrained,
@@ -269,4 +287,16 @@ def plot_contours(model, assignments, title, out_prefix):
     plt.xlabel("Scaled core distance")
     plt.ylabel("Scaled accessory distance")
     plt.savefig(out_prefix + ".pdf")
+    plt.close()
+
+
+def dist_histogram(dists, rank, out_prefix):
+    """(distHistogram, plot.py:443-466)."""
+    plt.figure(figsize=(11, 8), dpi=160, facecolor="w", edgecolor="k")
+    plt.hist(dists, 50, facecolor="b", alpha=0.75)
+    plt.title("Included nearest neighbour distances for rank " + str(rank))
+    plt.xlabel("Distance")
+    plt.ylabel("Density")
+    plt.grid(True)
+    plt.savefig(out_prefix + "_rank_" + str(rank) + "_histogram.png")
     plt.close()

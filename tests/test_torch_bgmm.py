@@ -226,12 +226,15 @@ def test_reads_jax_written_fit(population_dists, tmp_path):
 
 
 def test_load_rejects_other_model_types(tmp_path):
+    """Every PopPUNK model type loads (BGMM, DBSCAN, refine, lineage);
+    any other type string is refused, as the JAX package refuses it."""
     import pickle
 
     pkl = tmp_path / "m_fit.pkl"
     with open(pkl, "wb") as f:
-        pickle.dump([None, "dbscan"], f)
-    with pytest.raises(RuntimeError, match="'dbscan'"):
+        pickle.dump([None, "kmeans"], f)
+    np.savez(tmp_path / "m_fit.npz", scale=np.ones(2))
+    with pytest.raises(RuntimeError, match="Undefined model type: kmeans"):
         load_cluster_fit(str(pkl), str(tmp_path / "m_fit.npz"))
 
 

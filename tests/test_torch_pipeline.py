@@ -211,11 +211,15 @@ def test_gpu_flag_without_cuda_raises(split, tmp_path):
 
 def test_port_never_imports_jax(split, tmp_path):
     """In a fresh interpreter: after importing the package and after CLI
-    runs (create-db, BGMM, refine) with plotting on, neither jax nor any
-    module of the JAX package is loaded."""
+    runs (create-db, BGMM, refine, a DBSCAN fit, a lineage fit, --qc-db)
+    with plotting on, neither jax nor any module of the JAX package is
+    loaded."""
     rfile, _ = split
     db = str(tmp_path / "nojax")
     refine = str(tmp_path / "nojax_refine")
+    dbscan = str(tmp_path / "nojax_dbscan")
+    lineage = str(tmp_path / "nojax_lineage")
+    qc = str(tmp_path / "nojax_qc")
     script = f"""
 import sys
 
@@ -232,6 +236,10 @@ main(['--create-db', '--r-files', {rfile!r}, '--output', {db!r},
 main(['--fit-model', 'bgmm', '--ref-db', {db!r}, '--output', {db!r}])
 main(['--fit-model', 'refine', '--ref-db', {db!r}, '--output', {refine!r},
       '--model-dir', {db!r}, '--indiv-refine', 'both'])
+main(['--fit-model', 'dbscan', '--ref-db', {db!r}, '--output', {dbscan!r}])
+main(['--fit-model', 'lineage', '--ref-db', {db!r}, '--output', {lineage!r},
+      '--ranks', '1,2'])
+main(['--qc-db', '--ref-db', {db!r}, '--output', {qc!r}])
 assert not jax_modules(), jax_modules()
 print('NO_JAX_OK')
 """
@@ -245,6 +253,9 @@ print('NO_JAX_OK')
                    "_DPGMM_fit_contours.pdf", "_fit_example_1.pdf"):
         assert os.path.isfile(base(db) + suffix), suffix
     assert os.path.isfile(base(refine) + "_refined_fit.png")
+    assert os.path.isfile(base(dbscan) + "_dbscan.png")
+    assert os.path.isfile(base(lineage) + "_rank_2_histogram.png")
+    assert os.path.isfile(base(qc) + ".dists.pkl")
 
 
 # --------------------------------------------------------------------------

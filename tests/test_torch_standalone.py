@@ -5,7 +5,9 @@
 - The modules the port copied from the JAX package keep the originals'
   definitions: every top-level function, class and constant is the same
   syntax tree, except the ones each copy lists as its own (the citation
-  text, the GPU flags' help, the contour plot's likelihood).
+  text, the GPU flags' help, the contour plot's likelihood, the Boruvka
+  sweep in torch, the unpickler that never imports the JAX package, the
+  DBSCAN model's device).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
 - Devices (_device.py): with ``device=None`` an entry point runs on the
@@ -28,7 +30,8 @@ from poppunk_tpu_torch.cli.assign import get_options as torch_assign_options
 from poppunk_tpu_torch.cli.assign import main as torch_assign
 from poppunk_tpu_torch.cli.main import get_options as torch_main_options
 from poppunk_tpu_torch.cli.main import main as torch_main
-from poppunk_tpu_torch.models import BGMMFit, GaussianMixture, RefineFit
+from poppunk_tpu_torch.models import (BGMMFit, DBSCANFit, GaussianMixture,
+                                      RefineFit)
 from poppunk_tpu_torch.ops import distances as td
 
 torch.set_num_threads(2)
@@ -88,6 +91,13 @@ COPIES = {
     "sketch/random_match.py": ((), ()),
     "sketch/native.py": ((), ()),
     "ops/boundary.py": ((), ()),
+    "ops/sparse_knn.py": ((), ()),
+    "ops/hdbscan.py": (("_boruvka_round", "boruvka_mst_device",
+                        "mutual_reachability_mst", "HDBSCAN"),
+                       ("_BORUVKA_RUN",)),
+    "models/lineage.py": ((), ()),
+    "models/compat.py": (("_TolerantUnpickler",), None),
+    "models/dbscan.py": (("DBSCANFit",), None),
     "cli/common.py": (("_ACCEL_FLAG_DEFS", "add_accel_compat_flags"),
                       ("note_accel_compat_flags",)),
     "plotting.py": (("plot_contours",), None),
@@ -143,6 +153,14 @@ MAIN_ARGV = [
     ["--qc-db", "--ref-db", "db", "--length-range", "1000", "2000",
      "--max-a-dist", "0.6", "--qc-keep", "--auto-max-dists", "core"],
     ["--fit-model", "lineage", "--ranks", "1,5", "--reciprocal-only"],
+    ["--fit-model", "dbscan", "--ref-db", "db", "--D", "5",
+     "--min-cluster-prop", "0.01", "--dbscan-grid-assign", "--for-refine",
+     "--gpu-model"],
+    ["--fit-model", "lineage", "--ranks", "1,2", "--ref-db", "db",
+     "--max-search-depth", "30", "--use-accessory", "--count-unique-distances",
+     "--write-lineage-networks", "--lineage-resolution", "0.001"],
+    ["--qc-db", "--ref-db", "db", "--output", "qc", "--remove-samples",
+     "rm.txt", "--retain-failures", "--max-zero-dist", "0.5"],
 ]
 ASSIGN_ARGV = [
     ["--db", "db", "--query", "q.txt", "--output", "o"],
@@ -227,6 +245,7 @@ ENTRY_POINTS = {
     "condensed_self_block": lambda tmp: self_block(),
     "pairwise_block": lambda tmp: query_block(),
     "BGMMFit": lambda tmp: BGMMFit(str(tmp / "bgmm")).device,
+    "DBSCANFit": lambda tmp: DBSCANFit(str(tmp / "dbscan")).device,
     "RefineFit": lambda tmp: RefineFit(str(tmp / "refine")).device,
     "GaussianMixture": lambda tmp: GaussianMixture.from_numpy(
         *mixture()).means.device,
@@ -267,6 +286,7 @@ def test_a_cpu_device_is_a_request_for_the_cpu(no_cuda, tmp_path):
     assert got.shape == (6, 2) and np.isfinite(got).all()
     assert BGMMFit(str(tmp_path / "b"), device=cpu).device == cpu
     assert RefineFit(str(tmp_path / "r"), device=cpu).device == cpu
+    assert DBSCANFit(str(tmp_path / "d"), device=cpu).device == cpu
     assert td.planes_to_tensor(planes, cpu).device == cpu
 
 
