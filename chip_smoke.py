@@ -97,6 +97,9 @@ SWEEP_ATOL = 1e-9
 # and against the host Prim oracle in float64 (tests/test_hdbscan_shapes.py)
 BORUVKA_ATOL = 1e-6
 PRIM_ATOL = 1e-5
+# the SCE optimisers on the card against the CPU after 5 epochs from the
+# same start, over max |Y| (tests/test_torch_nj_embedding.py)
+SCE_ATOL = 1e-4
 
 
 def emit(obj):
@@ -1187,6 +1190,625 @@ def phase_i(torch, device, workdir, e, max_samples=100000,
 
 
 # --------------------------------------------------------------------------
+# J: the resident serving session and the web flow
+# --------------------------------------------------------------------------
+
+def unpack_sketches(planes, lengths, freqs, names, klist=KLIST, chunk=512):
+    """Sketch objects whose packed planes (ops/distances.pack_planes) are
+    ``planes``: the inverse of pack_planes, word w of plane p at index
+    w * bbits + p."""
+    from poppunk_tpu_torch.sketch.minhash import Sketch
+
+    n, _, bbits, _ = planes.shape
+    ss64 = PRODUCTION[0]
+    out = []
+    for start in range(0, n, chunk):
+        block = planes[start:start + chunk, :, :, :2 * ss64]
+        u = (block[..., 0::2].astype(np.uint64)
+             | (block[..., 1::2].astype(np.uint64) << np.uint64(32)))
+        u = np.ascontiguousarray(u.transpose(0, 1, 3, 2))  # [c, K, ss64, P]
+        for i in range(u.shape[0]):
+            g = start + i
+            out.append(Sketch(
+                name=names[g], sketchsize64=ss64, bbits=bbits,
+                usigs={int(k): u[i, ki].reshape(-1)
+                       for ki, k in enumerate(klist)},
+                length=int(lengths[g]), missing_bases=0,
+                base_freq=freqs[g].astype(np.float64)))
+    return out
+
+
+def write_served_db(workdir, e):
+    """Phase E's population as an on-disk reference database with the
+    port's writers: the 8192 reference sketches, ``.dists`` with phase E's
+    X, and phase E's BGMM fit, clusters, references and network. Returns
+    (database prefix, query sketches)."""
+    from poppunk_tpu_torch.io.hdf5db import write_sketches
+    from poppunk_tpu_torch.ops.distances import pack_planes
+    from poppunk_tpu_torch.utils import store_pickle
+
+    n = e.n_ref
+    sketches = unpack_sketches(e.planes, e.lengths, e.freqs, e.names)
+    planes, lengths, freqs = pack_planes(sketches[:64], KLIST)
+    if not (np.array_equal(planes, e.planes[:64])
+            and np.array_equal(lengths, e.lengths[:64])
+            and np.array_equal(freqs, e.freqs[:64])):
+        raise AssertionError("unpacked sketches do not pack to the planes")
+    db = os.path.join(workdir, "served")
+    write_sketches(db, sketches[:n])
+    base = os.path.join(db, "served")
+    store_pickle(e.names[:n], e.names[:n], True, e.X, base + ".dists")
+    e.model.copy(db)
+    planted = os.path.join(workdir, "planted", "planted")
+    for ext in ("_clusters.csv", ".refs", "_graph.graph.npz"):
+        shutil.copyfile(planted + ext, base + ext)
+    return db, sketches[n:]
+
+
+def percentile(values, q):
+    return float(np.percentile(np.asarray(values), q))
+
+
+def serve_requests(torch, session, sketches, per_request=16):
+    """The session's timings: one request of every query, then requests of
+    ``per_request`` queries each. Returns (answers of the one request,
+    {seconds / latencies})."""
+    t = time.perf_counter()
+    answers = session.assign_sketches(sketches)
+    one = time.perf_counter() - t
+    lat, small = [], {}
+    for start in range(0, len(sketches), per_request):
+        t = time.perf_counter()
+        small.update(session.assign_sketches(
+            sketches[start:start + per_request]))
+        lat.append(time.perf_counter() - t)
+    if small != answers:
+        raise AssertionError("small requests answer otherwise than one "
+                             "request of every query")
+    return answers, {"one_request_s": one,
+                     "one_request_queries_per_s": len(sketches) / one,
+                     "requests": len(lat), "queries_per_request": per_request,
+                     "p50_s": percentile(lat, 50), "p99_s": percentile(lat, 99),
+                     "queries_per_s": len(sketches) / sum(lat)}
+
+
+def phase_j(torch, device, workdir, d, e):
+    """The serving session: at phase D's size against the --stable CLI for
+    the BGMM (D), refine (F) and DBSCAN (H) fits on core and accessory,
+    the geometry refusal and the API flow; then at phase E's full width,
+    against the .refs subset and the full network (8192 resident
+    references), held to a host oracle from phase E's distances. Returns
+    standard launches per stage."""
+    import contextlib
+    import io
+
+    from poppunk_tpu_torch import web
+    from poppunk_tpu_torch.cli.assign import main as assign_main
+    from poppunk_tpu_torch.io.hdf5db import read_sketches
+    from poppunk_tpu_torch.ops import fused_assign
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.serve import AssignSession
+    from poppunk_tpu_torch.sketch.minhash import Sketch
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+
+    def counted(stage, fn):
+        t = time.perf_counter()
+        n0 = mc.LAUNCHES
+        out = fn()
+        stages[stage] = elapsed(torch, t)
+        launches[stage] = mc.LAUNCHES - n0
+        return out
+
+    # phase D's size: the session gives the --stable CLI's answers
+    fits = {"bgmm": d.db, "refine": path("refined"), "dbscan": path("dbscan")}
+    ref_clusters = read_clusters(os.path.join(d.db, "db_clusters.csv"))
+    fit_clusters = {m: read_clusters(os.path.join(
+        fit, os.path.basename(fit) + "_clusters.csv"))
+        for m, fit in fits.items()}
+
+    def small_sessions():
+        for model, fit in fits.items():
+            for stable in ("core", "accessory"):
+                out = path(f"stable_{model}_{stable}")
+                assign_main(["--db", d.db, "--model-dir", fit, "--query",
+                             d.qfile, "--output", out, "--stable", stable])
+                cli = read_clusters(os.path.join(
+                    out, os.path.basename(out) + "_clusters.csv"))
+                session = AssignSession(d.db, model_dir=fit, stable=stable)
+                got = session.assign_files(d.qfile)
+                if got != cli:
+                    raise AssertionError(f"{model} {stable}: session {got}, "
+                                         f"--stable CLI {cli}")
+                check_queries(got, fit_clusters[model], d.strain_of)
+        return session
+
+    session = counted("stable_sessions_vs_cli", small_sessions)
+    ss = session.ss64 // 2
+    wrong = Sketch(name="q0", usigs={k: np.zeros(ss * session.bbits,
+                                                 np.uint64)
+                                     for k in session.kmers},
+                   sketchsize64=ss, bbits=session.bbits, length=2_000_000,
+                   missing_bases=0, base_freq=(0.25, 0.25, 0.25, 0.25))
+    try:
+        session.assign_sketches([wrong])
+    except ValueError as refused:
+        if "geometry" not in str(refused):
+            raise
+    else:
+        raise AssertionError("a query of the wrong geometry was served")
+
+    # the web flow: phase D's queries as JSON sketches
+    sketch_files = []
+    for sk in read_sketches(path("assigned"), d.queries):
+        sketch_files.append(path(f"{sk.name}.json"))
+        with open(sketch_files[-1], "w") as f:
+            json.dump(web.sketch_to_json(sk), f)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        response = counted("api", lambda: web.main(
+            ["--sketch", *sketch_files, "--ref-db", d.db, "--output",
+             path("api")]))
+    if json.loads(printed.getvalue()) != response:
+        raise AssertionError("the API printed another response")
+    check_queries({q["name"]: q["cluster"] for q in response["queries"]},
+                  ref_clusters, d.strain_of)
+
+    # full width: phase E's database on disk, 1024 queries served
+    db, q_sketches = timed_stage(torch, stages, "write_database",
+                                 lambda: write_served_db(workdir, e))
+    n = e.n_ref
+    rlist = e.names[:n]
+    planted = read_clusters(os.path.join(db, "served_clusters.csv"))
+    served = {}
+    for mode, full in (("refs", False), ("full_network", True)):
+        t = time.perf_counter()
+        n0 = mc.LAUNCHES
+        session = AssignSession(db, use_full_network=full, device=device)
+        timing = {"construct_s": elapsed(torch, t),
+                  "references": len(session.r_names)}
+        t = time.perf_counter()
+        timing["warmup_buckets"] = session.warmup()
+        timing["warmup_s"] = elapsed(torch, t)
+        answers, requests = serve_requests(torch, session, q_sketches)
+        launches[f"serve_{mode}"] = mc.LAUNCHES - n0
+        check_queries(answers, planted, e.strain_of)
+        served[mode] = {**timing, **requests}
+        stages[f"serve_{mode}"] = elapsed(torch, t)
+    if served["full_network"]["references"] != n:
+        raise AssertionError(f"full network served "
+                             f"{served['full_network']['references']}")
+
+    # the host oracle on phase E's distances: first minimum on the core
+    # column, the model's class of that pair, the reference's cluster
+    nn = e.q_dists[..., 0].argmin(axis=1)
+    nearest = e.q_dists[np.arange(len(nn)), nn]
+    within = np.asarray(e.model.assign(nearest)) == e.model.within_label
+    oracle = {sk.name: planted[rlist[r]] if w else "NA"
+              for sk, r, w in zip(q_sketches, nn, within)}
+    if answers != oracle:
+        bad = {q: (answers[q], oracle[q]) for q in oracle
+               if answers[q] != oracle[q]}
+        raise AssertionError(f"full-network answers differ from the host "
+                             f"oracle on {len(bad)} queries: "
+                             f"{list(bad.items())[:5]}")
+
+    # each *_stable post on the card against the same post on the CPU, on
+    # 64 queries of phase E's distances
+    tile = torch.as_tensor(e.q_dists[:64])
+    posts = {}
+    for dist_col in (0, 1):
+        spec = fused_assign.stable_post_spec(e.model, dist_col)
+        card = fused_assign.apply_post(
+            tile.to(device), fused_assign.post_spec_on(spec, device)).cpu()
+        cpu = fused_assign.apply_post(
+            tile, fused_assign.post_spec_on(spec, torch.device("cpu")))
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"{spec[0]} on the card differs from the "
+                                 f"CPU (column {dist_col})")
+        posts[f"{spec[0]}_col{dist_col}"] = int(card[:, 1].sum())
+
+    emit({"phase": "J", "references": n, "queries": len(q_sketches),
+          "served": served, "oracle_queries": len(oracle),
+          "stable_post_within": posts, "api_queries": len(response["queries"]),
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches, SimpleNamespace(db=db)
+
+
+def timed_stage(torch, stages, name, fn):
+    t = time.perf_counter()
+    out = fn()
+    stages[name] = elapsed(torch, t)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K: visualise and the auxiliary tools
+# --------------------------------------------------------------------------
+
+class Timed:
+    """Record (label, args, kwargs, seconds after a synchronise, result)
+    of every call of some module functions; wrapped, not replaced.
+    ``targets``: (module, attribute, label)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = []
+        for module, attr, label in self.targets:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+            setattr(module, attr, self._recorder(fn, label))
+        return self
+
+    def _recorder(self, fn, label):
+        def record(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.calls.append((label, args, kwargs,
+                               elapsed(self.torch, t), out))
+            return out
+        return record
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+    def seconds(self):
+        out = {}
+        for label, _, _, s, _ in self.calls:
+            out[label] = out.get(label, 0.0) + s
+        return out
+
+
+def patristic(tree, labels):
+    """All-pairs leaf path lengths of a trees.Node tree (scipy Dijkstra;
+    1e-12 added to every edge keeps zero-length branches as edges)."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    ids, rows, cols, weights, leaf = {}, [], [], [], {}
+    stack = [(tree, None)]
+    while stack:
+        node, parent = stack.pop()
+        ids[id(node)] = len(ids)
+        if parent is not None:
+            rows.append(ids[id(parent)])
+            cols.append(ids[id(node)])
+            weights.append((node.edge_length or 0.0) + 1e-12)
+        if node.is_leaf():
+            leaf[node.label] = ids[id(node)]
+        stack.extend((c, node) for c in node.children)
+    graph = scipy.sparse.coo_matrix((weights, (rows, cols)),
+                                    shape=(len(ids), len(ids))).tocsr()
+    order = [leaf[lab] for lab in labels]
+    dist = scipy.sparse.csgraph.dijkstra(graph, directed=False,
+                                         indices=order)
+    return dist[:, order]
+
+
+def centroid_separation(coords, strain_of):
+    """The centroid test of tests/test_embedding.py for every pair of
+    planted strains: min over pairs of |c_a - c_b| / max(r_a, r_b), r the
+    mean distance of a strain's points to its centroid."""
+    names = list(coords)
+    xy = np.array([coords[n] for n in names])
+    strains = np.array([strain_of[n] for n in names])
+    uniq = np.unique(strains)
+    cent = np.array([xy[strains == s].mean(0) for s in uniq])
+    radius = np.array([np.linalg.norm(xy[strains == s] - c, axis=1).mean()
+                       for s, c in zip(uniq, cent)])
+    gap = np.linalg.norm(cent[:, None] - cent[None], axis=-1)
+    spread = np.maximum(radius[:, None], radius[None])
+    iu = np.triu_indices(len(uniq), 1)
+    return float((gap[iu] / spread[iu]).min())
+
+
+def read_dot(path):
+    """{name: (x, y)} from a mandrake .dot."""
+    with open(path) as f:
+        text = f.read()
+    coords = {}
+    for part in text[len("graph G { "):].split("; "):
+        if "[" in part:
+            name, attrs = part.split("[", 1)
+            x = float(attrs.split('x="')[1].split('"')[0])
+            y = float(attrs.split('y="')[1].split('"')[0])
+            coords[name.strip('"')] = (x, y)
+    return coords
+
+
+def condensed_rows(n, idx):
+    """Rows of the condensed i<j vector over n points for the pairs of the
+    sorted indices ``idx``, in their own condensed order."""
+    i, j = np.triu_indices(len(idx), 1)
+    a, b = idx[i].astype(np.int64), idx[j].astype(np.int64)
+    return n * a - a * (a + 1) // 2 + b - a - 1
+
+
+def phase_k(torch, device, workdir, d, e, served_db, nj_check=1024,
+            subset=2048, dense_epochs=500):
+    """Visualise and the tools on phase E's database (served_db, written
+    by phase J): every export with NJ and the dense SCE at full width, a
+    subset recalculated on the card, mandrake's dense and sampled
+    branches, the card's NJ held to the host's and the CPU's; then the
+    lineage, info and references CLIs on phase D's database. Returns
+    standard launches per stage."""
+    import contextlib
+    import io
+
+    from poppunk_tpu_torch import embedding, plotting, trees
+    from poppunk_tpu_torch import visualise as vis
+    from poppunk_tpu_torch.cli.info import main as info_main
+    from poppunk_tpu_torch.cli.lineages import main as lineages_main
+    from poppunk_tpu_torch.cli.mandrake import main as mandrake_main
+    from poppunk_tpu_torch.cli.references import main as references_main
+    from poppunk_tpu_torch.cli.visualise import main as visualise_main
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops import nj_device
+    from poppunk_tpu_torch.pairs import condensed_to_square
+    from poppunk_tpu_torch.utils import read_pickle, store_pickle
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    n = e.n_ref
+    rlist = e.names[:n]
+    base = os.path.join(served_db, "served")
+    targets = [(vis, "generate_nj_tree", "nj_tree"),
+               (nj_device, "neighbor_joining_device", "nj_device"),
+               (vis, "minimum_spanning_tree", "mst"),
+               (vis, "mst_to_phylogeny", "mst_to_phylogeny"),
+               (embedding, "generate_embedding", "embedding"),
+               (vis, "query_db_sketches", "recalculated_distances")]
+    targets += [(plotting, f"outputs_for_{tool}", f"export_{tool}")
+                for tool in ("microreact", "phandango", "grapetree",
+                             "cytoscape")]
+    drawn = io.StringIO()
+
+    # every export at full width: NJ on the card at 8192, the dense MST,
+    # the dense SCE at 8192 (one epoch at the default --maxIter)
+    out = path("viz")
+    with Timed(torch, targets) as full, contextlib.redirect_stderr(drawn):
+        timed_stage(torch, stages, "visualise_full", lambda: visualise_main([
+            "--ref-db", served_db, "--output", out, "--microreact",
+            "--phandango", "--grapetree", "--cytoscape", "--network-file",
+            base + "_graph.graph.npz", "--tree", "both"]))
+    sys.stderr.write(drawn.getvalue())
+    nj_calls = [c for c in full.calls if c[0] == "nj_device"]
+    # the reference's routing: the card's NJ from 512 genomes on the card
+    if [(c[1][0].shape[0], str(c[1][2])) for c in nj_calls] != \
+            ([(n, str(device))] if device.type == "cuda" else []):
+        raise AssertionError(f"NJ at full width ran as "
+                             f"{[(c[1][0].shape, c[1][2]) for c in nj_calls]}")
+    failed = [line for line in drawn.getvalue().splitlines()
+              if "failed" in line.lower()]
+    if any(not line.startswith("MST drawing failed") for line in failed):
+        raise AssertionError(f"visualise: {failed}")
+    files = sorted(os.listdir(out))
+    for name in ("viz_microreact_clusters.csv", "viz_core_NJ.nwk",
+                 "viz_MST.nwk", "viz_core_MST.nwk", "viz_core_NJ.tree",
+                 "viz_phandango_clusters.csv", "viz_grapetree_clusters.csv",
+                 "viz_cytoscape.graphml", "viz_cytoscape.csv",
+                 "viz_cytoscape_mst.graphml", "viz.microreact",
+                 "viz_perplexity20.0_accessory_mandrake.dot"):
+        if name not in files:
+            raise AssertionError(f"visualise wrote no {name}: {files}")
+    with open(os.path.join(out, "viz_core_NJ.nwk")) as f:
+        nj_leaves = {leaf.label for leaf in leaves(trees.parse_newick(
+            f.read()))}
+    if nj_leaves != set(rlist):
+        raise AssertionError("the NJ tree misses genomes")
+    components = [f for f in files if f.startswith("viz_component_")]
+    if len(components) != len(set(e.strain_of[r] for r in rlist)):
+        raise AssertionError(f"{len(components)} cytoscape components")
+
+    # a 2048-genome subset recalculated on the card
+    sub_idx = np.arange(subset)
+    sub_names = [rlist[i] for i in sub_idx]
+    listing = path("subset.txt")
+    with open(listing, "w") as f:
+        f.write("\n".join(sub_names) + "\n")
+    n0 = mc.LAUNCHES
+    with Timed(torch, targets) as recalc:
+        timed_stage(torch, stages, "visualise_subset_recalculated",
+                    lambda: visualise_main([
+                        "--ref-db", served_db, "--output", path("viz_sub"),
+                        "--microreact", "--tree", "nj", "--include-files",
+                        listing, "--recalculate-distances"]))
+    launches["visualise_subset_recalculated"] = mc.LAUNCHES - n0
+    ((_, (sketches, *_), _, _, X_sub), ) = [
+        c for c in recalc.calls if c[0] == "recalculated_distances"]
+    if [s.name for s in sketches] != sub_names:
+        raise AssertionError("the recalculation took other genomes")
+    np.testing.assert_allclose(X_sub, e.X[condensed_rows(n, sub_idx)],
+                               **DIST_TOL)
+
+    # mandrake: the dense branch at 8192 for dense_epochs epochs, then the
+    # sampled branch (DENSE_LIMIT lowered) for as many. Every pair of the
+    # planted strains must pass the centroid test in the dense embedding.
+    # The sampled optimiser (the JAX package's design, ported as it is)
+    # does not part dozens of equidistant strains pairwise, in either
+    # package: its full-width minimum is recorded, and it is held to the
+    # centroid test as tests/test_embedding.py holds it, on two strains
+    # (their 2 x n / n_strains genomes, with its limit lowered below that)
+    # at that test's kNN of 10, for the epoch cap of 1000
+    strains = sorted(set(e.strain_of[r] for r in rlist))
+    two = [i for i, r in enumerate(rlist) if e.strain_of[r] in strains[:2]]
+    two_dists = path("two_strains")
+    store_pickle([rlist[i] for i in two], [rlist[i] for i in two], True,
+                 e.X[condensed_rows(n, np.asarray(two))], two_dists)
+    separation = {}
+    for branch, dists, m, limit, knn, epochs in (
+            ("dense", base + ".dists", n, embedding.DENSE_LIMIT, 50,
+             dense_epochs),
+            ("sampled", base + ".dists", n, n // 2, 50, dense_epochs),
+            ("sampled_two_strains", two_dists, len(two), len(two) // 2, 10,
+             1000)):
+        saved, embedding.DENSE_LIMIT = embedding.DENSE_LIMIT, limit
+        try:
+            mandrake_out = path(f"mandrake_{branch}")
+            timed_stage(torch, stages, f"mandrake_{branch}",
+                        lambda: mandrake_main([
+                            "--distances", dists, "--output", mandrake_out,
+                            "--knn", str(knn), "--iter",
+                            str(epochs * m * knn)]))
+        finally:
+            embedding.DENSE_LIMIT = saved
+        (dot,) = os.listdir(mandrake_out)
+        coords = read_dot(os.path.join(mandrake_out, dot))
+        if list(coords) != read_pickle(dists, distances=False)[0] or \
+                not np.isfinite(np.array(list(coords.values()))).all():
+            raise AssertionError(f"mandrake {branch}: bad embedding")
+        separation[branch] = centroid_separation(coords, e.strain_of)
+        if branch != "sampled" and separation[branch] <= 1.5:
+            raise AssertionError(f"mandrake {branch}: strains not separated "
+                                 f"({separation[branch]})")
+
+    # each SCE optimiser on the card against the CPU, 5 epochs from the
+    # same initial embedding (and negatives): float32 sums in other
+    # orders, index_add_ unordered on the card
+    sce = sce_card_vs_cpu(torch, device, e, sub_idx)
+
+    # the card's NJ on a 1024-genome subset against the host float64 NJ
+    # and the CPU torch run, by patristic distances
+    idx = np.arange(nj_check)
+    labels = [rlist[i] for i in idx]
+    core = condensed_to_square(e.X[condensed_rows(n, idx), 0], nj_check)
+    trees_ = {
+        "card": timed_stage(torch, stages, f"nj_card_{nj_check}",
+                            lambda: nj_device.neighbor_joining_device(
+                                core, labels, device)),
+        "cpu": timed_stage(torch, stages, f"nj_cpu_torch_{nj_check}",
+                           lambda: nj_device.neighbor_joining_device(
+                               core, labels, torch.device("cpu"))),
+        "host": timed_stage(torch, stages, f"nj_host_{nj_check}",
+                            lambda: trees.neighbor_joining(
+                                core.astype(np.float64), labels))}
+    pat = {k: patristic(t, labels) for k, t in trees_.items()}
+    nj_err = {}
+    for other in ("cpu", "host"):
+        np.testing.assert_allclose(pat["card"], pat[other], rtol=1e-4,
+                                   atol=1e-6)
+        nj_err[other] = float((np.abs(pat["card"] - pat[other])
+                               / np.maximum(pat[other], 1e-12)).max())
+
+    # the tools on phase D's database
+    lineage_dir = path("lineages")
+    os.makedirs(lineage_dir)
+    cwd = os.getcwd()
+    os.chdir(lineage_dir)  # strain databases are written relative to it
+    try:
+        n0 = mc.LAUNCHES
+        timed_stage(torch, stages, "lineages_create", lambda: lineages_main([
+            "--create-db", d.db, "--db-scheme", "scheme.pkl", "--output",
+            "create", "--ranks", "1,2", "--min-count", "2"]))
+        timed_stage(torch, stages, "lineages_query", lambda: lineages_main([
+            "--query-db", d.qfile, "--db-scheme", "scheme.pkl", "--output",
+            "query"]))
+        launches["lineages"] = mc.LAUNCHES - n0
+    finally:
+        os.chdir(cwd)
+    ref_clusters = read_clusters(os.path.join(d.db, "db_clusters.csv"))
+    for name, members in (("create", d.refs), ("query", d.queries)):
+        with open(os.path.join(lineage_dir, name + ".csv")) as f:
+            rows = list(csv.reader(f))
+        if rows[0][:2] != ["id", "Cluster"] or \
+                sorted(r[0] for r in rows[1:]) != sorted(members):
+            raise AssertionError(f"lineages {name}: {rows[:3]}")
+        check_queries({r[0]: r[1] for r in rows[1:]}, ref_clusters,
+                      d.strain_of)
+        check_pure({r[0]: (r[1], r[2]) for r in rows[1:]}, d.strain_of,
+                   f"lineages {name} rank 1")
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        timed_stage(torch, stages, "info",
+                    lambda: info_main(["--db", d.db]))
+    if f"Number of samples:\t\t{len(d.refs)}" not in printed.getvalue():
+        raise AssertionError(f"info printed {printed.getvalue()[:500]}")
+    refs_out = path("references")
+    timed_stage(torch, stages, "references", lambda: references_main([
+        "--network", os.path.join(d.db, "db_graph.graph.npz"), "--distances",
+        os.path.join(d.db, "db.dists"), "--ref-db", d.db, "--output",
+        refs_out]))
+    with open(os.path.join(refs_out, "references.refs")) as f:
+        picked = f.read().split()
+    if {d.strain_of[r] for r in picked} != {d.strain_of[r] for r in d.refs}:
+        raise AssertionError(f"references picked {picked}")
+
+    emit({"phase": "K", "references": n, "subset": len(sub_idx),
+          "full_width_seconds": full.seconds(),
+          "subset_seconds": recalc.seconds(),
+          "mst_drawing": [line for line in failed],
+          "mandrake_epochs": dense_epochs,
+          "mandrake_separation": separation, "sce_card_vs_cpu": sce,
+          "nj_check": {"genomes": nj_check,
+                       "card_vs_other_max_rel": nj_err},
+          "references_picked": len(picked),
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def leaves(node):
+    stack, out = [node], []
+    while stack:
+        x = stack.pop()
+        if x.is_leaf():
+            out.append(x)
+        stack.extend(x.children)
+    return out
+
+
+def sce_card_vs_cpu(torch, device, e, idx, epochs=5, knn=50):
+    """Both SCE optimisers on the card and on the CPU from the same
+    initial embedding (and, sampled, the same negatives) on the accessory
+    kNN of ``idx``'s genomes: the largest difference over max |Y|."""
+    from poppunk_tpu_torch import embedding
+    from poppunk_tpu_torch.ops.sparse_knn import knn_from_condensed
+
+    m = len(idx)
+    I, J, dists = knn_from_condensed(e.X[condensed_rows(e.n_ref, idx), 1],
+                                     m, knn)
+    P = embedding._perplexity_probabilities(
+        np.asarray(dists).reshape(m, knn), 30.0).reshape(-1)
+    gen = torch.Generator().manual_seed(SEED)
+    Y0 = torch.randn((m, 2), generator=gen) * 1e-2
+    neg = torch.randint(0, m, (epochs, len(I), 5), generator=gen)
+    Pmat = np.zeros((m, m), dtype=np.float32)
+    Pmat[np.asarray(I), np.asarray(J)] += P
+    Pmat[np.asarray(J), np.asarray(I)] += P
+    out = {}
+    for branch in ("dense", "sampled"):
+        ys = {}
+        for dev in (device, torch.device("cpu")):
+            if branch == "dense":
+                y = embedding._sce_optimize_dense(
+                    None, torch.from_numpy(Pmat).to(dev), m, epochs,
+                    Y0=Y0.to(dev))
+            else:
+                as_t = lambda a, dt: torch.as_tensor(  # noqa: E731
+                    np.asarray(a), dtype=dt, device=dev)
+                y = embedding._sce_optimize_sampled(
+                    None, as_t(I, torch.int64), as_t(J, torch.int64),
+                    as_t(P, torch.float32), m, epochs, Y0=Y0.to(dev),
+                    negatives=neg.to(dev))
+            ys[dev.type] = y.cpu().numpy()
+        scale = np.abs(ys["cpu"]).max()
+        err = float(np.abs(ys[device.type] - ys["cpu"]).max() / scale)
+        if err > SCE_ATOL:
+            raise AssertionError(f"SCE {branch}: card vs CPU {err}")
+        out[branch] = err
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1241,6 +1863,9 @@ def main():
         mc.KERNEL_CHOICE = "standard"
         path("H", lambda: (phase_h(torch, device, workdir, d), None), *std)
         path("I", lambda: (phase_i(torch, device, workdir, e), None), *std)
+        j = path("J", lambda: phase_j(torch, device, workdir, d, e), *std)
+        path("K", lambda: (phase_k(torch, device, workdir, d, e, j.db),
+                           None), *std)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

@@ -25,3 +25,4 @@ __version__ = "0.1.0"
 # databases and lineage defaults carry
 SKETCH_VERSION = "poppunk-tpu-sketch-1"
 SEARCH_DEPTH_FACTOR = 10
+DEFAULT_LINEAGE_RESOLUTION = 1e-10

@@ -60,11 +60,16 @@ def resolve(device=None, deviceid=0):
     return _card(deviceid)
 
 
+def flagged(flag, deviceid=0):
+    """The card when a CLI's ``--gpu-*`` flag is set, else ``resolve``'s
+    choice."""
+    return _card(deviceid) if flag else resolve(None, deviceid)
+
+
 def stage_devices(args):
     """(distance device, model device) for parsed CLI ``args``: the card
     for a stage whose ``--gpu-*`` flag is set, else ``resolve``'s
     choice."""
     deviceid = getattr(args, "deviceid", 0)
-    return tuple(_card(deviceid) if getattr(args, flag, False)
-                 else resolve(None, deviceid)
+    return tuple(flagged(getattr(args, flag, False), deviceid)
                  for flag in ("gpu_dist", "gpu_model"))

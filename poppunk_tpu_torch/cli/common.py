@@ -76,7 +76,13 @@ _ACCEL_FLAG_DEFS = {
     "gpu-graph": ("--gpu-graph", dict(
         action="store_true", help="Accepted for compatibility with PopPUNK; "
         "network code runs on the host")),
+    "use-gpu": ("--use-gpu", dict(
+        action="store_true", help="The SCE embedding (mandrake) "
+        + _ON_CARD + "; elsewhere accepted for compatibility with PopPUNK, "
+        "the work runs on the host")),
     "deviceid": ("--deviceid", dict(
+        type=int, default=0, help="CUDA card to run on (default 0)")),
+    "device-id": ("--device-id", dict(
         type=int, default=0, help="CUDA card to run on (default 0)")),
 }
 

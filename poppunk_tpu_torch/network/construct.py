@@ -85,3 +85,16 @@ def network_vertex_check(G, expected, fatal=True):
         if fatal:
             raise RuntimeError(msg)
         sys.stderr.write(msg)
+
+
+def construct_dense_network(n, dist_mat=None, use_weights=False):
+    """Fully-connected graph over n vertices (network.py:1060-1113 —
+    used by visualise for MSTs over all samples)."""
+    from ..pairs import all_pairs
+
+    i, j = all_pairs(n)
+    edges = np.stack([i, j], axis=1)
+    weights = None
+    if use_weights and dist_mat is not None:
+        weights = euclidean_row_weights(dist_mat, np.arange(edges.shape[0]))
+    return Graph(n, edges, weights)

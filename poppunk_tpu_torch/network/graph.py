@@ -10,10 +10,13 @@ consume directly.
 
 Storage format: ``.graph.npz`` (numpy archive with n_vertices, edges,
 weights), the JAX package's own. PopPUNK's graph-tool ``.gt`` and cugraph
-``.csv.gz`` networks load too (read only).
+``.csv.gz`` networks load too (read only). GraphML export/import is
+provided for interop with the reference's ``--cytoscape``/graphml outputs.
 """
 
 import os
+import xml.etree.ElementTree as ET
+import xml.sax.saxutils
 
 import numpy as np
 import scipy.sparse
@@ -171,21 +174,81 @@ class Graph:
                 weights = np.array(values, dtype=np.float64)
         return cls(n, edges, weights)
 
+    def save_graphml(self, path, vertex_labels=None):
+        """GraphML export (interop with the reference's graphml outputs)."""
+        esc = xml.sax.saxutils.escape
+        with open(path, "w") as f:
+            f.write('<?xml version="1.0" encoding="UTF-8"?>\n')
+            f.write(
+                '<graphml xmlns="http://graphml.graphdrawing.org/xmlns">\n'
+            )
+            f.write('  <key id="d0" for="node" attr.name="id" attr.type="string"/>\n')
+            if self.weights is not None:
+                f.write('  <key id="d1" for="edge" attr.name="weight" attr.type="double"/>\n')
+            f.write('  <graph id="G" edgedefault="undirected">\n')
+            for v in range(self.n_vertices):
+                label = vertex_labels[v] if vertex_labels is not None else str(v)
+                f.write(f'    <node id="n{v}"><data key="d0">{esc(label)}</data></node>\n')
+            for idx, (s, t) in enumerate(self.edges):
+                if self.weights is not None:
+                    f.write(
+                        f'    <edge source="n{s}" target="n{t}">'
+                        f'<data key="d1">{self.weights[idx]}</data></edge>\n'
+                    )
+                else:
+                    f.write(f'    <edge source="n{s}" target="n{t}"/>\n')
+            f.write("  </graph>\n</graphml>\n")
+
+    @classmethod
+    def load_graphml(cls, path):
+        ns = {"g": "http://graphml.graphdrawing.org/xmlns"}
+        tree = ET.parse(path)
+        root = tree.getroot()
+        graph = root.find("g:graph", ns)
+        node_ids = {}
+        labels = []
+        for node in graph.findall("g:node", ns):
+            node_ids[node.get("id")] = len(node_ids)
+            data = node.find("g:data", ns)
+            labels.append(data.text if data is not None else node.get("id"))
+        edges = []
+        weights = []
+        has_w = False
+        for edge in graph.findall("g:edge", ns):
+            edges.append((node_ids[edge.get("source")], node_ids[edge.get("target")]))
+            data = edge.find("g:data", ns)
+            if data is not None:
+                has_w = True
+                weights.append(float(data.text))
+            else:
+                weights.append(0.0)
+        g = cls(len(node_ids), np.array(edges, dtype=np.int64).reshape(-1, 2),
+                np.array(weights) if has_w else None)
+        g.vertex_labels = labels
+        return g
+
+
 GRAPH_SUFFIX = ".graph.npz"
 
 
-def save_network(G, prefix=None, suffix=None):
+def save_network(G, prefix=None, suffix=None, use_graphml=False,
+                 vertex_labels=None):
     """Save with the reference's naming convention
     (PopPUNK/network.py:1855-1884): ``<prefix>/<basename><suffix>``."""
     file_name = os.path.join(prefix, os.path.basename(prefix))
     if suffix is not None:
         file_name += suffix
     os.makedirs(prefix, exist_ok=True)
+    if use_graphml:
+        G.save_graphml(file_name + ".graphml", vertex_labels)
+        return file_name + ".graphml"
     G.save(file_name + GRAPH_SUFFIX)
     return file_name + GRAPH_SUFFIX
 
 
 def load_network_file(fn):
+    if fn.endswith(".graphml"):
+        return Graph.load_graphml(fn)
     if fn.endswith(".gt"):
         return Graph.load_gt(fn)
     if fn.endswith(".csv.gz"):

@@ -10,9 +10,12 @@ fetches distances and classes in one pass instead of shipping the
 
 A lineage model has no device classifier and gets no spec: ``assign``
 keeps the distances and extends the model's kNN on the host, as the
-reference does. The reference's ``*_stable`` posts serve only
-poppunk_tpu/serve.py and are ported with it; ``--stable`` assignment picks
-each query's nearest reference on the host, as the reference's does.
+reference does. The ``*_stable`` posts serve ``serve.AssignSession``: per
+query, the nearest reference on one distance column (the first minimum on
+ties, as ``np.argmin``) and whether that pair is within-strain, int32
+``[nq, 2]``, so a request fetches O(queries) integers from the device.
+The CLI's ``--stable`` assignment picks each query's nearest reference on
+the host, as the reference's does.
 """
 
 import numpy as np
@@ -77,10 +80,48 @@ def _post_dbscan(dists, params, static):
     return _dbscan_grid_label(dists, params).reshape(dists.shape[:-1])
 
 
+def _nearest_within(dists, classes, dist_col, within):
+    """int32 [nq, 2] of (nn_index, within_flag): each query's first
+    minimum on ``dist_col`` (torch.argmin keeps the first, as jnp.argmin)
+    and whether that pair's class equals ``within``."""
+    nn = dists[..., dist_col].argmin(dim=-1)
+    hit = torch.gather(classes, -1, nn[..., None])[..., 0] == within
+    return torch.stack([nn.to(torch.int32), hit.to(torch.int32)], dim=-1)
+
+
+def _post_boundary_stable(dists, params, static):
+    """Fused --stable serving with a boundary: within = the nearest pair's
+    sign is -1 (reference _post_boundary_stable)."""
+    slope, dist_col = static
+    sign = _boundary_sign(dists, params, slope).reshape(dists.shape[:-1])
+    return _nearest_within(dists, sign, dist_col, -1)
+
+
+def _post_bgmm_stable(dists, params, static):
+    """Fused --stable serving for BGMM models: within = the nearest pair's
+    component argmax is the model's within label (reference
+    _post_bgmm_stable)."""
+    dist_col, within_label = static
+    return _nearest_within(dists, _post_bgmm(dists, params, ()), dist_col,
+                           within_label)
+
+
+def _post_dbscan_stable(dists, params, static):
+    """Fused --stable serving for DBSCAN models: within = the nearest
+    pair's grid label is the model's within label (reference
+    _post_dbscan_stable)."""
+    dist_col, within_label = static
+    return _nearest_within(dists, _post_dbscan(dists, params, ()), dist_col,
+                           within_label)
+
+
 POST_FNS = {
     "boundary": _post_boundary,
+    "boundary_stable": _post_boundary_stable,
     "bgmm": _post_bgmm,
+    "bgmm_stable": _post_bgmm_stable,
     "dbscan": _post_dbscan,
+    "dbscan_stable": _post_dbscan_stable,
 }
 
 
@@ -115,6 +156,27 @@ def model_post_spec(model, slope=None):
                                *(_f32(a) for a in (x0, dx, y0, dy,
                                                    model.scale))))
     return None
+
+
+def stable_post_spec(model, dist_col):
+    """(name, static, params) of the fused --stable serving post (1-NN and
+    within check on the device) for refine / threshold, BGMM and DBSCAN
+    models; None for a lineage model."""
+    base = model_post_spec(model)
+    if base is None:
+        return None
+    name, static, params = base
+    if name == "boundary":
+        return ("boundary_stable", (static[0], int(dist_col)), params)
+    return (name + "_stable", (int(dist_col), int(model.within_label)),
+            params)
+
+
+def post_spec_on(post_spec, device):
+    """The spec with its parameters on ``device`` (a resident session moves
+    them once; ``apply_post`` then finds them there)."""
+    name, static, params = post_spec
+    return name, static, tuple(p.to(device) for p in params)
 
 
 def apply_post(dists, post_spec):

@@ -10,22 +10,47 @@ filenames match the reference exactly (plot.py:31-466):
   plot_refined_results, plot.py:182-372)
 - ``<p>.pdf`` contours (plot_contours, plot.py:375)
 - ``<p>_rank_<r>_histogram.png`` (distHistogram, plot.py:443)
+- ``<p>_mst_stress_plot.png`` / ``<p>_mst_cluster_plot.png`` (drawMST)
+- cluster CSVs for microreact/phandango/grapetree/cytoscape
+  (writeClusterCsv, plot.py:598-758) and the per-tool output bundles
+  (plot.py:512-1005).
 
-Only the functions this package calls are copied; they are unchanged but
-for plot_contours, whose likelihood grid is this package's
-(models/bgmm.py). This package imports nothing of the JAX package.
-Importing this module loads matplotlib; callers import it
-inside the function that plots, so hosts without matplotlib run every
-path with ``--no-plot``.
+The functions are copies, unchanged but for plot_contours, whose
+likelihood grid is this package's (models/bgmm.py),
+outputs_for_microreact, which passes the embedding its device, and
+draw_mst, which raises before its layout when matplotlib is absent. This
+package imports nothing of the JAX package. The exports need no
+matplotlib: on a host without it this module imports, and every plot
+(``draw_mst`` included) raises ModuleNotFoundError when called.
 """
 
 import os
+import sys
+from collections import defaultdict
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt
 import numpy as np
+import pandas as pd
+
+from .utils import isolate_name_to_label
+
+
+class _Missing:
+    """Stands in for an absent module: any use raises its import error."""
+
+    def __init__(self, error):
+        self.error = error
+
+    def __getattr__(self, name):
+        raise self.error
+
+
+try:
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+except ModuleNotFoundError as missing:
+    matplotlib = plt = _Missing(missing)
 
 
 def get_grid(minimum, maximum, resolution):
@@ -300,3 +325,373 @@ def dist_histogram(dists, rank, out_prefix):
     plt.grid(True)
     plt.savefig(out_prefix + "_rank_" + str(rank) + "_histogram.png")
     plt.close()
+
+
+def spring_layout(n, edges, iterations=60, seed=42):
+    """Fruchterman–Reingold force layout in numpy (replaces gt.sfdp_layout
+    for MST drawing)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 2))
+    if n <= 1:
+        return pos
+    k = 1.0 / np.sqrt(n)
+    t = 0.1
+    dt = t / (iterations + 1)
+    src = edges[:, 0]
+    dst = edges[:, 1]
+    # above this size exact all-pairs repulsion (O(n^2)/iteration) gives way
+    # to a sampled estimate
+    max_exact = 3000
+    for _ in range(iterations):
+        if n <= max_exact:
+            others = pos
+            scale_rep = 1.0
+        else:
+            idx = rng.integers(0, n, max_exact)
+            others = pos[idx]
+            scale_rep = n / max_exact
+        delta = pos[:, None, :] - others[None, :, :]
+        dist = np.maximum(np.linalg.norm(delta, axis=-1), 0.01)
+        force = (k * k / dist ** 2)[:, :, None] * delta  # repulsion
+        disp = force.sum(axis=1) * scale_rep
+        # attraction along edges
+        edelta = pos[src] - pos[dst]
+        edist = np.maximum(np.linalg.norm(edelta, axis=-1), 0.01)
+        pull = (edist / k)[:, None] * edelta / edist[:, None]
+        np.add.at(disp, src, -pull)
+        np.add.at(disp, dst, pull)
+        length = np.maximum(np.linalg.norm(disp, axis=-1), 0.01)
+        pos += disp / length[:, None] * np.minimum(length, t)[:, None]
+        t -= dt
+    return pos
+
+
+def draw_mst(mst, out_prefix, isolate_clustering, clustering_name, overwrite):
+    """MST stress and cluster plots (drawMST, plot.py:468-510).
+
+    ``mst`` is our network.Graph with a ``vertex_labels`` attribute set by
+    the caller (list of isolate names in vertex order).
+    """
+    graph1 = os.path.join(
+        out_prefix, os.path.basename(out_prefix) + "_mst_stress_plot.png"
+    )
+    graph2 = os.path.join(
+        out_prefix, os.path.basename(out_prefix) + "_mst_cluster_plot.png"
+    )
+    if not overwrite and os.path.isfile(graph1) and os.path.isfile(graph2):
+        return
+    if isinstance(plt, _Missing):
+        # before the layout, which takes minutes at thousands of vertices
+        raise plt.error
+    sys.stderr.write("Drawing MST\n")
+    n = mst.n_vertices
+    edges = mst.edges
+    pos = spring_layout(n, edges)
+    labels = getattr(mst, "vertex_labels", [str(i) for i in range(n)])
+    degrees = mst.degrees()
+
+    if overwrite or not os.path.isfile(graph1):
+        plt.figure(figsize=(15, 15), dpi=200)
+        for u, v in edges:
+            plt.plot(pos[[u, v], 0], pos[[u, v], 1], "-", color="0.6",
+                     linewidth=0.7, zorder=1)
+        plt.scatter(pos[:, 0], pos[:, 1],
+                    s=20 + 30 * np.sqrt(degrees), c=degrees, cmap="viridis",
+                    zorder=2)
+        plt.axis("off")
+        plt.savefig(graph1)
+        plt.close()
+
+    if overwrite or not os.path.isfile(graph2):
+        rng = np.random.default_rng(0)
+        clustering = isolate_clustering[clustering_name]
+        cluster_fill = {
+            cluster: rng.random(3) for cluster in set(clustering.values())
+        }
+        colors = np.array([
+            cluster_fill[clustering[labels[v]]] for v in range(n)
+        ])
+        plt.figure(figsize=(15, 15), dpi=200)
+        for u, v in edges:
+            plt.plot(pos[[u, v], 0], pos[[u, v], 1], "-", color="0.6",
+                     linewidth=0.7, zorder=1)
+        plt.scatter(pos[:, 0], pos[:, 1], s=30, c=colors, alpha=0.9, zorder=2)
+        plt.axis("off")
+        plt.savefig(graph2)
+        plt.close()
+
+
+def write_cluster_csv(outfile, node_names, node_labels, clustering,
+                      output_format="microreact", epi_csv=None,
+                      query_names=None, suffix="_Cluster"):
+    """Cluster CSV in each tool's dialect (writeClusterCsv,
+    plot.py:598-758)."""
+    colnames = []
+    if output_format == "microreact":
+        colnames = ["id"]
+        for cluster_type in clustering:
+            colnames.append(cluster_type + suffix + "__autocolour")
+        if query_names is not None:
+            colnames += ["Status", "Status__colour"]
+    elif output_format == "phandango":
+        colnames = ["id"]
+        for cluster_type in clustering:
+            colnames.append(cluster_type + suffix)
+        if query_names is not None:
+            colnames += ["Status", "Status:colour"]
+    elif output_format == "grapetree":
+        colnames = ["ID"]
+        for cluster_type in clustering:
+            colnames.append(cluster_type + suffix)
+        if query_names is not None:
+            colnames.append("Status")
+    elif output_format == "cytoscape":
+        colnames = ["id"]
+        for cluster_type in clustering:
+            colnames.append(cluster_type + suffix)
+        if query_names is not None:
+            colnames.append("Status")
+    else:
+        sys.stderr.write("Do not recognise format for CSV writing\n")
+        raise RuntimeError("Unknown CSV output format: " + str(output_format))
+
+    d = defaultdict(list)
+    if epi_csv is not None:
+        columns_to_be_omitted = [
+            "id", "Id", "ID", "combined_Cluster__autocolour",
+            "core_Cluster__autocolour", "accessory_Cluster__autocolour",
+            "overall_Lineage",
+        ]
+        epi_data = pd.read_csv(epi_csv, index_col=False, quotechar='"')
+        epi_data.index = isolate_name_to_label(epi_data.iloc[:, 0])
+        for e in epi_data.columns.values:
+            if e not in columns_to_be_omitted:
+                colnames.append(str(e))
+
+    example_cluster_title = list(clustering.keys())[0]
+    query_set = frozenset(query_names) if query_names is not None else frozenset()
+
+    for name, label in zip(node_names, isolate_name_to_label(node_labels)):
+        if name not in clustering[example_cluster_title]:
+            sys.stderr.write("Cannot find " + name + " in clustering\n")
+            raise RuntimeError("Name missing from clustering: " + name)
+        id_col = "ID" if output_format == "grapetree" else "id"
+        d[id_col].append(label)
+        for cluster_type in clustering:
+            if output_format == "microreact":
+                col_name = cluster_type + suffix + "__autocolour"
+            else:
+                col_name = cluster_type + suffix
+            d[col_name].append(clustering[cluster_type][name])
+        if query_names is not None:
+            status = "Query" if name in query_set else "Reference"
+            d["Status"].append(status)
+            if output_format == "microreact":
+                d["Status__colour"].append(
+                    "red" if status == "Query" else "black"
+                )
+            elif output_format == "phandango":
+                d["Status:colour"].append(
+                    "#ff0000" if status == "Query" else "#000000"
+                )
+        if epi_csv is not None:
+            if label in epi_data.index:
+                for col, value in zip(epi_data.columns.values,
+                                      epi_data.loc[[label]].iloc[0].values):
+                    if col not in columns_to_be_omitted:
+                        d[col].append(str(value))
+            else:
+                for col in epi_data.columns.values:
+                    if col not in columns_to_be_omitted:
+                        d[col].append("")
+
+    sys.stderr.write("Parsed data, now writing to CSV\n")
+    pd.DataFrame(data=d).to_csv(outfile, columns=colnames, index=False)
+
+
+def outputs_for_cytoscape(G, G_mst, isolate_names, clustering, out_prefix,
+                          epi_csv, query_list=None, suffix=None,
+                          write_csv=True, use_partial_query_graph=None):
+    """Cytoscape graphml bundle (outputsForCytoscape, plot.py:512-596)."""
+    from .network.graph import save_network
+
+    seq_labels = isolate_name_to_label(isolate_names)
+    if suffix is None:
+        suffix = "_cytoscape"
+    else:
+        suffix = suffix + "_cytoscape"
+    if use_partial_query_graph is None:
+        save_network(G, prefix=out_prefix, suffix=suffix, use_graphml=True,
+                     vertex_labels=seq_labels)
+
+    example_cluster_title = list(clustering.keys())[0]
+    if use_partial_query_graph is not None:
+        represented = {
+            clustering[example_cluster_title][iso] for iso in isolate_names
+        }
+    else:
+        represented = set(clustering[example_cluster_title].values())
+    for cluster in represented:
+        members = np.array([
+            v for v in range(G.n_vertices)
+            if clustering[example_cluster_title].get(isolate_names[v]) == cluster
+        ], dtype=np.int64)
+        G_comp, old_ids = G.subgraph(members, relabel=True)
+        save_network(
+            G_comp, prefix=out_prefix, suffix="_component_" + str(cluster),
+            use_graphml=True,
+            vertex_labels=[seq_labels[i] for i in old_ids],
+        )
+
+    if G_mst is not None:
+        mst_labels = isolate_name_to_label(
+            getattr(G_mst, "vertex_labels", isolate_names)
+        )
+        save_network(G_mst, prefix=out_prefix, suffix=suffix + "_mst",
+                     use_graphml=True, vertex_labels=mst_labels)
+
+    if write_csv:
+        write_cluster_csv(
+            os.path.join(out_prefix,
+                         os.path.basename(out_prefix) + "_cytoscape.csv"),
+            isolate_names, isolate_names, clustering, "cytoscape",
+            epi_csv, query_list,
+        )
+
+
+def outputs_for_microreact(combined_list, clustering, nj_tree, mst_tree,
+                           acc_mat, perplexity, max_iter, out_prefix, epi_csv,
+                           query_list=None, overwrite=False, n_threads=1,
+                           device=None):
+    """Microreact bundle: cluster CSV, SCE embedding .dot, trees
+    (outputsForMicroreact, plot.py:761-836); the embedding runs on
+    ``device`` (None: ``_device.resolve``'s choice)."""
+    from .embedding import generate_embedding
+    from .trees import write_tree
+
+    seq_labels = isolate_name_to_label(combined_list)
+    csv_file = os.path.join(
+        out_prefix, os.path.basename(out_prefix) + "_microreact_clusters.csv"
+    )
+    outfiles = [csv_file]
+    write_cluster_csv(csv_file, combined_list, combined_list, clustering,
+                      "microreact", epi_csv, query_list)
+
+    embedding_file = generate_embedding(
+        seq_labels, acc_mat, perplexity, out_prefix, overwrite,
+        kNN=100, maxIter=max_iter, n_threads=n_threads, device=device,
+    )
+    outfiles.append(embedding_file)
+
+    if nj_tree is not None:
+        write_tree(nj_tree, out_prefix, "_core_NJ.nwk", overwrite)
+        outfiles.append(os.path.join(
+            out_prefix, os.path.basename(out_prefix) + "_core_NJ.nwk"
+        ))
+    if mst_tree is not None:
+        write_tree(mst_tree, out_prefix, "_MST.nwk", overwrite)
+        outfiles.append(os.path.join(
+            out_prefix, os.path.basename(out_prefix) + "_MST.nwk"
+        ))
+    return outfiles
+
+
+def create_microreact(prefix, microreact_files, api_key=None, info_csv=None):
+    """Write the .microreact JSON bundle; POST to the API if a key is given
+    (createMicroreact, plot.py:836-901)."""
+    import json
+    from datetime import datetime
+
+    description = "PopPUNK run on " + datetime.now().strftime("%Y-%b-%d %H:%M")
+    doc = {
+        "schema": 1,
+        "meta": {"name": description},
+        "files": {},
+        "networks": {},
+        "maps": {},
+        "timelines": {},
+    }
+    if info_csv is not None:
+        info_df = pd.read_csv(info_csv)
+        if "latitude" not in info_df.columns or "longitude" not in info_df.columns:
+            doc["maps"] = {}
+        if "year" not in info_df.columns:
+            doc["timelines"] = {}
+
+    with open(microreact_files[0]) as cluster_file:
+        doc["files"]["data-file-1"] = {
+            "id": "data-file-1", "name": "clusters.csv",
+            "format": "text/csv", "blob": cluster_file.read(),
+        }
+    with open(microreact_files[1]) as dot_file:
+        doc["files"]["network-file-1"] = {
+            "id": "network-file-1", "name": "network.dot",
+            "format": "text/vnd.graphviz", "blob": dot_file.read(),
+        }
+        doc["networks"]["network-1"] = {
+            "title": "Network", "file": "network-file-1", "nodeField": "id",
+        }
+    if len(microreact_files) > 2:
+        with open(microreact_files[2]) as tree_file:
+            doc["files"]["tree-file-1"] = {
+                "id": "tree-file-1", "name": "tree.nwk",
+                "format": "text/x-nh", "blob": tree_file.read(),
+            }
+
+    out_json = os.path.join(
+        prefix, os.path.basename(prefix) + ".microreact"
+    )
+    with open(out_json, "w") as json_file:
+        json.dump(doc, json_file)
+
+    url = None
+    if api_key is not None:
+        import requests
+
+        headers = {"Content-type": "application/json; charset=UTF-8",
+                   "Access-Token": api_key}
+        r = requests.post("https://microreact.org/api/projects/create",
+                          data=json.dumps(doc), headers=headers)
+        if not r.ok:
+            sys.stderr.write(
+                "Microreact API call failed with response " + r.text + "\n"
+            )
+        else:
+            url = r.json()["url"]
+    return url
+
+
+def outputs_for_phandango(combined_list, clustering, nj_tree, mst_tree,
+                          out_prefix, epi_csv, query_list=None,
+                          overwrite=False):
+    """(outputsForPhandango, plot.py:924-962)."""
+    from .trees import write_tree
+
+    write_cluster_csv(
+        os.path.join(out_prefix,
+                     os.path.basename(out_prefix) + "_phandango_clusters.csv"),
+        combined_list, combined_list, clustering, "phandango", epi_csv,
+        query_list,
+    )
+    if nj_tree is not None:
+        write_tree(nj_tree, out_prefix, "_core_NJ.tree", overwrite)
+    else:
+        sys.stderr.write("Need an NJ tree for a Phandango output")
+
+
+def outputs_for_grapetree(combined_list, clustering, nj_tree, mst_tree,
+                          out_prefix, epi_csv, query_list=None,
+                          overwrite=False):
+    """(outputsForGrapetree, plot.py:964-1005)."""
+    from .trees import write_tree
+
+    write_cluster_csv(
+        os.path.join(out_prefix,
+                     os.path.basename(out_prefix) + "_grapetree_clusters.csv"),
+        combined_list, combined_list, clustering, "grapetree", epi_csv,
+        query_list,
+    )
+    if nj_tree is not None:
+        write_tree(nj_tree, out_prefix, "_core_NJ.nwk", overwrite)
+    if mst_tree is not None:
+        write_tree(mst_tree, out_prefix, "_core_MST.nwk", overwrite)

@@ -1,0 +1,244 @@
+"""Resident serving session for query assignment.
+
+Counterpart of poppunk_tpu/serve.py. The CLI path re-reads the sketch
+database, re-packs the reference planes and uploads them on every
+invocation: right for batch jobs, wasteful for a daemon answering many
+small requests (the BeeBOP web flow assigns per upload).
+``AssignSession`` pays those costs once:
+
+- the reference planes, lengths and base frequencies are read, packed
+  (under ``KERNEL_CHOICE == "packed"``, packed lanes too) and put on the
+  device at construction, as are the model's post parameters;
+- the fitted model's classifier and the 1-NN search run in the distance
+  pass (ops/fused_assign ``*_stable`` posts), so a request fetches
+  O(queries) integers: the |Q| x |R| tile never leaves the device;
+- query batches are padded to powers of two, as the reference's are;
+  ``warmup()`` runs each bucket once, which builds the kernels and primes
+  the allocator before traffic arrives.
+
+Semantics match ``poppunk_tpu_torch_assign --stable {core,accessory}``
+(reference assign.py:663-693): each query takes its nearest reference's
+cluster iff that pair is within-strain, else "NA". Sessions serve
+refine / threshold, BGMM and DBSCAN models; DBSCAN pairs are classified
+by the quantised decision grid (DBSCANFit.decision_grid), exact for any
+pair more than half a grid cell from a decision boundary.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from . import _device
+from .io.hdf5db import read_db_params, read_sketches
+from .ops import match_counts as mc
+from .ops.distances import _dist_chunk, _Operands, pack_planes, plane_geometry
+from .utils import db_h5_path, read_isolate_type_from_csv
+
+
+def _file_base(prefix):
+    return os.path.join(prefix, os.path.basename(prefix))
+
+
+class AssignSession:
+    def __init__(self, ref_db, model_dir=None, stable="core",
+                 use_full_network=False, strand_preserved=False, chunk=512,
+                 device=None):
+        from .models import load_cluster_fit
+        from .ops.fused_assign import post_spec_on, stable_post_spec
+
+        self.device = _device.resolve(device)
+        self.ref_db = ref_db = ref_db.rstrip("/")
+        model_prefix = (model_dir or ref_db).rstrip("/")
+        base = _file_base(model_prefix)
+        self.model = load_cluster_fit(base + "_fit.pkl", base + "_fit.npz",
+                                      device=self.device)
+        if self.model.type not in ("refine", "bgmm", "dbscan"):
+            raise RuntimeError(
+                "AssignSession serves refine/threshold/bgmm/dbscan models; "
+                "got " + self.model.type)
+        if stable not in ("core", "accessory"):
+            raise ValueError("stable must be 'core' or 'accessory'")
+        self.stable = stable
+        self.chunk = chunk
+        self.use_rc = not strand_preserved
+        self.kmers = tuple(int(k) for k in read_db_params(ref_db)[0])
+
+        # the serving references: the .refs subset if present, in the order
+        # of the .dists pkl (the CLI's --stable order: ties go to the first
+        # minimum, so another order could name another cluster)
+        from .io.hdf5db import get_seqs_in_db
+
+        dist_pkl = _file_base(ref_db) + ".dists"
+        if os.path.isfile(dist_pkl + ".pkl"):
+            from .utils import read_pickle
+
+            all_names = read_pickle(dist_pkl, distances=False)[0]
+        else:
+            all_names = get_seqs_in_db(db_h5_path(ref_db))
+        r_names = None
+        refs_file = base + ".refs"
+        if os.path.isfile(refs_file) and not use_full_network:
+            with open(refs_file) as f:
+                wanted = frozenset(line.rstrip() for line in f)
+            r_names = [n for n in all_names if n in wanted]
+        elif os.path.isfile(dist_pkl + ".pkl"):
+            r_names = list(all_names)
+        sketches = read_sketches(ref_db, r_names)
+        self.r_names = [s.name for s in sketches]
+        self.ss64 = sketches[0].sketchsize64
+        self.bbits = sketches[0].bbits
+        _, self.wp, self.pad_bits = plane_geometry(self.ss64, self.bbits)
+        self.ref = _Operands(*pack_planes(sketches, self.kmers), self.device,
+                             self.pad_bits)
+
+        # reference clustering for cluster names
+        cluster_csv = base + "_clusters.csv"
+        self.ref_clustering = read_isolate_type_from_csv(
+            cluster_csv, mode="clusters", return_dict=True)["Cluster"]
+
+        dist_col = 0 if stable == "core" else 1
+        spec = stable_post_spec(self.model, dist_col)
+        if spec is None:  # not assert: must survive python -O
+            raise RuntimeError(
+                f"no fused classifier for model type {self.model.type}")
+        self.post_spec = post_spec_on(spec, self.device)
+
+    def _upload(self, array):
+        """A host array on the session's device; to the card through
+        pinned memory, without blocking the host."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch_async(self, planes_q, len_q, freq_q):
+        """One fused dispatch: distances, classification and 1-NN on the
+        device. Returns the device int32 [nq, 2] of (nn_index, within)
+        without waiting for it."""
+        planes = self._upload(planes_q.view(np.int32))
+        if isinstance(self.ref.planes, mc.PackedPlanes):
+            planes = mc.pack(planes, self.pad_bits)
+        qry = (planes, self._upload(len_q), self._upload(freq_q))
+        _, extra = _dist_chunk(qry, self.ref.rows(0, None), self.kmers,
+                               self.ss64, self.bbits, True, self.use_rc,
+                               False, self.post_spec)
+        return extra
+
+    def _fetch_async(self, extra):
+        """Start copying a dispatch's result to the host; returns
+        (host tensor, event to wait on, or None on the CPU). The copy goes
+        to pinned memory behind an event, so fetching batch i never waits
+        for batch i+1, queued after it."""
+        if self.device.type != "cuda":
+            return extra, None
+        host = torch.empty(extra.shape, dtype=extra.dtype, pin_memory=True)
+        host.copy_(extra, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _dispatch(self, planes_q, len_q, freq_q):
+        """Synchronous _dispatch_async (warmup / single-batch callers)."""
+        return self._dispatch_async(planes_q, len_q, freq_q).cpu().numpy()
+
+    def assign_sketches(self, sketches):
+        """{query name: cluster or 'NA'} for already-sketched queries.
+
+        Double-buffered: batch i+1's fused dispatch is queued before batch
+        i's result is read and attached, so the host attach runs under
+        the device's compute instead of after it."""
+        bad = [s.name for s in sketches
+               if s.sketchsize64 != self.ss64 or s.bbits != self.bbits]
+        if bad:
+            # same-Wp mismatches (e.g. ss64 32 vs 64 both pad to one
+            # 128-word row) would pass every shape check and return
+            # confidently wrong clusters
+            raise ValueError(
+                f"query sketch geometry does not match the reference db "
+                f"(sketchsize64={self.ss64}, bbits={self.bbits}): "
+                + ", ".join(bad[:5]))
+        planes_q, len_q, freq_q = pack_planes(sketches, self.kmers)
+        out = {}
+
+        def attach(fetched, sl, n):
+            host, done = fetched
+            if done is not None:
+                done.synchronize()
+            extra = host.cpu().numpy()[:n]
+            for sk, (nn, within) in zip(sketches[sl], extra):
+                out[sk.name] = (self.ref_clustering[self.r_names[int(nn)]]
+                                if within else "NA")
+
+        pending = None
+        for start in range(0, len(sketches), self.chunk):
+            sl = slice(start, min(start + self.chunk, len(sketches)))
+            n = sl.stop - sl.start
+            bucket = 1
+            while bucket < n:
+                bucket *= 2
+            pad = bucket - n
+            pq = planes_q[sl]
+            lq = np.asarray(len_q[sl])
+            fq = np.asarray(freq_q[sl])
+            if pad:
+                pq = np.pad(pq, ((0, pad),) + ((0, 0),) * 3)
+                lq = np.pad(lq, (0, pad), constant_values=1)
+                fq = np.pad(fq, ((0, pad), (0, 0)))
+            fetched = self._fetch_async(self._dispatch_async(pq, lq, fq))
+            if pending is not None:
+                attach(*pending)
+            pending = (fetched, sl, n)
+        if pending is not None:
+            attach(*pending)
+        return out
+
+    def assign_files(self, q_files, threads=1):
+        """Sketch query inputs (an rfile path, or a (names, files) pair
+        of parallel lists) then assign; no query database is written.
+        Returns {name: cluster or 'NA'}."""
+        from .io.hdf5db import _sketch_one
+        from .sketch.minhash import SketchParams
+        from .utils import read_rfile
+
+        if isinstance(q_files, (tuple, list)) and len(q_files) == 2 \
+                and not isinstance(q_files[0], str):
+            names, sequences = list(q_files[0]), list(q_files[1])
+        elif isinstance(q_files, str):
+            names, sequences = read_rfile(q_files)
+        else:
+            raise TypeError(
+                "q_files must be an rfile path or a (names, files) pair "
+                "of parallel lists")
+        params = SketchParams(klist=self.kmers, sketchsize64=self.ss64,
+                              bbits=self.bbits, use_rc=self.use_rc)
+        if threads > 1 and len(names) > 1:
+            from multiprocessing import get_context
+
+            # spawn, not fork: CUDA cannot be used in a child forked after
+            # the session put the references on the card. native_threads=1
+            # per job: P workers x min(n_k, cores) OpenMP threads would
+            # oversubscribe the host (as construct_database's pool)
+            jobs = [(n, f, params, 1) for n, f in zip(names, sequences)]
+            with get_context("spawn").Pool(min(threads, len(jobs))) as pool:
+                sketches = pool.map(_sketch_one, jobs)
+        else:
+            sketches = [_sketch_one((n, f, params))
+                        for n, f in zip(names, sequences)]
+        return self.assign_sketches(sketches)
+
+    def warmup(self):
+        """Run every bucket size once before taking traffic: the kernels
+        are built and the allocator holds each bucket's buffers. Returns
+        the number of buckets (10 at chunk 512)."""
+        n = 0
+        bucket = 1
+        K, P = len(self.kmers), self.bbits
+        while True:
+            self._dispatch(
+                np.zeros((bucket, K, P, self.wp), np.uint32),
+                np.ones(bucket, np.int32), np.zeros((bucket, 4), np.float32))
+            n += 1
+            if bucket >= self.chunk:
+                return n
+            bucket *= 2

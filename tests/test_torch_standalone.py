@@ -7,9 +7,13 @@
   syntax tree, except the ones each copy lists as its own (the citation
   text, the GPU flags' help, the contour plot's likelihood, the Boruvka
   sweep in torch, the unpickler that never imports the JAX package, the
-  DBSCAN model's device).
+  DBSCAN model's device, NJ and the SCE optimisers in torch, the device
+  argument of the visualisation, embedding, tree and web entry points, the
+  tools' CLI names and device choice).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
+- A visualise, serve and API run in a fresh interpreter loads neither jax
+  nor the JAX package.
 - Devices (_device.py): with ``device=None`` an entry point runs on the
   card; without CUDA it raises unless the caller asks for the CPU, by
   ``POPPUNK_TPU_TORCH_DEVICE=cpu`` or by passing ``torch.device("cpu")``.
@@ -17,7 +21,11 @@
 
 import ast
 import glob
+import inspect
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -25,14 +33,19 @@ import torch
 
 from poppunk_tpu.cli.assign import get_options as jax_assign_options
 from poppunk_tpu.cli.main import get_options as jax_main_options
-from poppunk_tpu_torch import _device
+from poppunk_tpu_torch import _device, web
 from poppunk_tpu_torch.cli.assign import get_options as torch_assign_options
 from poppunk_tpu_torch.cli.assign import main as torch_assign
 from poppunk_tpu_torch.cli.main import get_options as torch_main_options
 from poppunk_tpu_torch.cli.main import main as torch_main
 from poppunk_tpu_torch.models import (BGMMFit, DBSCANFit, GaussianMixture,
                                       RefineFit)
+from poppunk_tpu_torch.embedding import generate_embedding
 from poppunk_tpu_torch.ops import distances as td
+from poppunk_tpu_torch.ops.nj_device import (neighbor_joining_device,
+                                             use_device_nj)
+from poppunk_tpu_torch.serve import AssignSession
+from poppunk_tpu_torch.visualise import generate_visualisations
 
 torch.set_num_threads(2)
 
@@ -100,7 +113,27 @@ COPIES = {
     "models/dbscan.py": (("DBSCANFit",), None),
     "cli/common.py": (("_ACCEL_FLAG_DEFS", "add_accel_compat_flags"),
                       ("note_accel_compat_flags",)),
-    "plotting.py": (("plot_contours",), None),
+    "plotting.py": (("plot_contours", "outputs_for_microreact", "draw_mst"),
+                    None),
+    "network/graph.py": (("Graph", "save_network"), None),
+    "network/construct.py": ((), ()),
+    "network/mst.py": ((), ()),
+    "trees.py": (("generate_nj_tree",), ()),
+    "ops/nj_device.py": (("_INF", "_nj_joins", "neighbor_joining_device",
+                          "use_device_nj"), None),
+    "embedding.py": (("_sce_optimize_dense", "_sce_optimize_sampled",
+                      "sce_embedding_condensed", "sce_embedding",
+                      "_sce_from_knn", "generate_embedding"), None),
+    "web.py": (("assign_sketch_json", "main"), ()),
+    "visualise.py": (("generate_visualisations", "_dense_matrices",
+                      "query_db_sketches"), ()),
+    "cli/visualise.py": (("get_options", "main"), ()),
+    "cli/mst.py": (("get_options", "main"), ()),
+    "cli/mandrake.py": (("get_options", "main"), ()),
+    "cli/info.py": (("get_options", "main"), ()),
+    "cli/references.py": (("get_options", "main"), ()),
+    "cli/lineages.py": (("get_options", "main", "create_db", "query_db"),
+                        ()),
 }
 
 
@@ -173,6 +206,49 @@ ASSIGN_ARGV = [
      "6", "--gpu-sketch", "--gpu-graph"],
     ["--db", "db", "--warmup", "--output", "o", "--model-dir", "m"],
 ]
+
+
+# the auxiliary tools' parsers: {tool: [argv, ...]}
+TOOL_ARGV = {
+    "visualise": [
+        ["--ref-db", "db", "--output", "o", "--microreact"],
+        ["--ref-db", "db", "--output", "o", "--cytoscape", "--network-file",
+         "n.npz", "--tree", "both", "--gpu-dist", "--deviceid", "1",
+         "--maxIter", "50", "--perplexity", "5", "--recalculate-distances",
+         "--query-db", "q", "--include-files", "f.txt"],
+        ["--ref-db", "db", "--output", "o", "--phandango", "--grapetree",
+         "--gpu-graph", "--rank-fit", "r.npz", "--mst-distances",
+         "euclidean", "--tmp", "t"]],
+    "mst": [["--rank-fit", "r.npz", "--output", "o"],
+            ["--rank-fit", "r.npz", "--output", "o", "--distance-pkl",
+             "d.pkl", "--previous-clustering", "c.csv", "--no-plot",
+             "--gpu-graph"]],
+    "mandrake": [["--distances", "d", "--output", "o"],
+                 ["--distances", "d", "--output", "o", "--use-gpu",
+                  "--device-id", "1", "--knn", "5", "--iter", "100"]],
+    "info": [["--db", "db"],
+             ["--db", "db", "--simple", "--use-gpu", "--network-file", "n"]],
+    "references": [["--network", "n", "--distances", "d", "--output", "o"],
+                   ["--network", "n", "--distances", "d", "--output", "o",
+                    "--ref-db", "db", "--model", "m", "--use-gpu"]],
+    "lineages": [["--create-db", "db", "--db-scheme", "s.pkl", "--output",
+                  "o"],
+                 ["--query-db", "q.txt", "--db-scheme", "s.pkl", "--output",
+                  "o", "--gpu-dist", "--deviceid", "2", "--ranks", "1,2",
+                  "--use-accessory", "--core", "--gpu-sketch"]],
+}
+
+
+def cli_module(package, tool):
+    return __import__(f"{package}.cli.{tool}", fromlist=["get_options"])
+
+
+@pytest.mark.parametrize("tool,argv", [(t, a) for t in sorted(TOOL_ARGV)
+                                       for a in TOOL_ARGV[t]])
+def test_tool_parsers_equal_the_jax_package(tool, argv):
+    got = cli_module("poppunk_tpu_torch", tool).get_options(argv)
+    assert vars(got) == vars(cli_module("poppunk_tpu", tool).get_options(
+        argv))
 
 
 @pytest.mark.parametrize("argv", MAIN_ARGV)
@@ -260,11 +336,51 @@ CLIS = {
 }
 
 
-@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS) + sorted(CLIS))
+def tool_cli(tool, tmp):
+    argv = [a if a.startswith("--") else str(tmp / a)
+            for a in TOOL_ARGV[tool][0]]
+    return cli_module("poppunk_tpu_torch", tool).main(argv)
+
+
+def api_cli(tmp):
+    (tmp / "s.json").write_text("{}")
+    return web.main(["--sketch", str(tmp / "s.json"), "--ref-db",
+                     str(tmp / "db"), "--output", str(tmp / "out")])
+
+
+def visualise_library(tmp):
+    args = dict.fromkeys(inspect.signature(generate_visualisations)
+                         .parameters)
+    return generate_visualisations(**{**args, "ref_db": str(tmp / "db"),
+                                      "output": str(tmp / "o"),
+                                      "microreact": True, "tree": "nj"})
+
+
+# the entry points of the serving session, the web flow and the tools:
+# each must raise before it touches a file
+TOOL_ENTRY_POINTS = {
+    "AssignSession": lambda tmp: AssignSession(str(tmp / "db")),
+    "assign_sketch_json": lambda tmp: web.assign_sketch_json(
+        {}, str(tmp / "db"), str(tmp / "out")),
+    "api_cli": api_cli,
+    "generate_visualisations": visualise_library,
+    "generate_embedding": lambda tmp: generate_embedding(
+        list("abc"), np.ones((3, 3)), 5, str(tmp), True),
+    "neighbor_joining_device": lambda tmp: neighbor_joining_device(
+        np.ones((4, 4)), list("abcd")),
+    "use_device_nj": lambda tmp: use_device_nj(1024),
+    **{f"{tool}_cli": (lambda tmp, tool=tool: tool_cli(tool, tmp))
+       for tool in TOOL_ARGV},
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS) + sorted(CLIS)
+                         + sorted(TOOL_ENTRY_POINTS))
 def test_without_cuda_and_without_a_cpu_request_it_raises(entry, no_cuda,
                                                           tmp_path):
     with pytest.raises(RuntimeError, match=_device.ENV + "=cpu"):
-        {**ENTRY_POINTS, **CLIS}[entry](tmp_path)
+        {**ENTRY_POINTS, **CLIS, **TOOL_ENTRY_POINTS}[entry](tmp_path)
+    assert not any(tmp_path.glob("*/*")), "it wrote before it raised"
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -318,3 +434,49 @@ def test_the_card_is_the_default(monkeypatch, tmp_path):
     assert _device.resolve() == torch.device("cuda", 0)
     assert BGMMFit(str(tmp_path / "b")).device == torch.device("cuda", 0)
     assert td.planes_to_tensor(tiny_planes()[0]).device.type == "cuda"
+
+
+SERVE_VISUALISE_API = """
+import json, sys
+from poppunk_tpu_torch.cli.main import main
+from poppunk_tpu_torch.cli.visualise import main as visualise
+from poppunk_tpu_torch.io.hdf5db import read_sketches
+from poppunk_tpu_torch.serve import AssignSession
+from poppunk_tpu_torch.web import assign_sketch_json, sketch_to_json
+
+rfile, qfile, work = sys.argv[1:]
+kargs = ["--min-k", "13", "--max-k", "25", "--k-step", "4",
+         "--sketch-size", "2048", "--no-plot"]
+main(["--create-db", "--r-files", rfile, "--output", work + "/db"] + kargs)
+main(["--fit-model", "bgmm", "--ref-db", work + "/db", "--output",
+      work + "/db", "--K", "2", "--no-plot"])
+visualise(["--ref-db", work + "/db", "--output", work + "/viz",
+           "--microreact", "--tree", "both", "--maxIter", "10000"])
+served = AssignSession(work + "/db").assign_files(qfile)
+main(["--create-db", "--r-files", qfile, "--output", work + "/q"] + kargs)
+api = assign_sketch_json({s.name: sketch_to_json(s)
+                          for s in read_sketches(work + "/q")},
+                         work + "/db", work + "/api")
+print(json.dumps([sorted(served), [q["name"] for q in api["queries"]],
+                  sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")
+                         or m.startswith(("jax.", "poppunk_tpu.")))]))
+"""
+
+
+def test_visualise_serve_and_api_load_no_jax(population, population_dir,
+                                             tmp_path):
+    d, _ = population_dir
+    queries = [n for n in population.names if n.endswith("iso0")]
+    rfile = population.subset_rfile(
+        d, [n for n in population.names if n not in queries],
+        "standalone_refs.txt")
+    qfile = population.subset_rfile(d, queries, "standalone_q.txt")
+    env = {**os.environ, _device.ENV: "cpu", "PYTHONPATH": REPO}
+    run = subprocess.run([sys.executable, "-c", SERVE_VISUALISE_API, rfile,
+                          qfile, str(tmp_path)], env=env, cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    served, answered, loaded = json.loads(run.stdout.splitlines()[-1])
+    assert served == sorted(queries) and sorted(answered) == sorted(queries)
+    assert loaded == []
+    assert (tmp_path / "viz" / "viz_core_NJ.nwk").is_file()
