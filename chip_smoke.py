@@ -52,8 +52,21 @@ Phases, each printing one JSON line with its seconds:
      the same function on the CPU and to the host Prim oracle; a lineage
      fit (ranks 1-3, depth 30) extended with the queries, whose
      query-query distances run on the card (rank-1 lineages strain-pure)
+  J, K  serving and the side tools (the verify skill, section 5)
+  L0 (right after C) the standard kernel's plane-major route against its
+     plain version and the contiguous route, bit for bit, on row-slice
+     views of a resident [K, P, n, Wp] tensor; timed at BENCH
+  L  the streaming scale tier: L1 poppunk_tpu_torch_scale on phase D's
+     database (BGMM with lineages, DBSCAN, --indiv-refine both, bootstrap
+     against POPPUNK_TPU_BOOTSTRAP=0, assign of the queries); L2 phase E's
+     references through StreamingCondensed (subsample and kNN held to
+     phase E's condensed distances, the bootstrap refine's clusters the
+     planted strains); L3 the streaming fit at 65,536 planted genomes of
+     production geometry drawn on the card (stage seconds, pass 1's
+     kernel time, the sweep's timings, peak device memory held to
+     streaming_hbm_accounting plus the sweep's budget; strain-pure)
 Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D, E, H and I, the packed kernel's over F and
+launches counted over phases D, E, H-L, the packed kernel's over F and
 G, each phase run with the counts set to 0 just before it), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; so does a host without CUDA.
@@ -1809,6 +1822,497 @@ def sce_card_vs_cpu(torch, device, e, idx, epochs=5, knn=50):
 
 
 # --------------------------------------------------------------------------
+# L: the streaming scale tier
+# --------------------------------------------------------------------------
+
+def phase_l0(torch, device):
+    """The standard kernel's plane-major route against the plain version
+    (bit for bit) and against the contiguous route, at phase C's shapes:
+    the queries a row-slice view of a resident [K, P, n, Wp] reference
+    tensor, and the scale tier's own query block (two row ranges
+    concatenated). Timed at BENCH, route against route in one window, with
+    CUDA events beside the SM clock and the bound. These launches compare;
+    no path counts them. L2 and L3 hold the route to the plain version
+    again at the streaming pass's own operands (hold_steps_to_plain)."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.distances import (plane_geometry,
+                                                 planes_to_tensor)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    cases = [(3, 5, SMALL), (64, 128, SMALL), (65, 129, SMALL),
+             (257, 1031, PRODUCTION), (65, 129, ODD), (2048, 4096, BENCH)]
+    results, worst, timing = [], 0, {}
+    for nq, nr, geometry in cases:
+        pad_bits = plane_geometry(geometry[0], geometry[1])[2]
+        # resident plane-major reference; the queries start one row in
+        resident = planes_to_tensor(
+            random_planes(rng, nr, geometry).transpose(1, 2, 0, 3), device)
+        view = resident[:, :, 1:1 + nq]
+        half = nq // 2
+        block = torch.cat([resident[:, :, 1:1 + half],
+                           resident[:, :, nr - (nq - half):]], dim=2)
+        errs = {}
+        for name, q in (("view", view), ("block", block)):
+            got = mc.match_counts(q, resident, pad_bits, plane_major=True)
+            plain = mc.match_counts_torch(q, resident, pad_bits,
+                                          plane_major=True)
+            contiguous = mc.match_counts(
+                q.permute(2, 0, 1, 3).contiguous(),
+                resident.permute(2, 0, 1, 3).contiguous(), pad_bits)
+            torch.cuda.synchronize()
+            errs[name] = max(max_abs_err(got, plain),
+                             max_abs_err(got, contiguous))
+        worst = max(worst, *errs.values())
+        results.append({"nq": nq, "nr": nr, "ss64": geometry[0],
+                        "bbits": geometry[1], "K": geometry[2],
+                        "max_abs_err": errs})
+        if geometry is BENCH:
+            w32 = plane_geometry(geometry[0], geometry[1])[0]
+            q_c = view.permute(2, 0, 1, 3).contiguous()
+            r_c = resident.permute(2, 0, 1, 3).contiguous()
+            routes = {"plane_major": (view, resident, True),
+                      "contiguous": (q_c, r_c, False)}
+            for route, (q, r, pm) in routes.items():
+                mc.match_counts(q, r, pad_bits, plane_major=pm)  # warm
+                ms, sm_mhz, samples = timed_at_sm_clock(
+                    torch, lambda: mc.match_counts(q, r, pad_bits,
+                                                   plane_major=pm), 60)
+                in_bytes = (q.numel() + r.numel()) * 4
+                bound_ms, bound_by = bound(torch, nq, nr, geometry[2],
+                                           geometry[1], w32, in_bytes, sm_mhz)
+                timing[route] = dict(ms=ms, sm_clock_mhz=sm_mhz,
+                                     sm_clock_samples=samples,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     bound_share=bound_ms / ms)
+            timing["plane_major"]["plain_ms"] = event_ms(
+                torch, lambda: mc.match_counts_torch(
+                    view, resident, pad_bits, plane_major=True), 1)
+            del q_c, r_c
+        del resident, view, block
+    emit({"phase": "L0", "cases": results, "timing": timing,
+          "seconds": elapsed(torch, t0)})
+    if worst:
+        raise AssertionError(f"the plane-major route disagrees: {results}")
+    return worst, timing
+
+
+def planted_population_on_card(torch, device, n, n_strains, seed,
+                               ss64=156, bbits=14, klist=KLIST,
+                               within=(0.01, 0.001), between=(0.15, 0.01),
+                               chunk=2048):
+    """planted_population's model, drawn on the card from a seeded
+    torch.Generator straight into the plane-major [K, P, n, Wp] layout the
+    scale tier keeps resident (set-up, not the system). Genome i belongs
+    to strain i % n_strains. Returns (planes int32, lengths int32,
+    freqs float32) on the card and the strain labels."""
+    from poppunk_tpu_torch.ops.distances import plane_geometry
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    k = np.asarray(klist, np.float64)
+    pr_w = (1 - within[0]) * (1 - within[1]) ** k
+    pr_b = (1 - between[0]) * (1 - between[1]) ** k
+    s = torch.tensor(np.sqrt(pr_w), dtype=torch.float32,
+                     device=device)[:, None]
+    t = torch.tensor(np.sqrt(pr_b / pr_w), dtype=torch.float32,
+                     device=device)[:, None]
+    nbins, K = ss64 * 64, len(klist)
+    w32, wp, _ = plane_geometry(ss64, bbits)
+    top = 1 << bbits
+
+    def rand_bins(*shape):
+        return torch.randint(0, top, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    ancestor = rand_bins(K, nbins)
+    roots = torch.where(rand(n_strains, K, nbins) < t, ancestor,
+                        rand_bins(n_strains, K, nbins))
+    strains = torch.arange(n, device=device) % n_strains
+    planes = torch.zeros((K, bbits, n, wp), dtype=torch.int32, device=device)
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        c = stop - start
+        vals = torch.where(rand(c, K, nbins) < s, roots[strains[start:stop]],
+                           rand_bins(c, K, nbins))
+        for p in range(bbits):
+            bits = ((vals >> p) & 1).to(torch.int64).view(c, K, w32, 32)
+            words = (bits << shifts).sum(dim=-1)
+            words = torch.where(words >= 2**31, words - 2**32, words)
+            planes[:, p, start:stop, :w32] = words.to(torch.int32).permute(
+                1, 0, 2)
+    lengths = torch.randint(1_800_000, 2_200_000, (n,), generator=gen,
+                            device=device, dtype=torch.int32)
+    freqs = torch.tensor([0.3, 0.2, 0.2, 0.3], device=device) \
+        + 0.01 * torch.randn((n, 4), generator=gen, device=device)
+    freqs = freqs / freqs.sum(dim=1, keepdim=True)
+    return planes, lengths, freqs.float(), strains.cpu().numpy()
+
+
+class RecordLaunchTimes:
+    """CUDA event time of every standard-kernel launch while open
+    (ops/match_counts.py::match_counts, wrapped, not replaced)."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __enter__(self):
+        from poppunk_tpu_torch.ops import match_counts as mc
+
+        self.module, self.saved = mc, mc.match_counts
+
+        def timed(*args, **kwargs):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.saved(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+        mc.match_counts = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.match_counts = self.saved
+
+    def seconds(self):
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def hold_steps_to_plain(torch, cd):
+    """The plane-major route at the operands the streaming pass gives it,
+    bit for bit against the plain version on the same device: the first
+    step's query block (rows [0, c) and their mirrors [n-c, n),
+    concatenated as scale._fold_block builds it) and a row-slice view of c
+    rows from the middle of the resident [K, P, n, Wp] tensor, each
+    against the whole tensor. These launches compare; no path counts them.
+    Returns {operand: max_abs_err} and the plain version's seconds."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    planes, c = cd.planes, cd.chunk
+    n = planes.shape[2]
+    mid = n // 2 - c // 2
+    operands = {
+        "step_block": torch.cat([planes[:, :, :c], planes[:, :, n - c:]],
+                                dim=2),
+        "row_view": planes[:, :, mid:mid + c],
+    }
+    errs, plain_s = {}, 0.0
+    for name, q in operands.items():
+        got = mc.match_counts(q, planes, cd._pad_bits, plane_major=True)
+        t = time.perf_counter()
+        want = mc.match_counts_torch(q, planes, cd._pad_bits,
+                                     plane_major=True)
+        plain_s += elapsed(torch, t)
+        errs[name] = max_abs_err(got, want)
+        del got, want
+    if any(errs.values()):
+        raise AssertionError(f"the plane-major route disagrees with the "
+                             f"plain version at n {n}, c {c}: {errs}")
+    return errs, plain_s
+
+
+def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
+                  knn, ranks=None, summary_sample=None):
+    """The scale CLI's default path as library calls, on planes already
+    plane-major (numpy, or int32 on the card): the deferred
+    StreamingCondensed, the recomputed model subsample (100,000 pairs),
+    the BGMM start on the card, plan_sweep_band, pass 1 with the band fill
+    fused, refine_fit_device from the prefill, the network and clusters
+    (cli/scale.py's helpers), and with ``ranks`` the lineage fit from the
+    fused kNN. Returns (clusters, a record of the run)."""
+    from poppunk_tpu_torch.cli.scale import (_network_and_clusters,
+                                             _pad_geometry, _write_lineages)
+    from poppunk_tpu_torch.models import BGMMFit
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.sparse_sweep import (HBM_TOTAL,
+                                                    device_hbm_total)
+    from poppunk_tpu_torch.scale import (StreamingCondensed,
+                                         plan_sweep_band, refine_fit_device)
+
+    ss64, bbits = PRODUCTION[:2]
+    n = len(names)
+    stages, peaks = {}, {}
+    on_card = device.type == "cuda"
+
+    def timed(name, fn):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        stages[name] = elapsed(torch, t)
+        if on_card:
+            peaks[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    chunk, n_pad = _pad_geometry(
+        n, 256, len(KLIST),
+        budget=2.5e9 * device_hbm_total(device) / HBM_TOTAL)
+    if n_pad != n:
+        raise AssertionError(f"{n} genomes pad to {n_pad}")
+    cd = StreamingCondensed(planes, lengths, freqs, KLIST, ss64, bbits,
+                            chunk=chunk, knn=knn, defer=True, device=device)
+    subsample = min(100000, cd.n_pairs)
+    sub = timed("subsample", lambda: cd.subsample_pairs(subsample,
+                                                        seed=SEED))
+    start = BGMMFit("", max_samples=subsample, seed=SEED, device=device)
+    timed("start_fit", lambda: start.fit(sub, max_components=2))
+    mean0 = start.means[start.within_label]
+    mean1 = start.means[start.between_label]
+    spec = timed("plan", lambda: plan_sweep_band(
+        cd, start.scale, mean0, mean1, max_move=0.0, min_move=0.0,
+        est_pairs=sub))
+    if spec is None:
+        raise AssertionError("plan_sweep_band planned no bootstrap band")
+    n0 = mc.LAUNCHES
+    if device.type == "cuda":
+        with RecordLaunchTimes(torch) as kernel:
+            timed("pass1", lambda: cd.run_pass1(spec))
+            kernel_s = kernel.seconds()
+    else:  # the CPU rehearsal: the plain twin runs, nothing to time
+        timed("pass1", lambda: cd.run_pass1(spec))
+        kernel_s = 0.0
+    pass1_launches = mc.LAUNCHES - n0
+    prefill = cd.pop_prefill()
+    if prefill is None:
+        raise AssertionError("the bootstrap band overflowed its buffer")
+    band = prefill[0].count
+    sweep_t = {}
+    x, y, s_opt, sweep = timed("refine", lambda: refine_fit_device(
+        cd, start.scale, mean0, mean1, max_move=0.0, min_move=0.0,
+        est_pairs=sub, prefill=prefill, timings_out=sweep_t))
+    del prefill
+    if sweep[0] != "edges":
+        raise AssertionError(f"refine took the {sweep[0]} path")
+    out = os.path.join(workdir, f"stream{n}")
+    os.makedirs(out, exist_ok=True)
+    args = SimpleNamespace(summary_sample=summary_sample,
+                           betweenness_sample=100, external_clustering=None,
+                           use_accessory=False, reciprocal_only=False,
+                           count_unique_distances=False)
+    _, clusters = timed("network_clusters", lambda: _network_and_clusters(
+        cd, sweep, s_opt, names, out, args))
+    lineages = None
+    if ranks:
+        timed("lineage_fit", lambda: _write_lineages(cd, ranks, names, out,
+                                                      args))
+        lineages = read_lineages(os.path.join(
+            out, f"stream{n}_lineages.csv"))
+    return clusters, SimpleNamespace(
+        cd=cd, stages=stages, peaks=peaks, spec=spec, band_edges=band,
+        boundary=[float(x), float(y)], sweep=sweep_t, chunk=chunk,
+        pass1_launches=pass1_launches, pass1_kernel_s=kernel_s,
+        lineages=lineages)
+
+
+def phase_l(torch, device, workdir, d, e):
+    """L1-L3: the scale CLI on phase D's database, phase E's population
+    through StreamingCondensed, and the full-width streaming fit. Returns
+    standard launches per stage."""
+    launches = {}
+    launches.update(phase_l1(torch, device, workdir, d))
+    launches.update(phase_l2(torch, device, workdir, e))
+    launches.update(phase_l3(torch, device, workdir))
+    return launches, None
+
+
+def phase_l1(torch, device, workdir, d):
+    """poppunk_tpu_torch_scale on phase D's database (the card by
+    default): the BGMM start with --write-lineages --ranks 1,2 (bootstrap,
+    and again with POPPUNK_TPU_BOOTSTRAP=0: the same files), the DBSCAN
+    start, --indiv-refine both; every cluster file strain-pure; then
+    poppunk_tpu_torch_assign places phase D's queries with the BGMM fit."""
+    from poppunk_tpu_torch.cli.assign import main as assign_main
+    from poppunk_tpu_torch.cli.scale import main as scale_main
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    files = lambda out, ext: os.path.join(  # noqa: E731
+        out, os.path.basename(out) + ext)
+
+    def run(stage, fn, argv):
+        t = time.perf_counter()
+        n0 = mc.LAUNCHES
+        fn(argv)
+        stages[stage] = elapsed(torch, t)
+        launches["L1_" + stage] = mc.LAUNCHES - n0
+
+    fits = {"bgmm": ["--write-lineages", "--ranks", "1,2"],
+            "dbscan": ["--fit-model", "dbscan"],
+            "indiv": ["--indiv-refine", "both"]}
+    for fit, flags in fits.items():
+        run(f"scale_{fit}", scale_main, ["--ref-db", d.db, "--output",
+                                         path(f"scale_{fit}"), "--no-plot"]
+            + flags)
+    os.environ["POPPUNK_TPU_BOOTSTRAP"] = "0"
+    try:
+        run("scale_bgmm_plain", scale_main,
+            ["--ref-db", d.db, "--output", path("scale_bgmm_plain"),
+             "--no-plot"] + fits["bgmm"])
+    finally:
+        del os.environ["POPPUNK_TPU_BOOTSTRAP"]
+    counts = {}
+    for fit in fits:
+        exts = ("", "_core", "_accessory") if fit == "indiv" else ("",)
+        for ext in exts:
+            clusters = read_clusters(files(path(f"scale_{fit}"),
+                                           f"{ext}_clusters.csv"))
+            if set(clusters) != set(d.refs):
+                raise AssertionError(f"scale {fit}{ext}: clusters miss "
+                                     "samples")
+            check_pure(clusters, d.strain_of, f"scale {fit}{ext}")
+            counts[fit + ext] = len(set(clusters.values()))
+    header, rows = read_lineages(files(path("scale_bgmm"), "_lineages.csv"))
+    check_pure({n: row[1] for n, row in rows.items()}, d.strain_of,
+               "scale rank-1 lineages")
+    for ext in ("_clusters.csv", "_lineages.csv"):
+        with open(files(path("scale_bgmm"), ext)) as a, \
+                open(files(path("scale_bgmm_plain"), ext)) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"bootstrap and plain pass differ in "
+                                     f"{ext}")
+    run("assign", assign_main, ["--db", path("scale_bgmm"), "--query",
+                                d.qfile, "--output", path("scale_assigned")])
+    ref_clusters = read_clusters(files(path("scale_bgmm"), "_clusters.csv"))
+    q_clusters = read_clusters(files(path("scale_assigned"),
+                                     "_clusters.csv"))
+    if set(q_clusters) != set(d.queries):
+        raise AssertionError(f"scale assign: assigned {sorted(q_clusters)}")
+    check_pure({**ref_clusters, **q_clusters}, d.strain_of,
+               "scale assign")
+    emit({"phase": "L1", "clusters": counts, "lineage_header": header,
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_l2(torch, device, workdir, e):
+    """Phase E's 8192 references through StreamingCondensed on the card:
+    the predeclared 100,000-pair subsample equals phase E's condensed
+    distances at the same pairs within DIST_TOL, the fused kNN (k 10)
+    equals a kNN taken from them (indices equal but where two neighbours'
+    distances meet within DIST_TOL), and the bootstrap refine's clusters
+    equal the planted strains. After the counted run, the kernel is held to
+    the plain version at the pass's own operands (hold_steps_to_plain)."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.sparse_knn import knn_from_condensed
+    from poppunk_tpu_torch.pairs import pair_to_condensed
+    from poppunk_tpu_torch.scale import StreamingCondensed, fold_inverse
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    n, knn = e.n_ref, 10
+    names = e.names[:n]
+    planes = np.ascontiguousarray(e.planes[:n].transpose(1, 2, 0, 3))
+    n0 = mc.LAUNCHES
+    t = time.perf_counter()
+    cd = StreamingCondensed(planes, e.lengths[:n], e.freqs[:n], KLIST, ss64,
+                            bbits, chunk=256, knn=knn,
+                            subsample=(100000, SEED), device=device)
+    pass1_s = elapsed(torch, t)
+    launches = {"L2_pass1": mc.LAUNCHES - n0}
+    sub = cd.subsample_pairs(100000, seed=SEED)
+    pos = np.sort(np.random.default_rng(SEED).choice(cd.n_pairs, 100000,
+                                                     replace=False))
+    i, j = fold_inverse(pos, n)
+    np.testing.assert_allclose(sub, e.X[pair_to_condensed(i, j, n)],
+                               **DIST_TOL)
+    _, cols, dists = knn_from_condensed(e.X[:, 0], n, knn)
+    cols, dists = cols.reshape(n, knn), dists.reshape(n, knn)
+    np.testing.assert_allclose(cd.knn_dist, dists, **DIST_TOL)
+    r, c = np.nonzero(cd.knn_col != cols)
+    a, b = np.minimum(r, cd.knn_col[r, c]), np.maximum(r, cd.knn_col[r, c])
+    np.testing.assert_allclose(e.X[pair_to_condensed(a, b, n), 0],
+                               dists[r, c], **DIST_TOL)
+    del cd
+
+    n0 = mc.LAUNCHES
+    clusters, fit = streaming_fit(torch, device, workdir, planes,
+                                  e.lengths[:n], e.freqs[:n], names, knn)
+    launches["L2_fit"] = mc.LAUNCHES - n0
+    check_partition(clusters, e.strain_of)
+    step_errs, step_plain_s = hold_steps_to_plain(torch, fit.cd)
+    emit({"phase": "L2", "genomes": n, "pass1_seconds": pass1_s,
+          "plane_major_vs_plain": {"max_abs_err": step_errs,
+                                   "plain_seconds": step_plain_s},
+          "subsample_pairs": int(len(sub)), "knn": knn,
+          "knn_index_near_ties": int(len(r)), "stages": fit.stages,
+          "band_edges": fit.band_edges, "boundary": fit.boundary,
+          "sweep": fit.sweep, "clusters": len(set(clusters.values())),
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_l3(torch, device, workdir, n=65536, n_strains=128):
+    """The streaming fit at full width: n genomes in planted strains at
+    production geometry, drawn on the card; pass 1 with the k 30 kNN and
+    the band fill, the BGMM start on the 100,000-pair subsample,
+    plan_sweep_band, refine_fit_device on the card, the network and
+    clusters (strain-pure), the lineage fit (ranks 1-3) from the fused
+    kNN. Peak device memory is held to streaming_hbm_accounting's total
+    plus the sweep's budget (ops/sparse_sweep.sweep_peak_bytes, what
+    hbm_feasible plans with). After the counted run, the kernel is held to
+    the plain version at the pass's own operands (hold_steps_to_plain)."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.sparse_sweep import sweep_peak_bytes
+    from poppunk_tpu_torch.scale import streaming_hbm_accounting
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    planes, lengths, freqs, strains = planted_population_on_card(
+        torch, device, n, n_strains, SEED + 3)
+    make_s = elapsed(torch, t)
+    names = [f"g{i}" for i in range(n)]
+    strain_of = dict(zip(names, strains.tolist()))
+    n0 = mc.LAUNCHES
+    clusters, fit = streaming_fit(torch, device, workdir, planes, lengths,
+                                  freqs, names, knn=30, ranks=[1, 2, 3],
+                                  summary_sample=10000)
+    launches = {"L3": mc.LAUNCHES - n0}
+    peak = max(fit.peaks.values(), default=0)
+    check_pure(clusters, strain_of, "L3 clusters")
+    step_errs, step_plain_s = hold_steps_to_plain(torch, fit.cd)
+    accounting = streaming_hbm_accounting(n, KLIST, ss64, bbits, fit.chunk,
+                                          30, 1)
+    sweep_bytes = sweep_peak_bytes(n, fit.spec["e_total"])
+    limit = accounting["total"] + sweep_bytes
+    emit({"phase": "L3", "genomes": n, "strains": n_strains,
+          "geometry": {"sketchsize64": ss64, "bbits": bbits,
+                       "klist": list(KLIST), "chunk": fit.chunk},
+          "make_data_seconds": make_s, "stages": fit.stages,
+          "plane_major_vs_plain": {"max_abs_err": step_errs,
+                                   "plain_seconds": step_plain_s},
+          "pass1_full_row_pairs_per_s": n * n / fit.stages["pass1"],
+          "pass1_kernel": {"launches": fit.pass1_launches,
+                           "event_seconds": fit.pass1_kernel_s,
+                           "rest_seconds":
+                               fit.stages["pass1"] - fit.pass1_kernel_s},
+          "band_edges": fit.band_edges, "band_offsets": fit.spec["n_act"],
+          "sweep": fit.sweep, "boundary": fit.boundary,
+          "clusters": len(set(clusters.values())),
+          "lineages": {f"rank_{r}": len({row[i + 1] for row in
+                                         fit.lineages[1].values()})
+                       for i, r in enumerate((1, 2, 3))},
+          "peak_device_bytes": peak, "peak_device_bytes_by_stage": fit.peaks,
+          "accounting_total": accounting["total"],
+          "sweep_budget_bytes": sweep_bytes, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    if peak > limit:
+        raise AssertionError(f"L3 peak device memory {peak} exceeds the "
+                             f"accounting {accounting['total']} plus the "
+                             f"sweep's budget {sweep_bytes}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1829,6 +2333,9 @@ def main():
     smi = phase_a(torch)
     phase_b()
     kernels = phase_c(torch, device)
+    l0_err, _ = phase_l0(torch, device)
+    kernels["match_counts"]["max_abs_err"] = max(
+        kernels["match_counts"]["max_abs_err"], l0_err)
 
     # each path runs with the launch counts set to 0 just before it; the
     # phase reads its kernel's count just after it (before any spot check
@@ -1866,6 +2373,7 @@ def main():
         j = path("J", lambda: phase_j(torch, device, workdir, d, e), *std)
         path("K", lambda: (phase_k(torch, device, workdir, d, e, j.db),
                            None), *std)
+        path("L", lambda: phase_l(torch, device, workdir, d, e), *std)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

@@ -118,7 +118,8 @@ def load():
         lib = ctypes.CDLL(build())
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.match_counts_launch.restype = ci
-        lib.match_counts_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
+        lib.match_counts_launch.argtypes = (
+            [vp, vp, vp] + [ci] * 5 + [ll] * 6 + [vp])
         lib.match_counts_packed_launch.restype = ci
         lib.match_counts_packed_launch.argtypes = (
             [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])

@@ -9,7 +9,11 @@ lineage (the kNN is extended, ``_lineages.csv`` written; not with
 classification, and the model, run on ``cuda:<--deviceid>`` unless
 ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU; ``--gpu-dist`` /
 ``--gpu-model`` keep their stage on the card even then (_device.py).
-``--warmup`` (jit pre-compilation) has no counterpart here.
+``--warmup`` loads the model and the serving references (the ``.refs``
+subset unless ``--use-full-network``) as the reference does, and runs
+every query-batch bucket once through the query path with the model's own
+classifier (none for a lineage model): the kernels are built and the
+allocator holds each bucket's buffers.
 """
 
 import argparse
@@ -116,14 +120,12 @@ def main(arg_list=None):
         args.ref_db = args.db
         print_citation(args, assign=True)
         sys.exit(0)
+    dist_device, model_device = _device.stage_devices(args)
     if args.warmup:
-        sys.stderr.write("--warmup pre-compiles jit programs; "
-                         "poppunk_tpu_torch has none to warm\n")
-        sys.exit(0)
+        sys.exit(warmup(args, dist_device, model_device))
 
     from ..assign import assign_query
 
-    dist_device, model_device = _device.stage_devices(args)
     return assign_query(
         ref_db=args.db,
         q_files=args.query,
@@ -151,6 +153,39 @@ def main(arg_list=None):
         dist_device=dist_device,
         model_device=model_device,
     )
+
+
+def warmup(args, dist_device, model_device):
+    """--warmup (the reference's poppunk_tpu/cli/assign.py:118-143): the
+    model and the serving references, then every query-batch bucket once
+    with the model's fused classifier. Returns the exit code."""
+    import os
+
+    from ..io.hdf5db import read_db_params, read_sketches
+    from ..models import load_cluster_fit
+    from ..ops.distances import warmup_query_programs
+    from ..ops.fused_assign import model_post_spec
+
+    db = args.db.rstrip("/")
+    model_prefix = (args.model_dir or db).rstrip("/")
+    base = os.path.join(model_prefix, os.path.basename(model_prefix))
+    kmers = list(read_db_params(db)[0])
+    model = load_cluster_fit(base + "_fit.pkl", base + "_fit.npz",
+                             device=model_device)
+    # warm against the .refs subset if present (the serving ref set)
+    r_names = None
+    refs_file = base + ".refs"
+    if os.path.isfile(refs_file) and not args.use_full_network:
+        with open(refs_file) as f:
+            r_names = [line.rstrip() for line in f]
+    r_sketches = read_sketches(db, r_names)
+    n = warmup_query_programs(r_sketches, kmers,
+                              post_spec=model_post_spec(model),
+                              use_rc=not args.strand_preserved,
+                              device=dist_device)
+    sys.stderr.write(f"Warmed {n} serving programs for {db} "
+                     f"({len(r_sketches)} references)\n")
+    return 0
 
 
 if __name__ == "__main__":

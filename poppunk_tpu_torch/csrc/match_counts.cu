@@ -12,12 +12,19 @@
 // words are read.
 //
 // What bounds it on an H100, and the design: match_counts_mainloop.cuh.
-// This file describes the standard layout to it. Each k-mer length is one
+// This file describes the operand layout to it. Each k-mer length is one
 // segment of one k slot, and the TMA walks the planes as the 4-D view
-// {w32 words, n genomes, P planes, K} with strides {K*P*Wp, Wp, P*Wp} words.
-// Putting genomes before planes in the view (their strides need not grow
-// with the dimension) makes a stage land plane-major, [P][64][8 words],
-// the same shared-memory layout as the packed kernel's.
+// {w32 words, n genomes, P planes, K} with the caller's strides:
+// {K*P*Wp, Wp, P*Wp} words for the standard [n, K, P, Wp] layout, and
+// {Wp, n*Wp, P*n*Wp} for the plane-major [K, P, n, Wp] layout a resident
+// reference keeps (the reference's match_counts_pallas(plane_major=True)),
+// so a row slice planes[:, :, s:s+c] of a resident tensor is read in place,
+// with no copy. Putting genomes before planes in the view (their strides
+// need not grow with the dimension) makes a stage land plane-major,
+// [P][64][8 words], the same shared-memory layout as the packed kernel's,
+// whatever the operand layout. The tensor map takes byte strides below
+// 2^40: at 65,536 genomes and Wp 384 the plane-major plane stride is
+// 100.7 MB and the k stride 1.41 GB, far inside it.
 
 #include "match_counts_mainloop.cuh"
 
@@ -33,22 +40,22 @@ match_counts_kernel(__grid_constant__ const CUtensorMap map_q,
 
 }  // namespace
 
-// planes_q int32/uint32 [nq, K, P, Wp], planes_r [nr, K, P, Wp], out int32
-// [nq, nr, K], all contiguous on the current device, 16-byte aligned. The
-// caller guarantees Wp % 4 == 0, w32 <= Wp, nq, nr > 0, nq <= 65535 * 64
-// and P small enough for a 3-stage ring. Returns 0, the first CUDA error
-// (cudaGetLastError() after the launch), or mc::ENCODE_ERROR + CUresult if
-// the driver refused a tensor map.
+// planes_q int32/uint32 with nq genomes and planes_r with nr genomes, each
+// seen through its (genome, plane, k) strides in 32-bit words (multiples of
+// 4, unit stride along the words), out int32 [nq, nr, K] contiguous, all on
+// the current device, 16-byte aligned. The caller guarantees w32 <= Wp,
+// nq, nr > 0, nq <= 65535 * 64 and P small enough for a 3-stage ring.
+// Returns 0, the first CUDA error (cudaGetLastError() after the launch), or
+// mc::ENCODE_ERROR + CUresult if the driver refused a tensor map.
 extern "C" int match_counts_launch(const void* planes_q, const void* planes_r,
                                    void* out, int nq, int nr, int K, int P,
-                                   int Wp, int w32, void* stream) {
-  const long long row = (long long)K * P * Wp;
+                                   int w32, long long qsn, long long qsp,
+                                   long long qsk, long long rsn,
+                                   long long rsp, long long rsk,
+                                   void* stream) {
   CUtensorMap map_q, map_r;
-  int err = mc::encode(&map_q, planes_q, w32, nq, P, K, row, Wp,
-                       (long long)P * Wp);
-  if (!err)
-    err = mc::encode(&map_r, planes_r, w32, nr, P, K, row, Wp,
-                     (long long)P * Wp);
+  int err = mc::encode(&map_q, planes_q, w32, nq, P, K, qsn, qsp, qsk);
+  if (!err) err = mc::encode(&map_r, planes_r, w32, nr, P, K, rsn, rsp, rsk);
   size_t smem = 0;
   if (!err) err = mc::ring_smem(match_counts_kernel, P, &smem);
   if (err) return err;

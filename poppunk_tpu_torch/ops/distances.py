@@ -34,22 +34,36 @@ def plane_geometry(sketchsize64, bbits):
     return w32, wp, (wp - w32) * 32
 
 
-def pack_planes(sketches, klist=None):
+def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
+                pad_to=None):
     """Sketch objects -> (planes uint32[n, K, P, Wp], lengths int32[n],
     freqs f32[n, 4]) — the reference's device layout, bit for bit.
 
     HDF5 usigs are uint64[sketchsize64 * bbits], word w plane p at index
     w * bbits + p; each plane row holds the uint64 words split into
-    (low32, high32) pairs."""
+    (low32, high32) pairs. ``plane_major=True`` emits [K, P, n, Wp], the
+    layout the streaming scale tier keeps resident. ``pad_to_even`` appends
+    one all-zero pad genome when n is odd; ``pad_to=m`` pads with zero
+    genomes up to m >= n (the folded layout's chunk divisibility). Pad
+    genomes get the reference's innocuous metadata; the scale tier masks
+    them exactly through ``n_real``."""
     ss64 = sketches[0].sketchsize64
     bbits = sketches[0].bbits
     if klist is None:
         klist = sorted(sketches[0].usigs.keys())
     w32, wp, _ = plane_geometry(ss64, bbits)
-    n = len(sketches)
+    n_real = len(sketches)
+    if pad_to is not None:
+        if pad_to < n_real:
+            raise ValueError(f"pad_to ({pad_to}) < population ({n_real})")
+        n = int(pad_to)
+    else:
+        n = n_real + (n_real % 2 if pad_to_even else 0)
     planes = np.zeros((n, len(klist), bbits, wp), dtype=np.uint32)
     lengths = np.zeros(n, dtype=np.int32)
     freqs = np.zeros((n, 4), dtype=np.float32)
+    lengths[n_real:] = 2_000_000
+    freqs[n_real:] = 0.25
     for i, sk in enumerate(sketches):
         if sk.sketchsize64 != ss64 or sk.bbits != bbits:
             raise ValueError("Inconsistent sketch geometry")
@@ -59,6 +73,8 @@ def pack_planes(sketches, klist=None):
             u = sk.usigs[int(k)].reshape(ss64, bbits).T  # [P, ss64] uint64
             planes[i, ki, :, 0:w32:2] = u & np.uint64(0xFFFFFFFF)
             planes[i, ki, :, 1:w32:2] = u >> np.uint64(32)
+    if plane_major:
+        planes = np.ascontiguousarray(planes.transpose(1, 2, 0, 3))
     return planes, lengths, freqs
 
 
@@ -206,6 +222,34 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
     if post_spec is not None:
         return np.concatenate(out, axis=0), np.concatenate(out_extra, axis=0)
     return np.concatenate(out, axis=0)
+
+
+def warmup_query_programs(sketches_r, klist, post_spec=None, chunk=512,
+                          use_rc=True, device=None):
+    """Run every query-batch bucket once against a reference set before
+    taking traffic. Query batches are padded to powers of two up to
+    ``chunk``, so these are all the shapes a serving process meets: the
+    kernels are built and the allocator holds each bucket's buffers.
+    ``post_spec`` is the model's fused classifier (None for a lineage
+    model). Returns the number of buckets warmed."""
+    device = _device.resolve(device)
+    ss64 = sketches_r[0].sketchsize64
+    bbits = sketches_r[0].bbits
+    _, wp, pad_bits = plane_geometry(ss64, bbits)
+    ref = _Operands(*pack_planes(sketches_r, klist), device, pad_bits)
+    n = 0
+    bucket = 1
+    while True:
+        qry = _Operands(np.zeros((bucket, len(klist), bbits, wp), np.uint32),
+                        np.ones(bucket, np.int32),
+                        np.zeros((bucket, 4), np.float32), device, pad_bits)
+        _to_host(_dist_chunk(qry.rows(0, None), ref.rows(0, None), klist,
+                             ss64, bbits, True, use_rc, False, post_spec),
+                 post_spec)
+        n += 1
+        if bucket >= chunk:
+            return n
+        bucket *= 2
 
 
 def query_db(sketches_r, sketches_q, klist, random_correct=True, use_rc=True,

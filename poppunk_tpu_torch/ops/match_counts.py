@@ -9,7 +9,11 @@ its dispatcher match_counts_device. Contract, as in the reference:
 Planes are ``torch.int32`` tensors holding the reference's uint32 words bit
 for bit (``ops.distances.planes_to_tensor``); pad words are zero in both
 operands and contribute nothing, so both versions sum over the useful
-``w32 = Wp - pad_bits // 32`` words only.
+``w32 = Wp - pad_bits // 32`` words only. With ``plane_major=True`` both
+operands are ``[K, P, n, Wp]`` instead (the reference's
+``match_counts_pallas(plane_major=True)``): the layout the streaming scale
+tier keeps resident, read through its strides, so a row slice
+``planes[:, :, s:s+c]`` of the resident tensor is an operand without a copy.
 
 ``match_counts`` launches ``csrc/match_counts.cu`` on CUDA tensors and runs
 ``match_counts_torch`` on CPU tensors, and nothing else: a CUDA input that
@@ -25,6 +29,7 @@ CPU tensors). ``match_counts_device`` picks one of the two formulations by
 """
 
 import os
+import sys
 from typing import NamedTuple
 
 import torch
@@ -55,23 +60,32 @@ _PLAIN_TILE_BYTES = 1 << 27
 _ENCODE_ERROR = 10000
 
 
-def _geometry(planes_q, planes_r, pad_bits):
+def _genome_major(planes, plane_major):
+    """A [n, K, P, Wp] view of ``planes`` (a permuted view when they are
+    plane-major [K, P, n, Wp]; nothing is copied)."""
+    return planes.permute(2, 0, 1, 3) if plane_major else planes
+
+
+def _geometry(planes_q, planes_r, pad_bits, plane_major=False):
     """Validate shapes / dtype; return (nq, nr, K, P, Wp, w32)."""
+    layout = "[K, P, n, Wp]" if plane_major else "[n, K, P, Wp]"
     for t in (planes_q, planes_r):
         if t.dtype != torch.int32:
             raise TypeError(f"planes must be torch.int32, got {t.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"planes must be [n, K, P, Wp], got "
+            raise ValueError(f"planes must be {layout}, got "
                              f"{tuple(t.shape)}")
-    nq, K, P, Wp = planes_q.shape
-    if tuple(planes_r.shape[1:]) != (K, P, Wp):
+    q = _genome_major(planes_q, plane_major)
+    r = _genome_major(planes_r, plane_major)
+    nq, K, P, Wp = q.shape
+    if tuple(r.shape[1:]) != (K, P, Wp):
         raise ValueError(f"query planes {tuple(planes_q.shape)} and "
                          f"reference planes {tuple(planes_r.shape)} differ "
-                         "in [K, P, Wp]")
+                         "in K, P or Wp")
     if pad_bits % 32 or not 0 <= pad_bits < 32 * Wp:
         raise ValueError(f"pad_bits={pad_bits} must be a multiple of 32 "
                          f"below 32 * Wp = {32 * Wp}")
-    return nq, planes_r.shape[0], K, P, Wp, Wp - pad_bits // 32
+    return nq, r.shape[0], K, P, Wp, Wp - pad_bits // 32
 
 
 def popcount32(x):
@@ -88,15 +102,17 @@ def popcount32(x):
     return (x & 0x3F) + sign
 
 
-def match_counts_torch(planes_q, planes_r, pad_bits):
-    """Plain PyTorch version, on any device. Chunked over queries and
-    references so the [cq, cr, K, w32] diff tile stays near 128 MB."""
-    nq, nr, K, P, Wp, w32 = _geometry(planes_q, planes_r, pad_bits)
+def match_counts_torch(planes_q, planes_r, pad_bits, plane_major=False):
+    """Plain PyTorch version, on any device, in either layout. Chunked over
+    queries and references so the [cq, cr, K, w32] diff tile stays near
+    128 MB."""
+    nq, nr, K, P, Wp, w32 = _geometry(planes_q, planes_r, pad_bits,
+                                      plane_major)
     out = torch.empty((nq, nr, K), dtype=torch.int32, device=planes_q.device)
     cr = max(1, min(nr, 1024))
     cq = max(1, _PLAIN_TILE_BYTES // (cr * K * w32 * 4))
-    q_use = planes_q[..., :w32]
-    r_use = planes_r[..., :w32]
+    q_use = _genome_major(planes_q, plane_major)[..., :w32]
+    r_use = _genome_major(planes_r, plane_major)[..., :w32]
     for qs in range(0, nq, cq):
         q = q_use[qs:qs + cq, None]  # [cq, 1, K, P, w32]
         for rs in range(0, nr, cr):
@@ -119,24 +135,30 @@ def _check_launch(name, err):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def match_counts(planes_q, planes_r, pad_bits):
+def match_counts(planes_q, planes_r, pad_bits, plane_major=False):
     """int32 [nq, nr, K] bin-match counts: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. Operands are [n, K, P, Wp],
+    or [K, P, n, Wp] with ``plane_major``; on the card either may be a
+    strided view (a row slice of a resident tensor) with unit word stride,
+    the other strides whole 16-byte chunks and a 16-byte aligned start."""
     global LAUNCHES
-    nq, nr, K, P, Wp, w32 = _geometry(planes_q, planes_r, pad_bits)
+    nq, nr, K, P, Wp, w32 = _geometry(planes_q, planes_r, pad_bits,
+                                      plane_major)
     devices = {planes_q.device, planes_r.device}
     if devices == {torch.device("cpu")}:
-        return match_counts_torch(planes_q, planes_r, pad_bits)
+        return match_counts_torch(planes_q, planes_r, pad_bits, plane_major)
     if len(devices) != 1 or planes_q.device.type != "cuda":
         raise ValueError(f"planes must both be on the CPU or on one CUDA "
                          f"device, got {sorted(map(str, devices))}")
+    strides = []
     for t in (planes_q, planes_r):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("CUDA planes must be contiguous and 16-byte "
-                             "aligned")
-    if Wp % 4:
-        raise ValueError(f"the kernel's TMA needs 16-byte plane rows: Wp={Wp} "
-                         "must be a multiple of 4")
+        g = _genome_major(t, plane_major)  # strides (genome, k, plane, word)
+        if g.stride(3) != 1 or any(x % 4 for x in g.stride()[:3]) or \
+                t.data_ptr() % 16:
+            raise ValueError("CUDA planes need unit word stride, strides of "
+                             "whole 16-byte chunks and a 16-byte aligned "
+                             f"start; got strides {t.stride()}")
+        strides += [g.stride(0), g.stride(2), g.stride(1)]
     if nq > 65535 * 64:
         raise ValueError(f"nq={nq} exceeds the kernel grid; chunk queries")
     out = torch.empty((nq, nr, K), dtype=torch.int32, device=planes_q.device)
@@ -147,7 +169,7 @@ def match_counts(planes_q, planes_r, pad_bits):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.match_counts_launch(
             planes_q.data_ptr(), planes_r.data_ptr(), out.data_ptr(),
-            nq, nr, K, P, Wp, w32, stream)
+            nq, nr, K, P, w32, *strides, stream)
     _check_launch("match_counts", err)
     LAUNCHES += 1
     return out
@@ -301,13 +323,26 @@ def match_counts_packed(q, r):
     return out
 
 
-def match_counts_device(planes_q, planes_r, pad_bits):
+_PLANE_MAJOR_NOTE = [False]
+
+
+def match_counts_device(planes_q, planes_r, pad_bits, plane_major=False):
     """int32 [nq, nr, K] counts by the formulation KERNEL_CHOICE names
-    (pallas_jaccard.py:283-309; this package has no plane-major callers).
-    Under ``packed`` an operand may come packed already: a caller that
-    runs many passes over one reference set packs it once."""
+    (pallas_jaccard.py:283-309). Under ``packed`` an operand may come packed
+    already: a caller that runs many passes over one reference set packs it
+    once. Plane-major callers (the scale tier's resident reference) stay on
+    the standard kernel under either choice, as in the reference: packing
+    would relayout the whole resident tensor on every call."""
     if KERNEL_CHOICE == "packed":
-        return match_counts_packed(*(
-            p if isinstance(p, PackedPlanes) else pack(p, pad_bits)
-            for p in (planes_q, planes_r)))
-    return match_counts(planes_q, planes_r, pad_bits)
+        if not plane_major:
+            return match_counts_packed(*(
+                p if isinstance(p, PackedPlanes) else pack(p, pad_bits)
+                for p in (planes_q, planes_r)))
+        if not _PLANE_MAJOR_NOTE[0]:
+            _PLANE_MAJOR_NOTE[0] = True
+            sys.stderr.write(
+                "POPPUNK_TPU_KERNEL=packed: plane-major (resident "
+                "reference) passes stay on the standard kernel — "
+                "packing would relayout the full reference tensor "
+                "per dispatch\n")
+    return match_counts(planes_q, planes_r, pad_bits, plane_major)

@@ -12,6 +12,8 @@
   tools' CLI names and device choice).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
+- ``ops/distances.pack_planes`` packs what the JAX package's packs, in
+  both layouts and with either pad.
 - A visualise, serve and API run in a fresh interpreter loads neither jax
   nor the JAX package.
 - Devices (_device.py): with ``device=None`` an entry point runs on the
@@ -26,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -134,6 +137,15 @@ COPIES = {
     "cli/references.py": (("get_options", "main"), ()),
     "cli/lineages.py": (("get_options", "main", "create_db", "query_db"),
                         ()),
+    "scale.py": (("_fold_block", "_seq_topk", "_pair_corrected_fit",
+                  "_pair_block_dists", "StreamingCondensed", "_d0_chunk",
+                  "sweep_counts_streaming", "sweep_first_offsets",
+                  "sweep_fill_device", "plan_sweep_band",
+                  "refine_fit_device"), None),
+    "ops/sparse_sweep.py": (("SweepEdges", "sweep_scores_sparse_device",
+                             "hbm_feasible", "max_edge_cap"), None),
+    "cli/scale.py": (("get_options", "main", "_pad_geometry",
+                      "_network_and_clusters"), None),
 }
 
 
@@ -236,6 +248,19 @@ TOOL_ARGV = {
                  ["--query-db", "q.txt", "--db-scheme", "s.pkl", "--output",
                   "o", "--gpu-dist", "--deviceid", "2", "--ranks", "1,2",
                   "--use-accessory", "--core", "--gpu-sketch"]],
+    "scale": [
+        ["--ref-db", "db", "--output", "o"],
+        ["--ref-db", "db", "--output", "o", "--fit-model", "dbscan", "--D",
+         "5", "--write-lineages", "--ranks", "1,3", "--indiv-refine", "core",
+         "--score-idx", "2", "--no-local", "--chunk", "64", "--knn", "7",
+         "--single-device", "--gpu-dist", "--deviceid", "1",
+         "--extract-references", "--refs-mode", "fast", "--use-accessory"],
+        ["--ref-db", "db", "--output", "o", "--unconstrained", "--run-qc",
+         "--max-a-dist", "0.4", "--length-range", "1", "2", "--mandrake",
+         "--perplexity", "5", "--gpu-model", "--gpu-graph"],
+        ["--ref-db", "db", "--output", "o", "--use-model", "--model-dir",
+         "m", "--multi-boundary", "4", "--pos-shift", "0.1", "--neg-shift",
+         "0.05", "--max-sweep-fetch", "1000", "--summary-sample", "20"]],
 }
 
 
@@ -303,6 +328,14 @@ def mixture():
             np.stack([np.eye(2) * 0.01] * 2), np.array([1.0, 1.0]))
 
 
+def streaming_condensed():
+    from poppunk_tpu_torch.scale import StreamingCondensed
+
+    planes, lengths, freqs, klist, ss64, bbits = tiny_planes()
+    return StreamingCondensed(planes.transpose(1, 2, 0, 3), lengths, freqs,
+                              klist, ss64, bbits, knn=2).device
+
+
 def self_block():
     return td.condensed_self_block(*tiny_planes())
 
@@ -325,6 +358,7 @@ ENTRY_POINTS = {
     "RefineFit": lambda tmp: RefineFit(str(tmp / "refine")).device,
     "GaussianMixture": lambda tmp: GaussianMixture.from_numpy(
         *mixture()).means.device,
+    "StreamingCondensed": lambda tmp: streaming_condensed(),
 }
 CLIS = {
     "create_db_cli": lambda tmp: torch_main([
@@ -480,3 +514,30 @@ def test_visualise_serve_and_api_load_no_jax(population, population_dir,
     assert served == sorted(queries) and sorted(answered) == sorted(queries)
     assert loaded == []
     assert (tmp_path / "viz" / "viz_core_NJ.nwk").is_file()
+
+
+def fake_sketches(n=5, ss64=3, bbits=4, klist=(13, 17), seed=8):
+    rng = np.random.default_rng(seed)
+    return [SimpleNamespace(
+        name=f"s{i}", sketchsize64=ss64, bbits=bbits,
+        length=int(rng.integers(1000, 9000)),
+        base_freq=rng.dirichlet([1, 1, 1, 1]).astype(np.float32),
+        usigs={k: rng.integers(0, 2**63, ss64 * bbits, dtype=np.uint64)
+               for k in klist}) for i in range(n)]
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(plane_major=True), dict(pad_to_even=True),
+    dict(plane_major=True, pad_to_even=True), dict(plane_major=True,
+                                                   pad_to=12),
+    dict(pad_to=8)])
+def test_pack_planes_packs_what_the_jax_package_packs(kw):
+    from poppunk_tpu.ops.distances import pack_planes as jax_pack
+
+    sketches = fake_sketches()
+    for got, want in zip(td.pack_planes(sketches, (13, 17), **kw),
+                         jax_pack(sketches, (13, 17), **kw)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="pad_to"):
+        td.pack_planes(sketches, pad_to=3)
