@@ -65,8 +65,18 @@ Phases, each printing one JSON line with its seconds:
      production geometry drawn on the card (stage seconds, pass 1's
      kernel time, the sweep's timings, peak device memory held to
      streaming_hbm_accounting plus the sweep's budget; strain-pure)
+  L4 the scale tier's other modes: L4a poppunk_tpu_torch_scale on phase
+     D's database with --unconstrained, --multi-boundary 4, --use-model
+     (L1's fit), --run-qc (D plus a junk genome, held to the host
+     qc_dist_mat) and --mandrake; L4b phase E's references: the 2-D refine
+     at a 1,000,000-pair cap (the planted strains), multi_refine_device up
+     to L2's optimum, the streaming QC held to a scan of phase E's
+     distances; L4c on L3's resident planes: the fixed-boundary fetch (its
+     components L3's clusters), the QC pass, the accessory kNN and SCE of
+     --mandrake, each pass's seconds and kernel time, peak device memory
+     held to L3's limit
 Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D, E, H-L, the packed kernel's over F and
+launches counted over phases D, E, H-L4, the packed kernel's over F and
 G, each phase run with the counts set to 0 just before it), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; so does a host without CUDA.
@@ -450,7 +460,8 @@ def phase_d(torch, device, workdir, n_strains=6, per_strain=8,
           "launches": launches, "seconds": time.perf_counter() - t0})
     return launches, SimpleNamespace(db=db, rfile=rfile, qfile=qfile,
                                      refs=refs, queries=queries,
-                                     strain_of=strain_of)
+                                     strain_of=strain_of,
+                                     genome_length=genome_length)
 
 
 # --------------------------------------------------------------------------
@@ -2091,11 +2102,8 @@ def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
         raise AssertionError(f"refine took the {sweep[0]} path")
     out = os.path.join(workdir, f"stream{n}")
     os.makedirs(out, exist_ok=True)
-    args = SimpleNamespace(summary_sample=summary_sample,
-                           betweenness_sample=100, external_clustering=None,
-                           use_accessory=False, reciprocal_only=False,
-                           count_unique_distances=False)
-    _, clusters = timed("network_clusters", lambda: _network_and_clusters(
+    args = network_args(summary_sample)
+    G, clusters = timed("network_clusters", lambda: _network_and_clusters(
         cd, sweep, s_opt, names, out, args))
     lineages = None
     if ranks:
@@ -2105,20 +2113,32 @@ def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
             out, f"stream{n}_lineages.csv"))
     return clusters, SimpleNamespace(
         cd=cd, stages=stages, peaks=peaks, spec=spec, band_edges=band,
-        boundary=[float(x), float(y)], sweep=sweep_t, chunk=chunk,
-        pass1_launches=pass1_launches, pass1_kernel_s=kernel_s,
-        lineages=lineages)
+        start=(start.scale, mean0, mean1), s_opt=s_opt,
+        boundary=[float(x), float(y)], network_edges=int(G.n_edges),
+        sweep=sweep_t, chunk=chunk, pass1_launches=pass1_launches,
+        pass1_kernel_s=kernel_s, lineages=lineages)
+
+
+def network_args(summary_sample=None):
+    """The CLI options cli/scale.py's network and lineage helpers read."""
+    return SimpleNamespace(summary_sample=summary_sample,
+                           betweenness_sample=100, external_clustering=None,
+                           use_accessory=False, reciprocal_only=False,
+                           count_unique_distances=False)
 
 
 def phase_l(torch, device, workdir, d, e):
     """L1-L3: the scale CLI on phase D's database, phase E's population
     through StreamingCondensed, and the full-width streaming fit. Returns
-    standard launches per stage."""
+    standard launches per stage, and L2's and L3's records for L4 (L3's
+    planes stay resident on the card)."""
     launches = {}
     launches.update(phase_l1(torch, device, workdir, d))
-    launches.update(phase_l2(torch, device, workdir, e))
-    launches.update(phase_l3(torch, device, workdir))
-    return launches, None
+    l2_launches, l2 = phase_l2(torch, device, workdir, e)
+    launches.update(l2_launches)
+    l3_launches, l3 = phase_l3(torch, device, workdir)
+    launches.update(l3_launches)
+    return launches, SimpleNamespace(l2=l2, l3=l3)
 
 
 def phase_l1(torch, device, workdir, d):
@@ -2247,7 +2267,10 @@ def phase_l2(torch, device, workdir, e):
           "band_edges": fit.band_edges, "boundary": fit.boundary,
           "sweep": fit.sweep, "clusters": len(set(clusters.values())),
           "launches": launches, "seconds": time.perf_counter() - t0})
-    return launches
+    # L4b recomputes from E's planes: the resident copy goes now, so that
+    # L3's peak device memory is L3's own
+    fit.cd = None
+    return launches, fit
 
 
 def phase_l3(torch, device, workdir, n=65536, n_strains=128):
@@ -2309,6 +2332,379 @@ def phase_l3(torch, device, workdir, n=65536, n_strains=128):
         raise AssertionError(f"L3 peak device memory {peak} exceeds the "
                              f"accounting {accounting['total']} plus the "
                              f"sweep's budget {sweep_bytes}")
+    return launches, SimpleNamespace(fit=fit, clusters=clusters, names=names,
+                                     limit=limit)
+
+
+def counted(torch, device, fn):
+    """(result, seconds, standard-kernel launches, their summed CUDA event
+    seconds) of one pass; no event time on the CPU rehearsal."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    n0 = mc.LAUNCHES
+    t = time.perf_counter()
+    if device.type == "cuda":
+        with RecordLaunchTimes(torch) as kernel:
+            out = fn()
+            seconds = elapsed(torch, t)
+            kernel_s = kernel.seconds()
+    else:
+        out, kernel_s = fn(), 0.0
+        seconds = elapsed(torch, t)
+    return out, seconds, mc.LAUNCHES - n0, kernel_s
+
+
+def phase_l4(torch, device, workdir, d, e, lctx):
+    """L4a-c: the scale tier's other modes. Returns standard launches per
+    stage."""
+    launches = {}
+    launches.update(phase_l4a(torch, device, workdir, d))
+    launches.update(phase_l4b(torch, device, workdir, e, lctx.l2))
+    launches.update(phase_l4c(torch, device, workdir, lctx.l3))
+    return launches, None
+
+
+def phase_l4a(torch, device, workdir, d):
+    """poppunk_tpu_torch_scale's other modes on phase D's database, on the
+    card by default: --unconstrained --pos-shift 0.05 (strain-pure, both
+    intercepts positive); --multi-boundary 4 (every boundary file only
+    splits strains); --use-model with L1's BGMM-started fit (L1's clusters,
+    name for name); --run-qc on D's references plus one genome of random
+    sequence, at thresholds between D's column maxima and the junk
+    genome's median distances (the junk genome fails, alone, and the
+    failed set equals the port's host qc_dist_mat on that database's
+    distances at the same thresholds; that database's distances equal
+    the CPU's within DIST_TOL); --mandrake --perplexity 5
+    --mandrake-iter 20000 (every name in the .dot, finite coordinates)."""
+    import glob
+
+    from poppunk_tpu_torch import _device
+    from poppunk_tpu_torch.cli.main import main as poppunk_main
+    from poppunk_tpu_torch.cli.scale import main as scale_main
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.pairs import condensed_to_pair
+    from poppunk_tpu_torch.qc import DEFAULT_QC, qc_dist_mat
+    from poppunk_tpu_torch.utils import read_pickle
+
+    t0 = time.perf_counter()
+    stages, launches = {}, {}
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    files = lambda out, ext: os.path.join(  # noqa: E731
+        out, os.path.basename(out) + ext)
+
+    def run(stage, fn, argv):
+        t = time.perf_counter()
+        n0 = mc.LAUNCHES
+        fn(argv)
+        stages[stage] = elapsed(torch, t)
+        launches["L4a_" + stage] = mc.LAUNCHES - n0
+
+    def scale(stage, *flags, db=d.db):
+        out = path(f"l4_{stage}")
+        run(stage, scale_main, ["--ref-db", db, "--output", out, "--no-plot"]
+            + list(flags))
+        return out
+
+    out = scale("unconstrained", "--unconstrained", "--pos-shift", "0.05")
+    boundary = np.load(files(out, "_fit.npz"))["intercept"]
+    if not (boundary > 0).all():
+        raise AssertionError(f"--unconstrained boundary {boundary}")
+    check_pure(read_clusters(files(out, "_clusters.csv")), d.strain_of,
+               "L4a --unconstrained")
+
+    out = scale("multi_boundary", "--multi-boundary", "4")
+    boundary_files = sorted(glob.glob(os.path.join(
+        out, "*_boundary[0-9]*_clusters.csv")))
+    if not boundary_files:
+        raise AssertionError("--multi-boundary wrote no boundary file")
+    for f in boundary_files:
+        clusters = read_clusters(f)
+        if set(clusters) != set(d.refs):
+            raise AssertionError(f"{f} misses samples")
+        check_pure(clusters, d.strain_of, os.path.basename(f))
+
+    fit = path("scale_bgmm")  # L1's
+    out = scale("use_model", "--use-model", "--model-dir", fit)
+    if read_clusters(files(out, "_clusters.csv")) != read_clusters(
+            files(fit, "_clusters.csv")):
+        raise AssertionError("--use-model: clusters differ from L1's fit")
+
+    # --run-qc: D's references and one genome of random sequence
+    rng = np.random.default_rng(SEED + 9)
+    junk = path("junkbug.fa")
+    seq = "".join(rng.choice(list("ACGT"), size=d.genome_length))
+    with open(junk, "w") as f:
+        f.write(">junkbug\n" + "\n".join(
+            seq[i:i + 70] for i in range(0, len(seq), 70)) + "\n")
+    rfile = path("refs_and_junk.txt")
+    with open(d.rfile) as src, open(rfile, "w") as f:
+        f.write(src.read() + f"junkbug\t{junk}\n")
+    junk_db = path("junk_db")
+    run("qc_create_db", poppunk_main, ["--create-db", "--r-files", rfile,
+                                       "--output", junk_db, "--no-plot"])
+    rlist, _, _, X = read_pickle(files(junk_db, ".dists"))
+    i, j = condensed_to_pair(np.arange(len(X)), len(rlist))
+    with_junk = (np.asarray(rlist)[i] == "junkbug") | \
+        (np.asarray(rlist)[j] == "junkbug")
+    # a column where most junk pairs lie past D's own distances is cut at
+    # the midpoint of D's maximum and the junk pairs' median; a column
+    # where they do not is opened past every distance
+    real_max = X[~with_junk].max(axis=0)
+    junk_median = np.median(X[with_junk], axis=0)
+    if not (junk_median > real_max).any():
+        raise AssertionError(f"the junk genome's distances (median "
+                             f"{junk_median}) do not clear D's {real_max}")
+    cuts = np.where(junk_median > real_max, (real_max + junk_median) / 2,
+                    X.max(axis=0) + 1)
+    # the same database's distances on the CPU: the card's equal them
+    # within DIST_TOL, the junk genome's near-empty Jaccards included
+    saved = os.environ.get(_device.ENV)
+    os.environ[_device.ENV] = "cpu"
+    try:
+        poppunk_main(["--create-db", "--r-files", rfile, "--output",
+                      path("junk_db_cpu"), "--no-plot"])
+    finally:
+        if saved is None:
+            del os.environ[_device.ENV]
+        else:
+            os.environ[_device.ENV] = saved
+    X_cpu = read_pickle(files(path("junk_db_cpu"), ".dists"))[3]
+    beyond = ~np.isclose(X, X_cpu, **DIST_TOL).all(axis=1)
+    junk_card_vs_cpu = {
+        "max_abs_err": float(np.abs(X - X_cpu).max()),
+        "pairs_beyond_dist_tol": int(beyond.sum()),
+        "of_them_with_junk": int((beyond & with_junk).sum()),
+        "examples": [[rlist[a], rlist[b], X[r].tolist(), X_cpu[r].tolist()]
+                     for r, a, b in zip(np.nonzero(beyond)[0][:5],
+                                        i[beyond][:5], j[beyond][:5])]}
+    if beyond.any():
+        raise AssertionError(f"the junk database's distances on the card "
+                             f"and the CPU differ: {junk_card_vs_cpu}")
+    out = scale("run_qc", "--run-qc", "--max-zero-dist", "1",
+                "--max-pi-dist", repr(float(cuts[0])), "--max-a-dist",
+                repr(float(cuts[1])), db=junk_db)
+    with open(files(out, "_qcreport.txt")) as f:
+        failed = {line.split("\t")[0] for line in f}
+    qc_dict = dict(DEFAULT_QC, prop_zero=1, max_pi_dist=float(cuts[0]),
+                   max_a_dist=float(cuts[1]))
+    _, fail_host = qc_dist_mat(X, rlist, rlist, junk_db, qc_dict)
+    if failed != {"junkbug"} or failed != set(fail_host):
+        raise AssertionError(f"--run-qc failed {sorted(failed)}, the host "
+                             f"qc_dist_mat {sorted(fail_host)}")
+    if set(read_clusters(files(out, "_clusters.csv"))) != \
+            set(d.refs) - failed:
+        raise AssertionError("--run-qc: clusters are not the survivors")
+
+    out = scale("mandrake", "--mandrake", "--perplexity", "5",
+                "--mandrake-iter", "20000")
+    coords = read_dot(files(out, "_perplexity5.0_accessory_mandrake.dot"))
+    if set(coords) != set(d.refs) or not np.isfinite(
+            list(coords.values())).all():
+        raise AssertionError("--mandrake: the .dot misses names or holds "
+                             "non-finite coordinates")
+    emit({"phase": "L4a", "unconstrained_boundary": boundary.tolist(),
+          "boundary_files": len(boundary_files),
+          "qc_junk_median": junk_median.tolist(),
+          "qc_junk_min": X[with_junk].min(axis=0).tolist(),
+          "qc_d_max": real_max.tolist(), "qc_cuts": cuts.tolist(),
+          "qc_failed": sorted(failed),
+          "junk_db_card_vs_cpu": junk_card_vs_cpu,
+          "stages": stages, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_l4b(torch, device, workdir, e, l2):
+    """Phase E's 8192 references at production geometry, from L2's BGMM
+    start (L2's planes went with L2; they are put on the card again): the
+    unconstrained refine_fit_device_2d at a 1,000,000-pair cap (the
+    520,192 within-strain pairs stay scoreable, the host scorer bounded),
+    its counts pass, fetch pass and host scoring timed apart, its clusters
+    the planted strains; multi_refine_device at 4 points up to L2's
+    constrained s_opt (every file only splits strains);
+    qc_bad_pairs_streaming at thresholds just under E's column maxima
+    (the 100th largest value of each), whose (i, j, flags) equal a scan of
+    E's condensed distances with the same rule but for pairs within
+    DIST_TOL of a threshold (counted)."""
+    import glob
+
+    import poppunk_tpu_torch.scale as tsc
+    from poppunk_tpu_torch.cli.scale import _network_and_clusters
+    from poppunk_tpu_torch.pairs import condensed_to_pair, pair_to_condensed
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    n = e.n_ref
+    names = e.names[:n]
+    cd = tsc.StreamingCondensed(
+        np.ascontiguousarray(e.planes[:n].transpose(1, 2, 0, 3)),
+        e.lengths[:n], e.freqs[:n], KLIST, ss64, bbits, chunk=l2.chunk,
+        knn=0, defer=True, device=device)
+    scale, mean0, mean1 = l2.start
+    stages, launches, kernel_s = {}, {}, {}
+    cap = 1_000_000
+    with Timed(torch, [(tsc, "sweep2d_counts_streaming", "counts_pass"),
+                       (tsc, "sweep2d_fetch_streaming", "fetch_pass")]) as rec:
+        (x, y, sweep), refine_s, launches["L4b_refine_2d"], \
+            kernel_s["refine_2d"] = counted(
+                torch, device, lambda: tsc.refine_fit_device_2d(
+                    cd, scale, mean0, mean1, max_move=0.0, min_move=0.0,
+                    max_sweep_fetch=cap))
+    cum = rec.calls[0][4]
+    stages.update(rec.seconds())
+    stages["host_scoring"] = refine_s - sum(rec.seconds().values())
+    out = os.path.join(workdir, "l4_refine_2d")
+    os.makedirs(out, exist_ok=True)
+    _, clusters = timed_stage(torch, stages, "network_clusters", lambda: (
+        _network_and_clusters(cd, sweep, None, names, out, network_args(),
+                              boundary=(x, y))))
+    check_partition(clusters, e.strain_of)
+
+    out = os.path.join(workdir, "l4_multi")
+    os.makedirs(out, exist_ok=True)
+    _, stages["multi_refine"], launches["L4b_multi_refine"], \
+        kernel_s["multi_refine"] = counted(
+            torch, device, lambda: tsc.multi_refine_device(
+                cd, scale, mean0, mean1, l2.s_opt, 4, out, names))
+    multi_files = sorted(glob.glob(os.path.join(
+        out, "*_boundary[0-9]*_clusters.csv")))
+    if not multi_files:
+        raise AssertionError("multi_refine_device wrote no boundary file")
+    for f in multi_files:
+        check_pure(read_clusters(f), e.strain_of, os.path.basename(f))
+
+    X = e.X
+    cuts = np.partition(X, len(X) - 100, axis=0)[len(X) - 100]
+    (i, j, flags), stages["qc"], launches["L4b_qc"], kernel_s["qc"] = \
+        counted(torch, device, lambda: tsc.qc_bad_pairs_streaming(
+            cd.planes, cd.lengths, cd.freqs, KLIST, ss64, bbits, cd.chunk, n,
+            float(cuts[0]), float(cuts[1])))
+    del cd
+    core, acc = X[:, 0], X[:, 1]
+    scan = ((core > cuts[0]) | (acc > cuts[1])).astype(np.uint8) \
+        + 2 * ((core == 0) | (acc == 0)).astype(np.uint8)
+    rows = np.nonzero(scan)[0]
+    si, sj = condensed_to_pair(rows, n)
+    got = set(zip(i.tolist(), j.tolist(), flags.tolist()))
+    want = set(zip(np.asarray(si).tolist(), np.asarray(sj).tolist(),
+                   scan[rows].tolist()))
+    differ = np.array(sorted({(a, b) for a, b, _ in got ^ want}),
+                      np.int64).reshape(-1, 2)
+    tol = DIST_TOL["atol"] + DIST_TOL["rtol"] * np.abs(cuts)
+
+    def near(v):
+        return (np.abs(v - cuts) <= tol).any(axis=1) | \
+            (np.abs(v) <= DIST_TOL["atol"]).any(axis=1)
+
+    near_all = int(near(X).sum())
+    off = X[pair_to_condensed(differ[:, 0], differ[:, 1], n)]
+    if not near(off).all():
+        raise AssertionError(f"qc_bad_pairs_streaming disagrees with E's "
+                             f"distances away from a threshold: {differ}")
+    emit({"phase": "L4b", "genomes": n, "max_sweep_fetch": cap,
+          "cells": int(cum.size), "scored_cells": int((cum <= cap).sum()),
+          "fetched_pairs": int(len(sweep[1])), "boundary": [x, y],
+          "clusters": len(set(clusters.values())),
+          "multi_boundary_files": len(multi_files),
+          "qc_cuts": cuts.tolist(), "qc_flagged": int(len(i)),
+          "qc_scan_flagged": int(len(rows)),
+          "qc_pairs_differing": int(len(differ)),
+          "qc_pairs_within_tol_of_a_cut": near_all,
+          "stages": stages, "kernel_event_seconds": kernel_s,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_l4c(torch, device, workdir, l3):
+    """Full width, on L3's resident planes (65,536 genomes; no upload):
+    fetch_within_boundary at L3's refined boundary (the components of the
+    fetched edges are L3's clusters; edge counts beside L3's),
+    qc_bad_pairs_streaming at 0.999 of L3's column maxima (non-empty; every
+    flagged pair, recomputed by _pair_block_dists, breaks its rule within
+    DIST_TOL) and the --mandrake path (_mandrake_embedding: the accessory
+    kNN pass at k 50, then the SCE at the CLI's default --mandrake-iter).
+    Each pass: seconds, launches, summed kernel event time. Peak device
+    memory is held to L3's limit."""
+    from poppunk_tpu_torch import embedding
+    from poppunk_tpu_torch.cli.scale import _mandrake_embedding
+    from poppunk_tpu_torch.network.components import connected_components
+    from poppunk_tpu_torch.network.graph import Graph
+    from poppunk_tpu_torch.scale import (_pair_block_dists,
+                                         fetch_within_boundary,
+                                         qc_bad_pairs_streaming)
+
+    ss64, bbits = PRODUCTION[:2]
+    t0 = time.perf_counter()
+    fit, names = l3.fit, l3.names
+    cd, n = fit.cd, len(l3.names)
+    operands = (cd.planes, cd.lengths, cd.freqs, KLIST, ss64, bbits,
+                cd.chunk, n)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    passes, launches = {}, {}
+
+    def record(name, fn):
+        out, seconds, launches["L4c_" + name], kernel_s = counted(
+            torch, device, fn)
+        passes[name] = {"seconds": seconds, "kernel_event_seconds": kernel_s}
+        return out
+
+    scale = fit.start[0]
+    i, j = record("fetch_within_boundary", lambda: fetch_within_boundary(
+        *operands, scale, *fit.boundary, 2))
+    labels = connected_components(Graph(n, np.stack([i, j], axis=1)))[0]
+    cl = np.array([l3.clusters[name] for name in names])
+    same = len(set(zip(labels.tolist(), cl.tolist())))
+    if not same == len(set(labels.tolist())) == len(set(cl.tolist())):
+        raise AssertionError("fetch_within_boundary's components are not "
+                             "L3's clusters")
+
+    cuts = 0.999 * np.asarray(cd.max_scale(), np.float64)
+    qi, qj, flags = record("qc", lambda: qc_bad_pairs_streaming(
+        *operands, float(cuts[0]), float(cuts[1])))
+    if not len(qi):
+        raise AssertionError("qc_bad_pairs_streaming flagged nothing")
+    bad = 0
+    for s in range(0, len(qi), 8192):
+        dd = _pair_block_dists(
+            cd.planes, cd.lengths, cd.freqs,
+            torch.as_tensor(qi[s:s + 8192], device=device),
+            torch.as_tensor(qj[s:s + 8192], device=device), cd._klist,
+            cd._ss64, cd._bbits, cd._pad_bits).cpu().numpy()
+        tol = DIST_TOL["atol"] + DIST_TOL["rtol"] * cuts
+        long_ok = (dd > cuts - tol).any(axis=1)
+        zero_ok = (np.abs(dd) <= DIST_TOL["atol"]).any(axis=1)
+        f = flags[s:s + 8192]
+        bad += int((((f & 1) > 0) & ~long_ok).sum()
+                   + (((f & 2) > 0) & ~zero_ok).sum())
+    if bad:
+        raise AssertionError(f"{bad} flagged pairs keep the QC rules")
+
+    args = SimpleNamespace(perplexity=30.0, mandrake_iter=100000, seed=SEED)
+    out = os.path.join(workdir, "l4_mandrake")
+    os.makedirs(out, exist_ok=True)
+    with Timed(torch, [(embedding, "embedding_from_knn", "sce")]) as rec:
+        emb = record("mandrake", lambda: _mandrake_embedding(
+            args, cd, names, out, device))
+    passes["mandrake"]["sce_seconds"] = rec.seconds()["sce"]
+    if emb.shape != (n, 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"mandrake embedding {emb.shape}, finite "
+                             f"{np.isfinite(emb).all()}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    emit({"phase": "L4c", "genomes": n, "passes": passes,
+          "fetched_edges": int(len(i)), "l3_network_edges":
+              fit.network_edges, "edge_difference":
+              int(len(i)) - fit.network_edges,
+          "clusters": len(set(cl.tolist())), "qc_cuts": cuts.tolist(),
+          "qc_flagged": int(len(qi)),
+          "qc_flag_counts": {"long": int(((flags & 1) > 0).sum()),
+                             "zero": int(((flags & 2) > 0).sum())},
+          "peak_device_bytes": peak, "l3_limit_bytes": l3.limit,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    if on_card and peak > l3.limit:
+        raise AssertionError(f"L4c peak device memory {peak} exceeds L3's "
+                             f"limit {l3.limit}")
     return launches
 
 
@@ -2373,7 +2769,11 @@ def main():
         j = path("J", lambda: phase_j(torch, device, workdir, d, e), *std)
         path("K", lambda: (phase_k(torch, device, workdir, d, e, j.db),
                            None), *std)
-        path("L", lambda: phase_l(torch, device, workdir, d, e), *std)
+        lctx = path("L", lambda: phase_l(torch, device, workdir, d, e),
+                    *std)
+        path("L4", lambda: phase_l4(torch, device, workdir, d, e, lctx),
+             *std)
+        del lctx
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

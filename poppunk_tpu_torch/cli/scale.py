@@ -17,14 +17,18 @@ the fitted database drops into ``poppunk_tpu_torch_assign``:
   <out>_lineages/                  assignments + a LineageFit model
                                    directory from the fused kNN
 
-What this port runs: a BGMM or DBSCAN start model fit on the pair
-subsample, the two-round bootstrap (the refine band's edge fill rides the
-single distance pass), the constrained refine (the device sparse sweep for
---score-idx 0, the native host scorer for 1 and 2), --indiv-refine,
---no-local, --write-lineages and --extract-references. It refuses, before
-any work, the flags whose paths it does not run yet: --unconstrained,
---multi-boundary > 1, --use-model, --run-qc and --mandrake. One card is one
-device: --single-device is accepted and changes nothing.
+What it runs: a BGMM or DBSCAN start model fit on the pair subsample, the
+two-round bootstrap (the refine band's edge fill rides the single distance
+pass), the constrained refine (the device sparse sweep for --score-idx 0,
+the native host scorer for 1 and 2) or the unconstrained 2-D one
+(--unconstrained: one counts pass over the 20 x 20 grid, one fetch of the
+scoreable cells' union, the host scorer per grid row), --multi-boundary,
+--indiv-refine, --no-local, --write-lineages, --extract-references,
+--mandrake (a second streaming pass for the accessory kNN, then the SCE),
+--run-qc (sketch QC and one streaming distance-QC pass before the fit) and
+--use-model (a refine or threshold boundary applied in one streaming
+pass). One card is one device: --single-device is accepted and changes
+nothing.
 
 The distance passes and the sweeps run on ``cuda:<--deviceid>``, and the
 start model too, unless ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU;
@@ -197,15 +201,6 @@ def get_options(arg_list=None):
     return parser.parse_args(arg_list)
 
 
-# flags whose paths this port does not run yet: (flag, is it set?)
-UNPORTED = (
-    ("--unconstrained", lambda a: a.unconstrained),
-    ("--multi-boundary", lambda a: a.multi_boundary > 1),
-    ("--use-model", lambda a: a.use_model),
-    ("--run-qc", lambda a: a.run_qc),
-    ("--mandrake", lambda a: a.mandrake),
-)
-
 # per-step transient budget of the reference's chunk choice (its 16 GB
 # device), scaled on a card by its memory (sparse_sweep.device_hbm_total)
 _CHUNK_BUDGET = 2.5e9
@@ -227,21 +222,28 @@ def _pad_geometry(n_real, chunk, n_kmers=6, budget=_CHUNK_BUDGET):
     return c, n_pad
 
 
+def _chunk_geometry(n_real, args, klist, device):
+    """_pad_geometry at ``device``'s budget: the reference's per-step
+    budget scaled by the card's memory (sparse_sweep.device_hbm_total)."""
+    from ..ops.sparse_sweep import HBM_TOTAL, device_hbm_total
+
+    return _pad_geometry(
+        n_real, args.chunk, n_kmers=len(klist),
+        budget=_CHUNK_BUDGET * device_hbm_total(device) / HBM_TOTAL)
+
+
 def main(arg_list=None):
     args = get_options(arg_list)
-    for flag, is_set in UNPORTED:
-        if is_set(args):
-            sys.stderr.write(
-                f"poppunk_tpu_torch_scale: {flag} is not run by this port "
-                "yet (the JAX package's poppunk_tpu_scale runs it)\n")
-            sys.exit(1)
+    if args.unconstrained and args.indiv_refine:
+        sys.stderr.write(
+            "Unconstrained optimization and indiv-refine incompatible\n")
+        sys.exit(1)
     dist_device, model_device = _device.stage_devices(args)
 
     from ..io.hdf5db import read_db_params, read_sketches
     from ..models.bgmm import BGMMFit
     from ..models.refine import RefineFit
     from ..ops.distances import pack_planes
-    from ..ops.sparse_sweep import HBM_TOTAL, device_hbm_total
     from ..scale import StreamingCondensed, refine_fit_device
 
     ref_db = args.ref_db.rstrip("/")
@@ -265,6 +267,9 @@ def main(arg_list=None):
     sketches = read_sketches(ref_db)  # sorted-name order (the reference's
     # readRfile convention, so .dists.pkl matches assign's expectations)
     names = [sk.name for sk in sketches]
+    if args.run_qc:
+        names, sketches = _run_qc(args, ref_db, output, names, sketches,
+                                  klist, dist_device)
     n_real = len(names)
     n_pairs = n_real * (n_real - 1) // 2
     if n_real < 3:
@@ -275,22 +280,24 @@ def main(arg_list=None):
             f"Maximum rank ({max(ranks)}) must be less than the number "
             f"of samples ({n_real})\n")
         sys.exit(1)
+    if args.use_model:
+        return _use_model(args, ref_db, output, names, sketches, klist,
+                          dist_device, model_device)
     sys.stderr.write(
         f"Streaming fit: {n_real} genomes, {n_pairs} pairs, "
         f"k = {list(map(int, klist))}\n")
 
-    chunk, n_pad = _pad_geometry(
-        n_real, args.chunk, n_kmers=len(klist),
-        budget=_CHUNK_BUDGET * device_hbm_total(dist_device) / HBM_TOTAL)
+    chunk, n_pad = _chunk_geometry(n_real, args, klist, dist_device)
 
     t0 = time.perf_counter()
     planes, lengths, freqs = pack_planes(sketches, klist, plane_major=True,
                                          pad_to=n_pad)
     subsample = min(args.model_subsample, n_pairs)
-    # two-round bootstrap (score_idx 0): fit the start model on directly
-    # computed subsample distances first, then fuse the refine band's edge
-    # fill into the single streaming pass (scale.plan_sweep_band)
-    bootstrap = (args.score_idx == 0
+    # two-round bootstrap (score_idx 0, constrained): fit the start model
+    # on directly computed subsample distances first, then fuse the refine
+    # band's edge fill into the single streaming pass
+    # (scale.plan_sweep_band)
+    bootstrap = (args.score_idx == 0 and not args.unconstrained
                  and os.environ.get("POPPUNK_TPU_BOOTSTRAP", "1") != "0")
     cd = StreamingCondensed(
         planes, lengths, freqs, klist, sketches[0].sketchsize64,
@@ -360,16 +367,36 @@ def main(arg_list=None):
             f"no O(n^2) tensor)\n")
 
     t0 = time.perf_counter()
-    opt_x, opt_y, s_opt, sweep = refine_fit_device(
-        cd, start.scale, mean0, mean1, max_move=args.pos_shift,
-        min_move=args.neg_shift, score_idx=args.score_idx,
-        betweenness_sample=args.betweenness_sample, seed=args.seed,
-        max_sweep_fetch=args.max_sweep_fetch, no_local=args.no_local,
-        est_pairs=sub, prefill=cd.pop_prefill())
+    if args.unconstrained:
+        from ..scale import refine_fit_device_2d
+
+        opt_x, opt_y, sweep = refine_fit_device_2d(
+            cd, start.scale, mean0, mean1, max_move=args.pos_shift,
+            min_move=args.neg_shift, score_idx=args.score_idx,
+            betweenness_sample=args.betweenness_sample, seed=args.seed,
+            max_sweep_fetch=args.max_sweep_fetch, no_local=args.no_local)
+        s_opt = None
+    else:
+        opt_x, opt_y, s_opt, sweep = refine_fit_device(
+            cd, start.scale, mean0, mean1, max_move=args.pos_shift,
+            min_move=args.neg_shift, score_idx=args.score_idx,
+            betweenness_sample=args.betweenness_sample, seed=args.seed,
+            max_sweep_fetch=args.max_sweep_fetch, no_local=args.no_local,
+            est_pairs=sub, prefill=cd.pop_prefill())
     sys.stderr.write(
         f"Refined boundary: core {opt_x * start.scale[0]:.6f}, "
         f"accessory {opt_y * start.scale[1]:.6f} "
         f"in {time.perf_counter() - t0:.1f}s\n")
+
+    if args.multi_boundary > 1:
+        from ..scale import multi_refine_device
+
+        sys.stderr.write("Creating multiple boundary fits\n")
+        multi_refine_device(
+            cd, start.scale, mean0, mean1, s_opt, args.multi_boundary,
+            output, names, score_idx=args.score_idx,
+            betweenness_sample=args.betweenness_sample, seed=args.seed,
+            max_sweep_fetch=args.max_sweep_fetch)
 
     model = RefineFit(output, seed=args.seed, device=model_device)
     model.scale = np.copy(start.scale)
@@ -379,6 +406,7 @@ def main(arg_list=None):
     model.core_boundary, model.accessory_boundary = opt_x, opt_y
     model.fitted = True
     model.indiv_fitted = False
+    model.unconstrained = args.unconstrained
 
     # core-only / accessory-only refits (PopPUNK/models.py:923-948) —
     # the same streaming sweep at slope 0 / 1
@@ -424,6 +452,10 @@ def main(arg_list=None):
     if args.write_lineages:
         _write_lineages(cd, ranks, names, output, args)
 
+    if args.mandrake:
+        # a second pass over cd's resident planes: no second upload
+        _mandrake_embedding(args, cd, names, output, model_device)
+
     if args.extract_references:
         _extract_refs(clusters, names, ref_db, output, args)
 
@@ -435,6 +467,185 @@ def main(arg_list=None):
     return model
 
 
+def _use_model(args, ref_db, output, names, sketches, klist, dist_device,
+               model_device):
+    """--use-model: apply an existing refine/threshold boundary to this
+    database with ONE streaming pass (the reference's --use-model
+    re-assigns the full host matrix, __main__.py:520-545). Writes the
+    same artefacts as a fit: _fit copies, _graph, _clusters.csv,
+    .dists.pkl. The model may have been written by either package."""
+    from ..models import load_cluster_fit
+    from ..network.clusters import print_clusters
+    from ..network.graph import Graph, save_network
+    from ..network.summary import print_network_summary
+    from ..ops.distances import pack_planes
+    from ..scale import fetch_within_boundary
+
+    model_dir = (args.model_dir or ref_db).rstrip("/")
+    model = load_cluster_fit(file_base(model_dir) + "_fit.pkl",
+                             file_base(model_dir) + "_fit.npz",
+                             out_prefix=output, device=model_device)
+    if model.type != "refine":
+        sys.stderr.write(
+            "poppunk_tpu_torch_scale --use-model streams refine/threshold "
+            f"boundaries; a '{model.type}' model needs the standard "
+            "poppunk_tpu_torch --use-model (host distances)\n")
+        sys.exit(1)
+    if model.threshold:
+        slope, bx, by = 0, model.core_boundary, 0.0
+    else:
+        slope, bx, by = model.slope, model.optimal_x, model.optimal_y
+    n = len(names)
+    for flag, val in (("--write-lineages", args.write_lineages),
+                      ("--mandrake", args.mandrake),
+                      ("--extract-references", args.extract_references),
+                      ("--indiv-refine", args.indiv_refine)):
+        if val:
+            sys.stderr.write(
+                f"WARNING: {flag} is ignored with --use-model (the "
+                "boundary pass skips the kNN/fit stages those need)\n")
+    sys.stderr.write(
+        f"Applying existing boundary to {n} genomes "
+        f"({n * (n - 1) // 2} pairs, one streaming pass)\n")
+
+    t0 = time.perf_counter()
+    chunk, n_pad = _chunk_geometry(n, args, klist, dist_device)
+    planes, lengths, freqs = pack_planes(sketches, klist, plane_major=True,
+                                         pad_to=n_pad)
+    i, j = fetch_within_boundary(
+        planes, lengths, freqs, klist, sketches[0].sketchsize64,
+        sketches[0].bbits, chunk, n, model.scale, bx, by, slope,
+        max_fetch=max(args.max_sweep_fetch, 100_000_000),
+        device=dist_device)
+    sys.stderr.write(
+        f"Boundary pass: {len(i)} within-strain pairs in "
+        f"{time.perf_counter() - t0:.1f}s\n")
+
+    G = Graph(n, np.stack([i, j], axis=1).astype(np.int64))
+    print_network_summary(G, sample_size=args.summary_sample,
+                          betweenness_sample=args.betweenness_sample)
+    save_network(G, prefix=output, suffix="_graph")
+    clustering, _ = print_clusters(
+        G, names, out_prefix=file_base(output),
+        external_cluster_csv=args.external_clustering, write_unwords=True)
+    sys.stderr.write(
+        f"Network: {len(i)} edges, "
+        f"{len(set(clustering.values()))} clusters\n")
+
+    store_pickle(names, names, True, None, default_dists(output))
+    model.save()
+    ref_h5 = db_h5_path(ref_db)
+    out_h5 = db_h5_path(output)
+    if os.path.isfile(ref_h5) and not os.path.exists(out_h5):
+        shutil.copy(ref_h5, out_h5)
+    sys.stderr.write("Done\n")
+    return model
+
+
+def _mandrake_embedding(args, cd, names, output, device):
+    """SCE embedding from one extra streaming pass over ``cd``'s resident
+    planes that accumulates the ACCESSORY kNN (the reference's mandrake
+    gathers kNN from a dense square accessory matrix, mandrake.py:60-67 —
+    an O(n^2) object this path never builds); the optimiser on
+    ``device``."""
+    from ..embedding import embedding_from_knn, write_mandrake_dot
+    from ..scale import StreamingCondensed
+
+    t0 = time.perf_counter()
+    k = min(50, cd.n - 1)
+    cd2 = StreamingCondensed(cd.planes, cd.lengths, cd.freqs, cd._klist,
+                             cd._ss64, cd._bbits, chunk=cd.chunk, knn=k,
+                             dist_col=1, n_real=cd.n)
+    rows, cols, dists = cd2.knn_sparse()
+    emb = embedding_from_knn(rows, cols, dists, cd.n, k,
+                             args.perplexity, max_iter=args.mandrake_iter,
+                             seed=args.seed, device=device)
+    path = (file_base(output) + "_perplexity" + str(args.perplexity)
+            + "_accessory_mandrake.dot")
+    write_mandrake_dot(names, emb, path)
+    sys.stderr.write(
+        f"Mandrake embedding (accessory kNN k={k}) in "
+        f"{time.perf_counter() - t0:.1f}s\n")
+    return emb
+
+
+def _run_qc(args, ref_db, output, names, sketches, klist, device):
+    """Sketch QC (host, h5 attributes) + streaming distance QC
+    (scale.qc_bad_pairs_streaming on ``device``), replicating
+    qc.qc_dist_mat's greedy prune_edges semantics without a host condensed
+    matrix. Returns the passing (names, sketches); unless --qc-keep, the
+    output database is written pruned and failures go to _qcreport.txt."""
+    from ..io.hdf5db import add_random, remove_from_db
+    from ..ops.distances import pack_planes
+    from ..qc import prune_edges, sketch_qc, write_qc_failure_report
+    from ..scale import qc_bad_pairs_streaming
+    from .common import qc_dict_from_args
+
+    # unset flags fall through to DEFAULT_QC (the reference qc.py
+    # defaults: max_pi 0.1, max_a 0.5, prop_zero 0.05)
+    qc_dict = qc_dict_from_args(args)
+    n = len(names)
+    _, fail_sketch = sketch_qc(ref_db, names, qc_dict)
+
+    sys.stderr.write(
+        "Running streaming QC on distances (cutoffs: core "
+        f"{qc_dict['max_pi_dist']}, accessory {qc_dict['max_a_dist']}, "
+        f"zero proportion {qc_dict['prop_zero']})\n")
+    chunk, n_pad = _chunk_geometry(n, args, klist, device)
+    planes, lengths, freqs = pack_planes(sketches, klist,
+                                         plane_major=True, pad_to=n_pad)
+    i, j, flags = qc_bad_pairs_streaming(
+        planes, lengths, freqs, klist, sketches[0].sketchsize64,
+        sketches[0].bbits, chunk, n, qc_dict["max_pi_dist"],
+        qc_dict["max_a_dist"],
+        # prop_zero >= 1 disables the zero rule: skip zero-pair
+        # compaction (clonal populations hold O(n_pairs) zero pairs)
+        check_zero=qc_dict["prop_zero"] < 1, device=device)
+    long_mask = (flags & 1) > 0
+    long_edges = list(zip(i[long_mask].tolist(), j[long_mask].tolist()))
+    failed_idx = prune_edges(long_edges, query_start=n)
+    fail_dist = {names[x]: ["Failed distance QC (too high)"]
+                 for x in failed_idx}
+    if qc_dict["prop_zero"] < 1:
+        zero_count = round(qc_dict["prop_zero"] * n)
+        zero_mask = (flags & 2) > 0
+        zero_edges = list(zip(i[zero_mask].tolist(),
+                              j[zero_mask].tolist()))
+        failed_idx = prune_edges(zero_edges, query_start=n,
+                                 failed=failed_idx, min_count=zero_count)
+        for x in failed_idx:
+            fail_dist.setdefault(names[x], []).append(
+                "Failed distance QC (too many zeros)")
+    fail_dicts = [fail_sketch, fail_dist]
+    failed = set(fail_sketch) | {names[x] for x in failed_idx}
+    if not failed:
+        sys.stderr.write("All samples passed QC\n")
+        return names, sketches
+
+    write_qc_failure_report(sorted(failed), fail_dicts, output)
+    if args.retain_failures:
+        # before the qc_keep return: the host twin remove_qc_fail writes
+        # the retained-failures db regardless of no_remove (qc.py)
+        remove_from_db(
+            db_h5_path(ref_db),
+            os.path.join(output, f"failed.{os.path.basename(output)}.h5"),
+            set(names) - failed, full_names=True)
+    if args.qc_keep:
+        sys.stderr.write(
+            f"{len(failed)} samples failed QC (kept; see _qcreport.txt)\n")
+        return names, sketches
+    tmp = os.path.join(output, f"filtered.{os.path.basename(output)}.h5")
+    remove_from_db(db_h5_path(ref_db), tmp, failed, full_names=True)
+    os.rename(tmp, db_h5_path(output))
+    passed = [x for x in names if x not in failed]
+    add_random(output, passed, klist,
+               strand_preserved=args.strand_preserved, overwrite=True)
+    sys.stderr.write(
+        f"{len(failed)} samples failed QC and were removed\n")
+    by_name = {sk.name: sk for sk in sketches}
+    return passed, [by_name[x] for x in passed]
+
+
 def _network_and_clusters(cd, sweep, s_opt, names, output, args,
                           suffix="", slope=2, boundary=None):
     """Final network at the refined boundary -> _graph + _clusters.csv
@@ -444,7 +655,14 @@ def _network_and_clusters(cd, sweep, s_opt, names, output, args,
     from ..network.graph import Graph, save_network
     from ..scale import offset_threshold
 
-    if sweep[0] == "edges":
+    if sweep[0] == "sparse2d":
+        from ..scale import inside_2d_host
+
+        _, i, j, xs, ys = sweep
+        bx, by = boundary
+        mask = inside_2d_host(xs, ys, bx, by)
+        edges = np.stack([i[mask], j[mask]], axis=1).astype(np.int64)
+    elif sweep[0] == "edges":
         # device-resident sweep: fetch only the optimal boundary's edges
         # (the artefact needs them on the host; the sweep itself never
         # left the device)

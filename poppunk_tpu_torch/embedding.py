@@ -245,6 +245,17 @@ def generate_embedding(seq_labels, acc_mat, perplexity, out_prefix, overwrite,
     return mandrake_filename
 
 
+def embedding_from_knn(I, J, dists, n, knn, perplexity, max_iter=10_000_000,
+                       seed=42, device=None):
+    """2-D SCE embedding straight from a kNN triple — the scale tier's
+    entry (poppunk_tpu_torch/scale.py accumulates the accessory kNN inside
+    the distance pass, so no square accessory matrix ever exists; the
+    reference's mandrake needs one, mandrake.py:60-67), the optimiser on
+    ``device`` (None: ``_device.resolve``'s choice)."""
+    return _sce_from_knn(I, J, dists, n, knn, perplexity, max_iter, seed,
+                         device)
+
+
 def write_mandrake_dot(seq_labels, embedding, mandrake_filename):
     """The reference's .dot output (mandrake.py:112-120)."""
     with open(mandrake_filename, "w") as n_file:

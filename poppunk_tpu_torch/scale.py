@@ -26,7 +26,14 @@ Passes:
   - the sweeps: exact per-offset counts (sweep_counts_streaming), the
     sparse in-boundary fetch for the host scorer (sweep_first_offsets) and
     the device-resident edge fill for ops/sparse_sweep
-    (sweep_fill_device); refine_fit_device drives them.
+    (sweep_fill_device); refine_fit_device drives them;
+  - the 2-D (unconstrained) sweep: exact per-cell counts
+    (sweep2d_counts_streaming) and the fetch of the pairs inside the
+    scoreable cells' union (sweep2d_fetch_streaming) for
+    refine_fit_device_2d; multi_refine_device's counts and fetch;
+  - the fixed-boundary fetch (fetch_within_boundary, --use-model) and the
+    distance QC (qc_bad_pairs_streaming, --run-qc), on planes given as
+    numpy or already resident on the device.
 
 What differs from the reference, and why:
   - no dispatch plan: the reference split passes into dispatches of
@@ -38,7 +45,10 @@ What differs from the reference, and why:
     only those that fit the buffer (the reference scattered dropped lanes
     to out-of-range destinations, fault 2);
   - the per-threshold histogram is a searchsorted + bincount + cumsum
-    rather than one compare-and-sum per threshold;
+    rather than one compare-and-sum per threshold; the 2-D counts compare
+    every cell, as the reference's do;
+  - every compacting pass (the fetches, QC) takes each chunk's
+    ``torch.nonzero`` rather than sorting a power-of-two bucket;
   - memory budgets are the card's (ops/sparse_sweep.device_hbm_total).
 
 Pads: odd populations (or any n off the chunk grid) are padded with zero
@@ -584,17 +594,23 @@ class _SweepGeometry:
         return _d0_chunk(flat, self.scale, self.xm0, self.ym0, self.slope)
 
 
-def _stream_d0(cd, geom):
-    """(s, d0 of the folded chunk from row s) for every chunk: the
-    recompute shared by the sweep passes (the reference's
-    _stream_sweep_group / _stream_sweep_counts / _stream_fill_group)."""
+def _stream_pairs(cd):
+    """(s, the folded chunk from row s as flat [c * (n - 1), 2] distances)
+    for every chunk: the recompute shared by every pass after pass 1 (the
+    reference's sweep, 2-D, QC and boundary groups)."""
     n_pad = cd._n_pad
     nr = cd._n_real if cd._n_real < n_pad else None
     for s in range(0, fold_rows(n_pad), cd.chunk):
         folded, _, _ = _fold_block(cd.planes, cd.lengths, cd.freqs, s,
                                    cd.chunk, cd._klist, cd._ss64, cd._bbits,
                                    cd._pad_bits, 0, 0, nr)
-        yield s, geom.d0(folded.reshape(-1, 2))
+        yield s, folded.reshape(-1, 2)
+
+
+def _stream_d0(cd, geom):
+    """(s, d0 of the folded chunk from row s) for every chunk."""
+    for s, flat in _stream_pairs(cd):
+        yield s, geom.d0(flat)
 
 
 def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1):
@@ -1061,3 +1077,350 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
     else:
         sweep_data = ("sparse", i, j, idx, d0, s_range, line)
     return optimal_x, optimal_y, s_opt, sweep_data
+
+
+# ---------------------------------------------------------------------------
+# 2-D (unconstrained) streaming sweep
+#
+# The unconstrained search scores a 20x20 grid of (x_max, y_max)
+# boundaries (PopPUNK/refine.py:116-166 — the reference farms y rows to a
+# process pool over the full HOST matrix). Streaming twin: boundaries
+# nest in both axes (inside at (xm, ym) => inside at any larger pair), so
+# one counts pass sees every cell's density and ONE fetch pass gathers
+# each in-union pair's scaled (x, y) coordinates; per-cell membership and
+# first-x-offsets are then host arithmetic over the O(E) fetched pairs.
+
+
+def _inside_2d(x, y, xm, ym):
+    """Pair (x, y) inside the slope-2 boundary through (xm, 0), (0, ym)
+    — ops/boundary.line_dist <= 0, incl. the degenerate-axis sqrt case.
+    THE single definition of the 2-D membership rule on the device; every
+    streaming pass calls this (or its host twin inside_2d_host) so the
+    semantics cannot drift. float32 tensors that broadcast (a grid row's
+    x_max as a column against a chunk's pairs). Each op rounds on its own,
+    in the reference's order: a fused kernel could contract y * xm + x * ym
+    into an FMA and move pairs that graze the boundary."""
+    linear = y * xm + x * ym - xm * ym
+    return torch.where(xm * ym == 0, torch.sqrt(x * x + y * y) <= 0,
+                       linear <= 0)
+
+
+def inside_2d_host(x, y, xm, ym):
+    """Host twin of _inside_2d for already-fetched pair coordinates —
+    same rule, numpy, f32 arithmetic like the device passes. Change the
+    two together."""
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    if xm * ym == 0:
+        return np.sqrt(x * x + y * y) <= 0
+    return y * np.float32(xm) + x * np.float32(ym) \
+        - np.float32(xm) * np.float32(ym) <= 0
+
+
+def _f32(cd, values):
+    return torch.as_tensor(np.asarray(values, np.float32), device=cd.device)
+
+
+def _scaled(flat, scale):
+    """(x, y) of a chunk's distances over the column scale (float32)."""
+    Xs = flat / scale
+    return Xs[:, 0], Xs[:, 1]
+
+
+def sweep2d_counts_streaming(cd, scale, x_grid, y_grid):
+    """Exact int64 in-boundary pair counts for every (y, x) cell,
+    [len(y_grid), len(x_grid)]. Every cell is compared with _inside_2d
+    (the first-x-offset shortcut of refine_fit_device_2d's host step can
+    move a grazing pair by one cell); the transient is one grid row,
+    [len(x_grid), c * (n - 1)]."""
+    xg = _f32(cd, x_grid)[:, None]
+    yg = _f32(cd, y_grid)
+    scale_d = _f32(cd, scale)
+    cum = torch.zeros((yg.shape[0], xg.shape[0]), dtype=torch.int64,
+                      device=cd.device)
+    for _, flat in _stream_pairs(cd):
+        x, y = _scaled(flat, scale_d)
+        for r in range(yg.shape[0]):
+            cum[r] += _inside_2d(x, y, xg, yg[r]).sum(dim=1)
+    return cum.cpu().numpy()
+
+
+def sweep2d_fetch_streaming(cd, scale, x_caps, y_grid):
+    """(i, j, x_scaled, y_scaled) for pairs inside the union of per-row
+    cap boundaries (x_caps[r] = widest scoreable x_max of row r, <= 0
+    disables the row) — the O(E) host working set of the 2-D sweep, in
+    folded order, i and j int32."""
+    rows = [r for r, xm in enumerate(np.asarray(x_caps, np.float32))
+            if xm > 0]
+    xc = _f32(cd, x_caps)
+    yg = _f32(cd, y_grid)
+    scale_d = _f32(cd, scale)
+    n_pad = cd._n_pad
+    pos_out, x_out, y_out = [], [], []
+    for s, flat in _stream_pairs(cd):
+        x, y = _scaled(flat, scale_d)
+        inside = torch.zeros(x.shape[0], dtype=torch.bool, device=cd.device)
+        for r in rows:
+            inside |= _inside_2d(x, y, xc[r], yg[r])
+        pos = torch.nonzero(inside).squeeze(1)
+        if pos.shape[0] == 0:
+            continue
+        pos_out.append(pos.cpu().numpy() + s * (n_pad - 1))
+        x_out.append(x[pos].cpu().numpy())
+        y_out.append(y[pos].cpu().numpy())
+    if not pos_out:
+        z = np.zeros(0, np.int32)
+        return z, z, np.zeros(0, np.float32), np.zeros(0, np.float32)
+    i, j = fold_inverse(np.concatenate(pos_out), n_pad)
+    return (i.astype(np.int32), j.astype(np.int32),
+            np.concatenate(x_out), np.concatenate(y_out))
+
+
+def refine_fit_device_2d(cd, scale, mean0, mean1, max_move=0.9,
+                         min_move=1e-9, score_idx=0, betweenness_sample=100,
+                         seed=42, grid=20, max_sweep_fetch=40_000_000,
+                         no_local=False):
+    """Unconstrained 2-D boundary optimisation over a streaming
+    population (models/refine.refine_fit unconstrained branch,
+    PopPUNK/refine.py:116-166, with the host matrix replaced by one
+    streaming counts pass + one O(E) fetch).
+
+    Cells whose in-boundary pair count exceeds max_sweep_fetch score 1
+    (worst) — the optimum never captures a between-strain-scale pair
+    fraction. Returns (optimal_x, optimal_y, sweep_data) with
+    sweep_data = ("sparse2d", i, j, xs, ys).
+    """
+    from .network.incremental import grow_network_scores
+    from .utils import decision_boundary
+
+    rng = np.random.default_rng(seed)
+    gradient = (mean1[1] - mean0[1]) / (mean1[0] - mean0[0])
+    x_start, y_start = decision_boundary(np.copy(mean0), gradient,
+                                         adj=-min_move)
+    x_end, y_end = decision_boundary(np.copy(mean1), gradient,
+                                     adj=max_move)
+    if x_start < -1e-9 or y_start < -1e-9:
+        raise RuntimeError("Boundary range below zero")
+    x_max = np.linspace(x_start, x_end, grid, dtype=np.float32)
+    y_max = np.linspace(y_start, y_end, grid, dtype=np.float32)
+
+    cum = sweep2d_counts_streaming(cd, scale, x_max, y_max)
+    if cum[-1, -1] == cd.n_pairs:
+        raise SweepSaturated("Boundary range includes all points")
+    scoreable = cum <= max_sweep_fetch
+    if not scoreable.any():
+        raise SweepSaturated(
+            f"tightest 2-D cell already holds {cum[0, 0]} pairs "
+            f"(> max_sweep_fetch {max_sweep_fetch})")
+    if not scoreable.all():
+        sys.stderr.write(
+            f"refine 2D: {int((~scoreable).sum())}/{grid * grid} cells "
+            f"hold > max_sweep_fetch ({max_sweep_fetch}) pairs; "
+            "scored as 1\n")
+    # per-row widest scoreable x_max (rows are nested in x, so the
+    # scoreable region of a row is a prefix)
+    n_act = scoreable.sum(axis=1)
+    x_caps = np.where(n_act > 0, x_max[np.maximum(n_act - 1, 0)],
+                      0.0).astype(np.float32)
+    i, j, xs, ys = sweep2d_fetch_streaming(cd, scale, x_caps, y_max)
+
+    global_s = np.ones((grid, grid))
+    xs64 = xs.astype(np.float64)
+    ys64 = ys.astype(np.float64)
+    for r in range(grid):
+        if n_act[r] == 0:
+            continue
+        # first x offset of each fetched pair in this row: inside at
+        # x_max[k] iff x * ym / (ym - y) <= x_max[k] (rounding at
+        # boundary-grazing pairs can shift one cell, same caveat as
+        # threshold_iterate_1d_fast); pairs never inside get
+        # idx >= n_act[r] and are dropped
+        ym = float(y_max[r])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = np.where(ys64 < ym, xs64 * ym / (ym - ys64), np.inf)
+        idx = np.searchsorted(x_max[:int(n_act[r])].astype(np.float64), t,
+                              side="left").astype(np.int32)
+        keep = idx < int(n_act[r])
+        global_s[r, :n_act[r]] = grow_network_scores(
+            cd.n, i[keep], j[keep], idx[keep], int(n_act[r]),
+            score_idx, betweenness_sample, rng=rng)
+    global_s[np.isnan(global_s)] = 1
+    r_min, c_min = np.unravel_index(int(np.argmin(global_s)),
+                                    global_s.shape)
+    optimal_x = float(x_max[c_min])
+    optimal_y = float(y_max[r_min])
+
+    interior = (x_start < optimal_x < x_end and y_start < optimal_y < y_end
+                and scoreable[min(r_min + 1, grid - 1),
+                              min(c_min + 1, grid - 1)])
+    if interior and not no_local:
+        # local 1-D refinement along the optimum's gradient line
+        # (refine.py:159-164): micro-grid via the native engine, two
+        # bisection levels like the 1-D streaming path. The upper bound
+        # is clamped so every probed boundary stays inside the fetched
+        # union (x <= x_max[c_min+1] AND the induced y <= y_max[r_min+1])
+        delta = float(x_max[1] - x_max[0])
+        x0, y0 = optimal_x, optimal_y
+        grad_l = x0 / y0
+        best = global_s[r_min, c_min]
+        # bisect in ABSOLUTE s around the fixed grid optimum (the 1-D
+        # twin's convention) so level 2 refines level 1's winning
+        # interval rather than re-shifting an already-moved optimum
+        hi_y = x0 * (float(y_max[r_min + 1]) / y0 - 1.0)
+        lo, hi = -delta, min(delta, hi_y)
+        for _level in range(2):
+            sub_s = np.linspace(lo, hi, 18)[1:-1]
+            cells = [(x0 + s, (x0 + s) / grad_l) for s in sub_s]
+            scores = np.ones(len(cells))
+            for ci, (xm, ym) in enumerate(cells):
+                if xm <= 0 or ym <= 0:
+                    continue
+                mask = inside_2d_host(xs, ys, xm, ym)
+                scores[ci] = grow_network_scores(
+                    cd.n, i[mask], j[mask],
+                    np.zeros(int(mask.sum()), np.int32), 1, score_idx,
+                    betweenness_sample, rng=rng)[0]
+            k_min = int(np.argmin(scores))
+            if scores[k_min] < best:
+                best = scores[k_min]
+                optimal_x, optimal_y = cells[k_min]
+            lo = sub_s[k_min - 1] if k_min > 0 else lo
+            hi = sub_s[k_min + 1] if k_min < len(sub_s) - 1 else hi
+    if optimal_x < 0 or optimal_y < 0:
+        raise RuntimeError("Optimisation produced a boundary outside range")
+    return float(optimal_x), float(optimal_y), ("sparse2d", i, j, xs, ys)
+
+
+def multi_refine_device(cd, scale, mean0, mean1, s_max, n_boundary_points,
+                        output_prefix, sample_names, score_idx=0,
+                        betweenness_sample=100, seed=42,
+                        max_sweep_fetch=40_000_000):
+    """Cluster outputs at boundary positions from the origin toward the
+    optimum (models/refine.multi_refine, PopPUNK/refine.py:249-312) over
+    a streaming population: one capped sweep fetch at the optimum's
+    boundary, then the native incremental scorer writes
+    _boundary{i}_clusters.csv at every offset."""
+    from math import sqrt
+
+    from .network.incremental import grow_network_scores
+
+    rng = np.random.default_rng(seed)
+    gradient = (mean1[1] - mean0[1]) / (mean1[0] - mean0[0])
+    if mean0[1] >= gradient * mean0[0]:
+        s_min = -mean0[0] * sqrt(1 + gradient * gradient)
+    else:
+        s_min = -mean0[1] * sqrt(1 + 1 / (gradient * gradient))
+    s_range = np.linspace(s_min, s_max, num=n_boundary_points)
+    line = (mean0[0], mean0[1], mean1[0], mean1[1])
+    cum = sweep_counts_streaming(cd, scale, s_range, 2, *line)
+    if cum[-1] > max_sweep_fetch:
+        raise RuntimeError(
+            f"optimum boundary holds {cum[-1]} pairs "
+            f"(> max_sweep_fetch {max_sweep_fetch})")
+    i, j, idx, _ = sweep_first_offsets(cd, scale, s_range, 2, *line)
+    grow_network_scores(cd.n, i, j, idx, n_boundary_points, score_idx,
+                        betweenness_sample, write_clusters=output_prefix,
+                        sample_names=sample_names, rng=rng)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-boundary and QC passes over a plane-major population
+
+
+def _operands(planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
+              n_real, device):
+    """A StreamingCondensed whose pass 1 never runs: the operands on the
+    device (numpy planes moved there; a resident tensor taken as it is,
+    never copied) and the chunk geometry, for _stream_pairs."""
+    return StreamingCondensed(planes, lengths, freqs, klist, sketchsize64,
+                              bbits, chunk=chunk, knn=0, n_real=n_real,
+                              defer=True, device=device)
+
+
+def _compact(cd, pass_fn, max_fetch, what):
+    """Flat folded positions where ``pass_fn(flat)`` (a [m] bool or uint8
+    flag tensor per chunk) is non-zero, with the flags there, in folded
+    order; raises RuntimeError once more than ``max_fetch`` are found."""
+    n_pad = cd._n_pad
+    pos_out, flag_out = [], []
+    total = 0
+    for s, flat in _stream_pairs(cd):
+        flags = pass_fn(flat)
+        pos = torch.nonzero(flags).squeeze(1)
+        total += pos.shape[0]
+        if total > max_fetch:
+            raise RuntimeError(f"more than {max_fetch} pairs {what}")
+        if pos.shape[0]:
+            pos_out.append(pos.cpu().numpy() + s * (n_pad - 1))
+            flag_out.append(flags[pos].cpu().numpy())
+    if not pos_out:
+        return np.zeros(0, np.int64), np.zeros(0, np.uint8)
+    return np.concatenate(pos_out), np.concatenate(flag_out)
+
+
+def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
+                           bbits, chunk, n_real, max_pi_dist, max_a_dist,
+                           max_fetch=40_000_000, check_zero=True,
+                           device=None):
+    """Distance-QC pre-pass over a plane-major population with no O(n^2)
+    anywhere: the streaming twin of qc.qc_dist_mat's row scan
+    (qcDistMat, PopPUNK/qc.py:295-369 loads the full condensed matrix).
+
+    Returns (i, j, flags) in condensed (i asc, j asc) order for every pair
+    that is too long (flag bit 1) or has a zero column (bit 2), so that
+    qc.prune_edges' stable sort breaks ties as the host qc_dist_mat path's
+    row order does. Pad pairs (+inf) fail neither rule (the isfinite
+    gate). check_zero=False (prop_zero >= 1, the rule disabled) skips zero
+    pairs: clonal populations hold O(n_pairs) of them. planes: numpy, or
+    an int32 tensor already on its device (``device`` None:
+    ``_device.resolve``'s choice)."""
+    cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
+                   chunk, n_real, device)
+    max_pi = torch.tensor(max_pi_dist, dtype=torch.float32, device=cd.device)
+    max_a = torch.tensor(max_a_dist, dtype=torch.float32, device=cd.device)
+
+    def flag(flat):
+        core, acc = flat[:, 0], flat[:, 1]
+        finite = torch.isfinite(core)
+        flags = (finite & ((core > max_pi) | (acc > max_a))).to(torch.uint8)
+        if check_zero:
+            flags += 2 * (finite & ((core == 0) | (acc == 0))).to(
+                torch.uint8)
+        return flags
+
+    pos, flags = _compact(
+        cd, flag, max_fetch, "fail distance QC — the thresholds reject most "
+        "of the population; loosen --max-pi-dist/--max-a-dist")
+    i, j = fold_inverse(pos, cd._n_pad)
+    order = np.lexsort((j, i))
+    return i[order], j[order], flags[order]
+
+
+def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
+                          bbits, chunk, n_real, scale, bx, by, slope=2,
+                          max_fetch=100_000_000, device=None):
+    """(i, j) of every pair inside a fixed boundary, streamed from the
+    sketches with no O(n^2) tensor — the --use-model path's network
+    construction (the reference re-assigns the full host matrix,
+    PopPUNK/__main__.py:520-545 via models.py assign). Exactly the
+    assign_threshold <= 0 rule on scaled distances: _inside_2d at slope
+    2, x - bx <= 0 at slope 0, y - by <= 0 at slope 1. int32, in folded
+    order; raises RuntimeError past ``max_fetch``. planes: numpy, or an
+    int32 tensor already on its device, as qc_bad_pairs_streaming's."""
+    cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
+                   chunk, n_real, device)
+    scale_d = _f32(cd, scale)
+    bxd, byd = _f32(cd, bx), _f32(cd, by)
+
+    def inside(flat):
+        x, y = _scaled(flat, scale_d)
+        if slope == 2:
+            return _inside_2d(x, y, bxd, byd)
+        if slope == 0:
+            return x - bxd <= 0
+        return y - byd <= 0
+
+    pos, _ = _compact(cd, inside, max_fetch, "fall inside the boundary — "
+                      "the model boundary captures most of this population")
+    i, j = fold_inverse(pos, cd._n_pad)
+    return i.astype(np.int32), j.astype(np.int32)

@@ -9,7 +9,8 @@
   sweep in torch, the unpickler that never imports the JAX package, the
   DBSCAN model's device, NJ and the SCE optimisers in torch, the device
   argument of the visualisation, embedding, tree and web entry points, the
-  tools' CLI names and device choice).
+  tools' CLI names and device choice, the scale tier's passes in torch and
+  its CLI's devices).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
 - ``ops/distances.pack_planes`` packs what the JAX package's packs, in
@@ -126,7 +127,8 @@ COPIES = {
                           "use_device_nj"), None),
     "embedding.py": (("_sce_optimize_dense", "_sce_optimize_sampled",
                       "sce_embedding_condensed", "sce_embedding",
-                      "_sce_from_knn", "generate_embedding"), None),
+                      "_sce_from_knn", "generate_embedding",
+                      "embedding_from_knn"), None),
     "web.py": (("assign_sketch_json", "main"), ()),
     "visualise.py": (("generate_visualisations", "_dense_matrices",
                       "query_db_sketches"), ()),
@@ -141,11 +143,13 @@ COPIES = {
                   "_pair_block_dists", "StreamingCondensed", "_d0_chunk",
                   "sweep_counts_streaming", "sweep_first_offsets",
                   "sweep_fill_device", "plan_sweep_band",
-                  "refine_fit_device"), None),
+                  "refine_fit_device", "_inside_2d",
+                  "sweep2d_counts_streaming", "sweep2d_fetch_streaming",
+                  "qc_bad_pairs_streaming", "fetch_within_boundary"), None),
     "ops/sparse_sweep.py": (("SweepEdges", "sweep_scores_sparse_device",
                              "hbm_feasible", "max_edge_cap"), None),
-    "cli/scale.py": (("get_options", "main", "_pad_geometry",
-                      "_network_and_clusters"), None),
+    "cli/scale.py": (("get_options", "main", "_pad_geometry", "_use_model",
+                      "_mandrake_embedding", "_run_qc"), None),
 }
 
 
