@@ -75,8 +75,18 @@ Phases, each printing one JSON line with its seconds:
      components L3's clusters), the QC pass, the accessory kNN and SCE of
      --mandrake, each pass's seconds and kernel time, peak device memory
      held to L3's limit
+  M  the buffered scale pipeline and the helper scripts: M1
+     run_scale_pipeline(n=20480) at the reference's defaults on the card
+     (the folded condensed buffer, the 40-offset matmul sweep, components
+     on the card; stage seconds, the fill's launches and kernel time,
+     peak device memory under 16 GB, the planted strains), the kernel
+     held to its plain version at the fill's operands; M2 the same
+     population through the streaming route (the partition and edge
+     count M1's, and at M1's boundary the dense product's edge count the
+     streamed exact count); M3 ``python -m poppunk_tpu_torch --version``
+     and the helper scripts on phase D's database
 Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D, E, H-L4, the packed kernel's over F and
+launches counted over phases D, E, H-M, the packed kernel's over F and
 G, each phase run with the counts set to 0 just before it), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; so does a host without CUDA.
@@ -2709,6 +2719,321 @@ def phase_l4c(torch, device, workdir, l3):
 
 
 # --------------------------------------------------------------------------
+# M: the buffered scale pipeline, its streaming twin, the helper scripts
+# --------------------------------------------------------------------------
+
+# the 16 GB chip the reference sized MATMUL_SWEEP_MAX_N (20480) for
+M1_LIMIT_BYTES = 16e9
+
+
+class Capture:
+    """(args, kwargs, result) of every call of the named functions of a
+    module while open (wrapped, not replaced)."""
+
+    def __init__(self, module, *names):
+        self.module, self.calls = module, {name: [] for name in names}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.module, name) for name in self.calls}
+        for name, fn in self.saved.items():
+            def recorded(*args, _fn=fn, _name=name, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.calls[_name].append((args, kwargs, out))
+                return out
+            setattr(self.module, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def last(self, name):
+        return self.calls[name][-1]
+
+
+def time_products(torch, d0_sq, t):
+    """One grid offset's adjacency product at threshold t on the M1
+    square by three exact routes, each timed by CUDA events over 3 calls
+    after a warm-up and held equal to the first: torch._int_mm with the
+    column-major second operand (matmul_sweep_scores' route), with a
+    row-major one, and float32 with TF32 off. Returns {route: ms}."""
+    A = (d0_sq <= torch.tensor(np.float32(t), device=d0_sq.device)).to(
+        torch.int8)
+    Af = A.float()
+    routes = {"int8_col_major": lambda: torch._int_mm(A, A.t()),
+              "int8_row_major": lambda: torch._int_mm(A, A),
+              "float32": lambda: Af @ Af}
+    ms, want = {}, None
+    for name, fn in routes.items():
+        got = fn().to(torch.int32)
+        if want is None:
+            want = got
+        elif not torch.equal(got, want):
+            raise AssertionError(f"the {name} product differs")
+        del got
+        ms[name] = event_ms(torch, fn, 3)
+    return ms
+
+
+def phase_m(torch, device, workdir, d, n=20480):
+    """M1-M3. Returns standard launches per stage, and M1's worst
+    difference of the kernel from its plain version at the fill's own
+    operands."""
+    launches = {}
+    m1_launches, m1 = phase_m1(torch, device, n)
+    launches.update(m1_launches)
+    launches.update(phase_m2(torch, device, m1, n))
+    del m1.sweep
+    launches.update(phase_m3(torch, device, workdir, d))
+    return launches, SimpleNamespace(kernel_err=m1.kernel_err)
+
+
+def phase_m1(torch, device, n):
+    """run_scale_pipeline(n) at the reference's defaults (K 6, sketch
+    9984, 14 planes, 20 strains, chunk 512, kNN 5, the 100,000-pair
+    subsample), on the card: the buffered route (the folded condensed
+    buffer resident, the 40-offset matmul sweep, components on the card).
+    Stage seconds, the refine's grid and local parts, the fill's launches
+    and their summed CUDA event time, pairs/s, peak device memory; fails
+    unless the route is ``device``, the ARI against the planted strains
+    is >= 0.99 with 20 clusters and the peak stays under M1_LIMIT_BYTES.
+    Then one offset's product is timed by three exact routes
+    (time_products), and the kernel is held to its plain version at the
+    fill's operands
+    (hold_steps_to_plain: the first step's two-range block and a row view
+    of the resident planes)."""
+    from poppunk_tpu_torch import scale, synth
+    from poppunk_tpu_torch.ops.distances import plane_geometry
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    log = []
+    with Capture(scale, "refine_fit_device", "components_device") as sc, \
+            Capture(synth, "synthetic_population_device") as sy:
+        out, seconds, fill_launches, kernel_s = counted(
+            torch, device, lambda: scale.run_scale_pipeline(
+                n=n, log=log.append, device=device))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    args, kwargs, (_, _, s_opt, sweep) = sc.last("refine_fit_device")
+    labels = sc.last("components_device")[2][0] if sweep[0] == "device" \
+        else None
+    pop = sy.last("synthetic_population_device")[2]
+    emit({"phase": "M1", "n": n, "route": sweep[0],
+          "stages": out["timings"], "refine_parts": kwargs["timings_out"],
+          "pipeline_s": out["pipeline_s"], "n_edges": out["n_edges"],
+          "n_clusters": out["n_clusters"], "ari": out["ari"],
+          "n_lineages": out["n_lineages"], "ari_lineage": out["ari_lineage"],
+          "fill_launches": fill_launches, "fill_kernel_s": kernel_s,
+          "pairs_per_s": out["pairs_per_s"], "peak_device_bytes": peak,
+          "limit_bytes": M1_LIMIT_BYTES, "log": log,
+          "seconds": elapsed(torch, t0)})
+    if sweep[0] != "device":
+        raise AssertionError(f"M1 took the {sweep[0]} sweep, not device")
+    if out["ari"] < 0.99 or out["n_clusters"] != 20:
+        raise AssertionError(f"M1: ARI {out['ari']}, {out['n_clusters']} "
+                             "clusters against 20 planted strains")
+    if on_card and peak >= M1_LIMIT_BYTES:
+        raise AssertionError(f"M1 peak device memory {peak} >= "
+                             f"{M1_LIMIT_BYTES}")
+    products = (time_products(torch, sweep[1], scale.offset_threshold(
+        s_opt, sweep[2], 2, *sweep[3])) if on_card else None)
+    emit({"phase": "M1_products", "ms": products})
+    operands = SimpleNamespace(
+        planes=pop.planes, chunk=512,
+        _pad_bits=plane_geometry(pop.sketchsize64, pop.bbits)[2])
+    t = time.perf_counter()
+    errs, plain_s = hold_steps_to_plain(torch, operands)
+    emit({"phase": "M1_plain", "max_abs_err": errs, "plain_s": plain_s,
+          "seconds": elapsed(torch, t)})
+    return {"M1_fill": fill_launches}, SimpleNamespace(
+        out=out, labels=labels, scale=args[1], s_opt=s_opt, sweep=sweep,
+        kernel_err=max(errs.values()))
+
+
+def phase_m2(torch, device, m1, n):
+    """The same population (the same seed) through
+    run_scale_pipeline(streaming=True): the bootstrap pass and the device
+    sparse sweep. Fails unless the route is ``edges``, the edge count and
+    clusters are M1's, the partition is M1's (ARI 1.0 between the label
+    vectors), and at M1's boundary the dense product's edge count equals
+    the streamed exact count."""
+    from poppunk_tpu_torch import scale
+
+    t0 = time.perf_counter()
+    log = []
+    with Capture(scale, "refine_fit_device", "edge_components_device") as sc:
+        out, seconds, launches, kernel_s = counted(
+            torch, device, lambda: scale.run_scale_pipeline(
+                n=n, streaming=True, log=log.append, device=device))
+    args, kwargs, (_, _, _, sweep) = sc.last("refine_fit_device")
+    route = sweep[0]
+    labels = (sc.last("edge_components_device")[2][0]
+              if route == "edges" else None)
+    del sweep
+    agree = (scale.adjusted_rand_index(m1.labels, labels)
+             if labels is not None and m1.labels is not None else None)
+    _, d0_sq, s_range, line = m1.sweep
+    t_final = scale.offset_threshold(m1.s_opt, s_range, 2, *line)
+    dense = int(scale.matmul_sweep_scores(d0_sq, [t_final])[1][0])
+    streamed = int(scale.sweep_counts_streaming(
+        args[0], m1.scale, np.array([s_range[0], m1.s_opt]), 2, *line)[1])
+    emit({"phase": "M2", "n": n, "route": route, "stages": out["timings"],
+          "refine_parts": kwargs["timings_out"],
+          "pipeline_s": out["pipeline_s"], "n_edges": out["n_edges"],
+          "n_clusters": out["n_clusters"], "ari": out["ari"],
+          "n_lineages": out["n_lineages"], "pass_launches": launches,
+          "pass_kernel_s": kernel_s, "pairs_per_s": out["pairs_per_s"],
+          "ari_vs_m1": agree, "m1_boundary_edges": {
+              "dense": dense, "streamed": streamed,
+              "m1": m1.out["n_edges"]}, "log": log,
+          "seconds": elapsed(torch, t0)})
+    if route != "edges":
+        raise AssertionError(f"M2 took the {route} sweep, not edges")
+    if (out["n_edges"], out["n_clusters"]) != (m1.out["n_edges"],
+                                               m1.out["n_clusters"]):
+        raise AssertionError(
+            f"M2 {out['n_edges']} edges / {out['n_clusters']} clusters, "
+            f"M1 {m1.out['n_edges']} / {m1.out['n_clusters']}")
+    if agree != 1.0:
+        raise AssertionError(f"M2's partition is not M1's (ARI {agree})")
+    if not dense == streamed == m1.out["n_edges"]:
+        raise AssertionError(f"at M1's boundary: dense {dense}, streamed "
+                             f"{streamed}, M1 {m1.out['n_edges']} edges")
+    return {"M2_pass": launches}
+
+
+def phase_m3(torch, device, workdir, d):
+    """``python -m poppunk_tpu_torch --version`` in a subprocess, then the
+    helper scripts on phase D's database and sequence files (on the card
+    by default): extract_distances (one row per pair), extract_components
+    (one graph per cluster), add_weights (positive weights), distribute_fit
+    (the bundles), rand_index unadjusted (1.0 against itself), iterate on a
+    --multi-boundary 4 refine of D built as tests/test_scripts.py builds
+    it (tree, cluster and cutoff files; the tree's leaves D's
+    references), batch_mst (the MST names every genome) and easy_run
+    (create-db, DBSCAN, refine: the planted strains). Returns the
+    standard kernel's launches over M3."""
+    from poppunk_tpu_torch.cli.main import main as poppunk_main
+    from poppunk_tpu_torch.network.graph import load_network_file
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.scripts import (add_weights, batch_mst,
+                                           distribute_fit, easy_run,
+                                           extract_components,
+                                           extract_distances, iterate,
+                                           rand_index)
+    from poppunk_tpu_torch.trees import parse_newick
+
+    t0 = time.perf_counter()
+    n0 = mc.LAUNCHES
+    stages = {}
+    out = os.path.join(workdir, "m3")
+    os.makedirs(out)
+    db = os.path.join(d.db, os.path.basename(d.db))
+
+    def run(stage, fn, argv):
+        t = time.perf_counter()
+        fn(argv)
+        stages[stage] = elapsed(torch, t)
+
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "poppunk_tpu_torch",
+                          "--version"], cwd=REPO, capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    stages["python_m"] = time.perf_counter() - t
+    if res.returncode or not res.stdout.startswith("poppunk_tpu_torch"):
+        raise AssertionError(f"python -m poppunk_tpu_torch --version: "
+                             f"{res.returncode} {res.stdout!r} "
+                             f"{res.stderr[-2000:]}")
+
+    n_refs = len(d.refs)
+    run("extract_distances", extract_distances.main,
+        ["--distances", db + ".dists", "--output", out + "/dists.tsv"])
+    with open(out + "/dists.tsv") as f:
+        rows = f.read().splitlines()
+    if rows[0] != "Query\tSubject\tCore\tAccessory" or \
+            len(rows) != 1 + n_refs * (n_refs - 1) // 2:
+        raise AssertionError(f"extract_distances: {len(rows)} rows")
+
+    n_clusters = len(set(read_clusters(db + "_clusters.csv").values()))
+    run("extract_components", extract_components.main,
+        ["--graph", db + "_graph.graph.npz", "--output", out + "/comp"])
+    comps = [f for f in os.listdir(out) if f.startswith("comp.component_")]
+    if len(comps) != n_clusters:
+        raise AssertionError(f"extract_components: {len(comps)} graphs, "
+                             f"{n_clusters} clusters")
+
+    run("add_weights", add_weights.main,
+        [db + "_graph.graph.npz", db + ".dists", out + "/weighted"])
+    weighted = load_network_file(out + "/weighted/weighted_graph.graph.npz")
+    if weighted.weights is None or not (weighted.weights > 0).all():
+        raise AssertionError("add_weights: weights missing or not positive")
+
+    run("distribute_fit", distribute_fit.main,
+        ["--dbdir", d.db, "--fitdir", d.db, "--outpref", out + "/bundle",
+         "--no-compress"])
+    full = os.listdir(out + "/bundle_full")
+    refs = os.listdir(out + "/bundle_refs")
+    if not {"bundle_full.h5", "bundle_full_fit.npz"} <= set(full) or \
+            "bundle_refs.h5" not in refs:
+        raise AssertionError(f"distribute_fit: {full} {refs}")
+
+    clusters_csv = db + "_clusters.csv"
+    run("rand_index", rand_index.main,
+        ["--input", f"{clusters_csv},{clusters_csv}", "--output",
+         out + "/rand.tsv"])
+    with open(out + "/rand.tsv") as f:
+        fields = f.read().splitlines()[1].split("\t")
+    if float(fields[3]) != 1.0:
+        raise AssertionError(f"rand_index against itself: {fields}")
+
+    multi = os.path.join(workdir, "m3_multi")
+    run("multi_create_db", poppunk_main,
+        ["--create-db", "--r-files", d.rfile, "--output", multi,
+         "--no-plot"])
+    run("multi_fit_bgmm", poppunk_main,
+        ["--fit-model", "bgmm", "--ref-db", multi, "--output", multi,
+         "--no-plot"])
+    run("multi_refine", poppunk_main,
+        ["--fit-model", "refine", "--ref-db", multi, "--output", multi,
+         "--multi-boundary", "4", "--no-plot"])
+    if not [f for f in os.listdir(multi)
+            if "_boundary" in f and f.endswith("_clusters.csv")]:
+        raise AssertionError("--multi-boundary 4 wrote no boundary files")
+    run("iterate", iterate.main, ["--db", multi, "--cutoff", "0.5"])
+    it = os.path.join(multi, "m3_multi_iterate")
+    for ext in (".clusters.csv", ".cutoff_clusters.csv"):
+        if not os.path.isfile(it + ext):
+            raise AssertionError(f"iterate wrote no {ext}")
+    with open(it + ".tree.nwk") as f:
+        tree_leaves = {node.label for node in leaves(parse_newick(f.read()))}
+    if tree_leaves != set(d.refs):
+        raise AssertionError(f"iterate's tree leaves: {sorted(tree_leaves)}")
+
+    run("batch_mst", batch_mst.main,
+        ["--r-files", d.rfile, "--n-batches", "2", "--output",
+         out + "/bmst", "--rank", "3", "--no-plot"])
+    with open(out + "/bmst/bmst_MST.nwk") as f:
+        nwk = f.read()
+    missing = [name for name in d.refs if name not in nwk]
+    if missing:
+        raise AssertionError(f"batch_mst's MST misses {missing}")
+
+    run("easy_run", easy_run.main,
+        ["--r-files", d.rfile, "--output", out + "/easy",
+         "--analysis-args=--no-plot"])
+    check_partition(read_clusters(out + "/easy/easy_clusters.csv"),
+                    d.strain_of)
+    launches = mc.LAUNCHES - n0
+    emit({"phase": "M3", "stages": stages, "launches": launches,
+          "components": len(comps), "tree_leaves": len(tree_leaves),
+          "seconds": time.perf_counter() - t0})
+    return {"M3_scripts": launches}
+
+
+# --------------------------------------------------------------------------
 
 def main():
     import torch
@@ -2774,6 +3099,9 @@ def main():
         path("L4", lambda: phase_l4(torch, device, workdir, d, e, lctx),
              *std)
         del lctx
+        m = path("M", lambda: phase_m(torch, device, workdir, d), *std)
+        kernels["match_counts"]["max_abs_err"] = max(
+            kernels["match_counts"]["max_abs_err"], m.kernel_err)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

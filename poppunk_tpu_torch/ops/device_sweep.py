@@ -15,9 +15,10 @@ its newly active edges. Peak memory is two [n, n] float32 buffers.
 
 ``A @ A`` is ``torch.matmul`` with TF32 off (``_device.set_full_precision``):
 its entries and the degrees are exact in float32 (< 2^24 for n <= 32768).
-The aggregates are summed in float64, so unlike the reference's float32
-tree sums (its ~1e-6 relative error past 2^24, device_sweep.py:22-27) they
-stay exact there too.
+The aggregates are taken in float64 (``network_score``, which the scale
+tier's dense sweep shares), so unlike the reference's float32 tree sums
+(its ~1e-6 relative error past 2^24, device_sweep.py:22-27) they stay
+exact there too.
 
 The sweep runs for n <= 32768 vertices on a CUDA model device; the host
 native sweep (network/incremental.py) takes every other case, as the
@@ -54,21 +55,28 @@ def sweep_scores_device(n_vertices, i_vec, j_vec, idx_vec, n_offsets,
     iv, jv = as_dev(i_vec), as_dev(j_vec)
     A = torch.zeros((n, n), dtype=torch.float32, device=device)
     one = torch.ones((), dtype=torch.float32, device=device)
-    possible = 0.5 * n * (n - 1)
     scores = []
     for t in range(n_offsets):
         new = slice(int(ends[t - 1]) if t else 0, int(ends[t]))
         A.index_put_((iv[new], jv[new]), one)  # duplicate-safe: set, not add
         A.index_put_((jv[new], iv[new]), one)
-        deg = A.sum(dim=1)
-        n_edges = deg.sum(dtype=torch.float64) / 2.0
-        wedges2 = (deg * (deg - 1.0)).sum(dtype=torch.float64)  # 2 * wedges
         paths = (A @ A).mul_(A).sum(dtype=torch.float64)  # 6 * triangles
-        transitivity = torch.where(wedges2 > 0,
-                                   paths / wedges2.clamp(min=1.0),
-                                   torch.zeros_like(paths))
-        scores.append(-(transitivity * (1.0 - n_edges / possible)))
+        scores.append(network_score(A.sum(dim=1), paths, n))
     return torch.stack(scores).cpu().numpy()
+
+
+def network_score(deg, paths, n):
+    """-(transitivity * (1 - density)), a float64 scalar tensor, from the
+    exact vertex degrees [n] and paths = sum(A * (A @ A)) = 6 * triangles
+    of a graph on n vertices. Every aggregate is taken in float64 from the
+    exact integer counts."""
+    deg = deg.to(torch.float64)
+    n_edges = deg.sum() / 2.0
+    wedges2 = (deg * (deg - 1.0)).sum()  # 2 * wedges
+    paths = paths.to(torch.float64)
+    transitivity = torch.where(wedges2 > 0, paths / wedges2.clamp(min=1.0),
+                               torch.zeros_like(paths))
+    return -(transitivity * (1.0 - n_edges / (0.5 * n * (n - 1))))
 
 
 def counts_f32_exact(i_vec, j_vec, n_vertices):

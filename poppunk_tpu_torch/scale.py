@@ -111,6 +111,9 @@ def fold_inverse(pos, n):
 # rows of a step's [2c, n, K] count block corrected and fitted at a time:
 # bounds the epilogue's float transients to a few [64, n, K] tensors
 _EPILOGUE_ROWS = 64
+# folded rows of a resident buffer a sweep slices at a time (the
+# reference's chunk_rows default)
+_BUF_ROWS = 1024
 
 
 def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
@@ -529,10 +532,7 @@ class StreamingCondensed:
         """(row, col, dist) grouped by row, each row's neighbours in
         ascending-distance order (ops/sparse_knn.knn_from_condensed's
         layout)."""
-        n, k = self.knn_col.shape
-        rows = np.repeat(np.arange(n, dtype=np.int64), k)
-        return rows, self.knn_col.ravel().astype(np.int64), \
-            self.knn_dist.ravel()
+        return _knn_sparse(self.knn_col, self.knn_dist)
 
     def pop_prefill(self):
         """Hand over the bootstrap prefill (edges, cum, spec), clearing
@@ -542,6 +542,100 @@ class StreamingCondensed:
         or already popped)."""
         pf, self._prefill = self._prefill, None
         return pf
+
+
+def _knn_sparse(knn_col, knn_dist):
+    """(row, col, dist) of [n, k] kNN arrays, grouped by row."""
+    n, k = knn_col.shape
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    return rows, knn_col.ravel().astype(np.int64), knn_dist.ravel()
+
+
+# ---------------------------------------------------------------------------
+# The buffered tier: the folded condensed buffer resident on the device
+
+
+class CondensedDevice:
+    """The folded condensed buffer plus its O(n) side products.
+
+    buf: float32 [n//2, n-1, 2] on the device, the folded layout (each
+    unordered pair once); knn_col / knn_dist: host [n, knn] arrays. It
+    exposes what refine and the band planning read on a
+    StreamingCondensed (n, n_pairs, device, the padded width) with a
+    buffer in place of the planes, so every sweep slices the buffer
+    instead of recomputing distances."""
+
+    def __init__(self, buf, n, knn_row, knn_col, knn_dist):
+        self.buf = buf
+        self.n = n
+        self._n_pad = self._n_real = n
+        self.n_pairs = n * (n - 1) // 2
+        self.device = buf.device
+        self.knn_row = knn_row
+        self.knn_col = knn_col
+        self.knn_dist = knn_dist
+
+    def max_scale(self):
+        """Column maxima over every pair (the model preprocessing scale)."""
+        return self.buf.amax(dim=(0, 1)).cpu().numpy()
+
+    def subsample_pairs(self, size, seed=42):
+        """Random pair subsample for model fitting, the reference's draw
+        over folded flat positions, gathered from the buffer (O(size))."""
+        rng = np.random.default_rng(seed)
+        pos = rng.choice(self.n_pairs, size=min(size, self.n_pairs),
+                         replace=False)
+        idx = torch.as_tensor(np.sort(pos), device=self.device)
+        return self.buf.reshape(-1, 2)[idx].cpu().numpy()
+
+    def knn_sparse(self):
+        """(row, col, dist) grouped by row, each row's neighbours in
+        ascending-distance order (ops/sparse_knn.knn_from_condensed's
+        layout)."""
+        return _knn_sparse(self.knn_col, self.knn_dist)
+
+
+def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
+                          bbits, chunk=512, knn=5, dist_col=0, device=None):
+    """Compute all pairwise distances into a device condensed buffer.
+
+    One pass over n//2 folded rows, a host loop of _fold_block steps (the
+    reference's lax.scan): each computes 2 * chunk full rows in one kernel
+    launch, writes its folded [chunk, n-1, 2] block into the preallocated
+    buffer and its rows' fused kNN into [n, knn] arrays. planes:
+    plane-major [K, P, n, Wp], numpy uint32 or an int32 tensor on its
+    device (``device`` None: ``_device.resolve``'s choice)."""
+    if isinstance(planes, torch.Tensor):
+        dev = _device.resolve(planes.device)
+    else:
+        dev = _device.resolve(device)
+        planes = planes_to_tensor(planes, dev)
+    lengths = torch.as_tensor(lengths, device=dev)
+    freqs = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
+    n = planes.shape[2]
+    half = fold_rows(n)
+    chunk = min(chunk, half)
+    if half % chunk:
+        raise ValueError(
+            f"n//2 ({half}) must be a multiple of chunk ({chunk})")
+    pad_bits = plane_geometry(sketchsize64, bbits)[2]
+    knn = min(knn, n - 1)
+    klist = tuple(int(k) for k in klist)
+
+    buf = torch.empty((half, n - 1, 2), dtype=torch.float32, device=dev)
+    ki = torch.zeros((n, knn), dtype=torch.int64, device=dev)
+    kd = torch.zeros((n, knn), dtype=torch.float32, device=dev)
+    c = chunk
+    for s in range(0, half, c):
+        folded, top_i, top_d = _fold_block(
+            planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
+            pad_bits, knn, dist_col)
+        buf[s:s + c] = folded
+        if knn:
+            ki[s:s + c], ki[n - s - c:n - s] = top_i[:c], top_i[c:]
+            kd[s:s + c], kd[n - s - c:n - s] = top_d[:c], top_d[c:]
+    return CondensedDevice(buf, n, np.arange(n, dtype=np.int64),
+                           ki.cpu().numpy(), kd.cpu().numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -594,10 +688,17 @@ class _SweepGeometry:
         return _d0_chunk(flat, self.scale, self.xm0, self.ym0, self.slope)
 
 
-def _stream_pairs(cd):
-    """(s, the folded chunk from row s as flat [c * (n - 1), 2] distances)
-    for every chunk: the recompute shared by every pass after pass 1 (the
-    reference's sweep, 2-D, QC and boundary groups)."""
+def _stream_pairs(cd, chunk_rows=None):
+    """(s, the folded chunk from row s as flat [rows * (n - 1), 2]
+    distances) for every chunk: the recompute shared by every pass after
+    pass 1 (the reference's sweep, 2-D, QC and boundary groups). A
+    buffered cd slices ``chunk_rows`` folded rows of its buffer at a time
+    instead (default _BUF_ROWS)."""
+    if cd.buf is not None:
+        rows = chunk_rows or _BUF_ROWS
+        for s in range(0, cd.buf.shape[0], rows):
+            yield s, cd.buf[s:s + rows].reshape(-1, 2)
+        return
     n_pad = cd._n_pad
     nr = cd._n_real if cd._n_real < n_pad else None
     for s in range(0, fold_rows(n_pad), cd.chunk):
@@ -607,25 +708,39 @@ def _stream_pairs(cd):
         yield s, folded.reshape(-1, 2)
 
 
-def _stream_d0(cd, geom):
+def _stream_d0(cd, geom, chunk_rows=None):
     """(s, d0 of the folded chunk from row s) for every chunk."""
-    for s, flat in _stream_pairs(cd):
+    for s, flat in _stream_pairs(cd, chunk_rows):
         yield s, geom.d0(flat)
 
 
-def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1):
+def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1,
+                           chunk_rows=None):
     """Cumulative in-boundary pair count per offset (exact int64), no
     pair fetch — the cheap pre-pass that sizes the real sweep."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     cum = torch.zeros(geom.t.shape[0], dtype=torch.int64, device=cd.device)
-    for _, d0 in _stream_d0(cd, geom):
+    for _, d0 in _stream_d0(cd, geom, chunk_rows):
         cum += _cum_counts(d0, geom.t)
     return cum.cpu().numpy()
 
 
+def sweep_counts_buffered(cd, scale, offsets, slope, x0, y0, x1, y1,
+                          chunk_rows=1024):
+    """Buffered twin of sweep_counts_streaming: the same exact int64
+    counts from the folded device buffer, ``chunk_rows`` folded rows at a
+    time (the reference's int32 per-dispatch histogram has no
+    counterpart)."""
+    if cd.buf is None:
+        raise ValueError("sweep_counts_buffered needs a buffered cd")
+    return sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1,
+                                  chunk_rows)
+
+
 def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
-                        _n_act=None):
-    """Twin of threshold_iterate_1d_fast over the streamed pairs.
+                        chunk_rows=1024, _n_act=None):
+    """Twin of threshold_iterate_1d_fast over the streamed pairs, or over
+    the folded buffer ``chunk_rows`` rows at a time on a buffered cd.
 
     Returns (i, j, first_offset, d0) host arrays for pairs whose first
     offset is below _n_act (default: the whole grid) — the native sparse
@@ -635,7 +750,7 @@ def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
     n_pad = cd._n_pad
     n_act = geom.t.shape[0] if _n_act is None else int(_n_act)
     pos_out, idx_out, d0_out = [], [], []
-    for s, d0 in _stream_d0(cd, geom):
+    for s, d0 in _stream_d0(cd, geom, chunk_rows):
         idx = _first_offsets(d0, geom.t)
         pos = torch.nonzero(idx < n_act).squeeze(1)
         if pos.shape[0] == 0:
@@ -677,11 +792,12 @@ def offset_threshold(s_value, offsets, slope, x0, y0, x1, y1):
 
 
 def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
-                      e_total):
+                      e_total, chunk_rows=1024):
     """Stream every pair whose first offset is < n_act into device edge
     buffers; returns (SweepEdges, cum) where cum is the EXACT cumulative
     in-boundary pair count per offset over the whole grid — the fill's own
-    histogram, so no separate counts pass is needed.
+    histogram, so no separate counts pass is needed. A buffered cd's pairs
+    are sliced from its buffer, ``chunk_rows`` folded rows at a time.
 
     e_total: expected pair count (exact from a counts pass, or a
     subsample estimate with margin) — sizes the buffers (_BandFill); a
@@ -690,7 +806,7 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
 
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     fill = _BandFill(cd._n_pad, geom.t, int(n_act), e_total, cd.device)
-    for s, d0 in _stream_d0(cd, geom):
+    for s, d0 in _stream_d0(cd, geom, chunk_rows):
         fill.add(d0, s)
     if fill.acc > fill.cap:
         raise SweepFillOverflow(
@@ -700,8 +816,161 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
                        n_real=cd._n_real), fill.cum.cpu().numpy())
 
 
+def edge_components_device(edges, threshold):
+    """Connected-component labels at a boundary from a SweepEdges list,
+    computed on its device by min-label propagation with pointer jumping
+    (the reference's _edge_label_prop): each round scatters every active
+    edge's smaller endpoint label onto both endpoints
+    (``scatter_reduce_(amin)``), then jumps each label to its label's
+    label. Only O(n) labels cross to the host. Returns (labels compacted
+    to 0..k-1 in first-seen order, the exact edge count k); raises as the
+    reference does when propagation has not converged after its round
+    cap."""
+    k = int(edges.counts_at(np.array([threshold]))[0])
+    iv, jv = edges.i[:k].long(), edges.j[:k].long()
+    labels = torch.arange(edges.n, dtype=torch.int64, device=iv.device)
+    for _ in range(_label_prop_rounds(edges.n)):
+        li, lj = labels[iv], labels[jv]
+        m = torch.minimum(li, lj)
+        labels.scatter_reduce_(0, iv, m, reduce="amin")
+        labels.scatter_reduce_(0, jv, m, reduce="amin")
+        labels = labels[labels]
+        if not bool(((labels[iv] != li) | (labels[jv] != lj)).any()):
+            break
+    else:
+        raise RuntimeError("label propagation failed to converge")
+    return _compact_labels(labels[:edges.n_real]), k
+
+
+def _label_prop_rounds(n):
+    """The reference's round cap of edge label propagation on n
+    vertices."""
+    return 4 * int(np.ceil(np.log2(max(n, 2))) + 2)
+
+
+def _compact_labels(labels):
+    """Min-vertex component labels -> 0..k-1; np.unique orders by label
+    value = min vertex id, which is the first-seen order of the component
+    roots, the native union-find's convention (components_native)."""
+    return np.unique(labels.cpu().numpy(), return_inverse=True)[1]
+
+
+# ---------------------------------------------------------------------------
+# Matmul sweep: every offset scored on the device, O(1) fetched
+#
+# For score_idx 0 the refine score is transitivity * (1 - density):
+# triangles and degrees, nothing else. With the signed distance d0 held as
+# a dense [n, n] square on the device, each offset's adjacency is a
+# compare, 6 * triangles = sum(A * (A @ A)), wedges from the degrees.
+# Nothing of size O(E) crosses to the host.
+
+# Dense [n, n] float32 d0 square plus the product's buffers; above this
+# the refine takes the sparse sweep. The reference sized it for a 16 GB
+# chip (n = 20480 fits, 32768 does not); kept so that both packages take
+# the same route at the same n.
+MATMUL_SWEEP_MAX_N = 20480
+
+
+def _unfold_block(d0_flat, s, n, c):
+    """Rows [s, s+c) of the dense d0 square, gathered from the folded
+    flat buffer (diagonal = +inf so self-pairs never join a network)."""
+    dev = d0_flat.device
+    i = (s + torch.arange(c, device=dev))[:, None]
+    j = torch.arange(n, device=dev)[None, :]
+    lo = torch.minimum(i, j)
+    hi = torch.maximum(i, j)
+    first = lo < n - 1 - lo
+    r = torch.where(first, lo, n - 1 - lo)
+    q = torch.where(first, hi - lo - 1, hi - 1)
+    vals = d0_flat[(r * (n - 1) + q).clamp_(min=0)]
+    return vals.masked_fill_(i == j, float("inf"))
+
+
+def build_d0_square(cd, scale, slope, x0, y0, x1, y1, offsets,
+                    block_rows=2048):
+    """Dense symmetric [n, n] float32 of per-pair signed boundary
+    distances, unfolded from a buffered cd's folded buffer entirely on the
+    device, in row blocks. Returns (d0_sq, thresholds t for the
+    offsets)."""
+    geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
+    n = cd.n
+    d0_flat = torch.empty(cd.n_pairs, dtype=torch.float32, device=cd.device)
+    for s, flat in _stream_pairs(cd):
+        d0_flat[s * (n - 1):s * (n - 1) + flat.shape[0]] = geom.d0(flat)
+    sq = torch.empty((n, n), dtype=torch.float32, device=cd.device)
+    for s in range(0, n, block_rows):
+        c = min(block_rows, n - s)
+        sq[s:s + c] = _unfold_block(d0_flat, s, n, c)
+    return sq, geom.t.cpu().numpy()
+
+
+def _int8_side(n):
+    """n padded to what cuBLAS's int8 product takes (a multiple of 8, more
+    than 16 rows); the pad rows and columns of the adjacency stay zero."""
+    return max(24, -(-n // 8) * 8)
+
+
+def matmul_sweep_scores(d0_sq, thresholds):
+    """-(transitivity * (1 - density)) float64 and the edge count int64
+    per threshold, on the host; the square never leaves the device.
+
+    The product is exact: ``torch._int_mm`` of the 0/1 int8 adjacency
+    (padded with zero rows and columns, _int8_side), int32 counts on the
+    tensor cores, where a bf16 product would be exact only to 256
+    common neighbours and a float32 one would need TF32 off (and ~20x
+    the time on an H100, PERF.md). A is symmetric, so its second operand
+    is passed as A.t(): the same values, column-major, the layout cuBLAS's
+    int8 product runs at full rate. The degrees, sum(A * (A @ A)) and the
+    edge count are int64 (integer sums accumulate in int64 without a
+    widened copy), and the score takes them in float64
+    (ops/device_sweep.network_score), so unlike the reference's float32
+    tree sums they stay exact at any offset."""
+    from .ops.device_sweep import network_score
+
+    n = d0_sq.shape[0]
+    dev = d0_sq.device
+    A = torch.zeros((_int8_side(n),) * 2, dtype=torch.int8, device=dev)
+    scores, edges = [], []
+    for t in np.asarray(thresholds, np.float32):
+        A[:n, :n] = d0_sq <= torch.tensor(t, device=dev)
+        deg = A.sum(dim=1)
+        paths = torch._int_mm(A, A.t()).mul_(A).sum()
+        scores.append(network_score(deg, paths, n))
+        edges.append(deg.sum() // 2)
+    return (torch.stack(scores).cpu().numpy(),
+            torch.stack(edges).cpu().numpy())
+
+
+def components_device(d0_sq, threshold, block_rows=2048):
+    """Cluster labels (compacted to 0..k-1 in first-seen order) and the
+    exact edge count at a boundary, from the dense square on its device:
+    min-label propagation, each round a masked row minimum over the
+    thresholded square in row blocks (the reference's while_loop), until
+    no label moves. Only O(n) labels cross to the host."""
+    n = d0_sq.shape[0]
+    t = torch.tensor(np.float32(threshold), device=d0_sq.device)
+    n_edges = 0
+    for s in range(0, n, block_rows):
+        n_edges += int((d0_sq[s:s + block_rows] <= t).sum())
+    labels = torch.arange(n, dtype=torch.int32, device=d0_sq.device)
+    while True:
+        new = torch.empty_like(labels)
+        for s in range(0, n, block_rows):
+            cand = torch.where(d0_sq[s:s + block_rows] <= t, labels[None, :],
+                               n).amin(dim=1)
+            new[s:s + block_rows] = torch.minimum(labels[s:s + block_rows],
+                                                  cand)
+        if torch.equal(new, labels):
+            break
+        labels = new
+    return _compact_labels(labels), n_edges // 2
+
+
 def _resident_bytes(cd):
-    return cd.planes.numel() * cd.planes.element_size()
+    """Device bytes a cd holds: its planes and its buffer, where present."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(cd, "planes", None), cd.buf)
+               if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +1021,8 @@ def plan_sweep_band(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
     from .ops.sparse_sweep import (device_hbm_total, hbm_feasible,
                                    max_edge_cap)
 
+    if cd.buf is not None and cd.n <= MATMUL_SWEEP_MAX_N:
+        return None
     if os.environ.get("POPPUNK_TPU_SPARSE_SWEEP", "1") == "0":
         return None
     if est_pairs is None or len(est_pairs) < 10000:
@@ -791,16 +1062,22 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
                       n_grid=40, max_sweep_fetch=40_000_000, slope=2,
                       no_local=False, timings_out=None, est_pairs=None,
                       prefill=None):
-    """Global + local 1-D boundary refinement over the streamed pairs.
+    """Global + local 1-D boundary refinement over the streamed pairs, or
+    over a buffered cd's folded buffer.
 
     Mirrors models/refine.refine_fit (constrained): the 40-point global
-    sweep, then a flat 147-point micro-grid around the optimum; slope 2
-    moves the diagonal boundary, slope 0/1 the core-only /
-    accessory-only boundaries (--indiv-refine). score_idx 0 fills the
-    in-boundary edges on the device and scores them there
-    (ops/sparse_sweep); the betweenness scores (idx 1/2), or a sweep that
-    does not fit the device, fetch the sparse in-boundary pairs once and
-    score them with the native host engine.
+    sweep, then a local step around the optimum; slope 2 moves the
+    diagonal boundary, slope 0/1 the core-only / accessory-only boundaries
+    (--indiv-refine). On a buffered cd with score_idx 0 and n <=
+    MATMUL_SWEEP_MAX_N the matmul sweep scores every offset from the dense
+    d0 square (build_d0_square, matmul_sweep_scores) and the local step is
+    the reference's bounded scalar search over it. Otherwise score_idx 0
+    fills the in-boundary edges on the device and scores them there
+    (ops/sparse_sweep), with a flat 147-point micro-grid as the local
+    step; the betweenness scores (idx 1/2), or a sweep that does not fit
+    the device, fetch the sparse in-boundary pairs once and score them
+    with the native host engine (the micro-grid, or on a buffered cd the
+    bounded scalar search).
 
     Offsets whose pair count exceeds the cap score 1 (worst): the widest
     grid offsets hold O(n_pairs / 2) pairs and are never the optimum. If
@@ -808,9 +1085,9 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
     local bracket stays exact.
 
     Returns (optimal_x, optimal_y, s_opt, sweep_data); sweep_data is
-    ("edges", SweepEdges, s_range, line) or ("sparse", i, j, idx, d0,
-    s_range, line); for slope 0/1 the optimal value rides optimal_x /
-    optimal_y respectively."""
+    ("device", d0_sq, s_range, line), ("edges", SweepEdges, s_range,
+    line) or ("sparse", i, j, idx, d0, s_range, line); for slope 0/1 the
+    optimal value rides optimal_x / optimal_y respectively."""
     from .network.incremental import grow_network_scores
     from .ops.sparse_sweep import (device_hbm_total, hbm_feasible,
                                    max_edge_cap, sweep_scores_sparse_device)
@@ -822,207 +1099,223 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
     s_range = np.linspace(-min_move, search_length, num=n_grid)
     line = (mean0[0], mean0[1], mean1[0], mean1[1])
 
-    n_pad = cd._n_pad
-    resident = _resident_bytes(cd)
-    hbm = device_hbm_total(cd.device)
-    cap_dev = max_edge_cap(n_pad, resident, hbm)
-    dev_possible = (
-        score_idx == 0
-        and os.environ.get("POPPUNK_TPU_SPARSE_SWEEP", "1") != "0"
-        and cap_dev > 0)
-    cap_budget = cap_dev - cap_dev // 50 if cap_dev else 0
-    xm0_l, ym0_l, t_all = _line_d0_params(s_range, slope, *line)
-
-    # bootstrap prefill: pass 1 already filled the band's edges and
-    # counted the EXACT cumulative counts over the full grid. The spec
-    # must match this call's geometry (it was planned from the same fit);
-    # a mismatch ignores the prefill.
-    pre_edges = None
-    pre_nact = 0
-    if prefill is not None and dev_possible:
-        p_edges, p_cum, p_spec = prefill
-        if (int(p_spec["slope"]) == int(slope)
-                and len(p_spec["offsets"]) == len(s_range)
-                and np.allclose(p_spec["offsets"], s_range)
-                and np.allclose(p_spec["line"], line)
-                and np.allclose(p_spec["scale"], np.asarray(scale))):
-            pre_edges = p_edges
-            pre_nact = int(p_spec["n_act"])
-            pre_cum = np.asarray(p_cum, np.int64)
-
-    # a uniform model-subsample ESTIMATE of the counts picks the
-    # scoreable range (the fill returns exact counts for free and its
-    # n_act filter is exact, so scores never depend on the estimate)
-    est_cum = est_margin = None
-    if (pre_edges is None and dev_possible and est_pairs is not None
-            and len(est_pairs) >= 10000):
-        est_cum, est_margin = _estimate_sweep_cum(
-            est_pairs, scale, slope, xm0_l, ym0_l, t_all, cd.n_pairs)
-
-    def run_exact_counts():
-        t_cn = time.perf_counter()
-        out = sweep_counts_streaming(cd, scale, s_range, slope, *line)
-        dt = time.perf_counter() - t_cn
-        sys.stderr.write(f"refine: counts pass {dt:.1f}s\n")
-        if timings_out is not None:
-            timings_out["counts"] = timings_out.get("counts", 0.0) + dt
-        if out[-1] == cd.n_pairs:
-            raise SweepSaturated("Boundary range includes all points")
-        return out
-
-    cum = None
-    if pre_edges is not None:
-        cum = pre_cum
-        if cum[-1] == cd.n_pairs:
-            raise SweepSaturated("Boundary range includes all points")
-    elif est_cum is None:
-        cum = run_exact_counts()
-
-    def pick_o_star(bound):
-        """Largest offset whose (estimated-with-margin or exact) count
-        fits under `bound`."""
-        if cum is not None:
-            ok = np.nonzero(cum <= bound)[0]
-        else:
-            ok = np.nonzero(est_cum + est_margin <= bound)[0]
-        if len(ok) == 0:
-            raise SweepSaturated(
-                f"first sweep offset already holds "
-                f"{int((cum if cum is not None else est_cum)[0])} "
-                f"pairs (> max_sweep_fetch {bound})")
-        return int(ok.max())
-
-    # the host cap bounds host fetches; the device path covers at least
-    # as much, extending to >= 10 scoreable offsets within its memory
-    # budget (enough offsets to bracket the optimum)
-    if dev_possible:
-        base = (cum if cum is not None else est_cum + est_margin)
-        eff_cap = max(max_sweep_fetch, int(base[min(9, n_grid - 1)]) + 1)
-        eff_cap = min(eff_cap, cap_budget)
-    else:
-        eff_cap = max_sweep_fetch
-    o_star = pick_o_star(eff_cap)
-    if pre_edges is not None:
-        # cap the scored range to the prefilled band; if the argmin lands
-        # at its edge the widen loop below refills exactly
-        o_star = min(o_star, pre_nact - 1)
-    use_sparse_dev = (
-        dev_possible
-        and (pre_edges is not None
-             or hbm_feasible(
-                 n_pad, int((cum if cum is not None
-                             else est_cum + est_margin)[o_star]),
-                 resident, hbm)))
-    if dev_possible and not use_sparse_dev and eff_cap > max_sweep_fetch:
-        # the device cap was chosen but the buffer does not fit: take the
-        # host path's own cap
-        eff_cap = max_sweep_fetch
-        o_star = pick_o_star(eff_cap)
-    if not use_sparse_dev and cum is None:
-        # the host engine needs exact counts before fetching
-        cum = run_exact_counts()
-        o_star = pick_o_star(eff_cap)
-    edges = None
-    while True:  # o_star strictly widens, so <= n_grid iterations
+    use_matmul = (score_idx == 0 and cd.buf is not None
+                  and cd.n <= MATMUL_SWEEP_MAX_N)
+    edges = None  # device-resident SweepEdges when the sparse path runs
+    if use_matmul:
+        # every offset scored on the device from the dense d0 square
         t_ph = time.perf_counter()
-        if use_sparse_dev and pre_edges is not None and o_star < pre_nact:
-            # the bootstrap prefill covers the scored range
-            edges = pre_edges
-            if o_star < n_grid - 1:
-                sys.stderr.write(
-                    f"refine: offsets {o_star + 1}..{n_grid - 1} "
-                    f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
-                    f"(> cap {eff_cap}); scored as 1\n")
-            t_sc = time.perf_counter()
-            global_s = np.ones(n_grid)
-            global_s[:o_star + 1], _ = sweep_scores_sparse_device(
-                edges, t_all[:o_star + 1])
-            sys.stderr.write(
-                f"refine: bootstrap prefill {edges.count} pairs "
-                f"(fill paid in pass 1), device score "
-                f"{time.perf_counter() - t_sc:.1f}s\n")
-        elif use_sparse_dev:
-            e_total = int((cum if cum is not None
-                           else est_cum + est_margin)[o_star])
-            # drop the previous edge buffers BEFORE the refill so two full
-            # sets are never resident at once
-            edges = None
-            pre_edges = None
-            prefill = None
-            try:
-                edges, cum_exact = sweep_fill_device(
-                    cd, scale, s_range, slope, *line, n_act=o_star + 1,
-                    e_total=e_total)
-            except SweepFillOverflow as e:
-                # the estimate under-sized the buffer: pay for the exact
-                # counts pass, re-pick the range, refill sized exactly
-                sys.stderr.write(f"refine: {e}; falling back to the "
-                                 "exact counts pass\n")
-                cum = run_exact_counts()
-                o_star = pick_o_star(eff_cap)
-                if not hbm_feasible(n_pad, int(cum[o_star]), resident, hbm):
-                    use_sparse_dev = False
-                    eff_cap = max_sweep_fetch
-                    o_star = pick_o_star(eff_cap)
-                    continue
-                edges, cum_exact = sweep_fill_device(
-                    cd, scale, s_range, slope, *line, n_act=o_star + 1,
-                    e_total=int(cum[o_star]))
-            cum = cum_exact
+        d0_sq, t_grid = build_d0_square(cd, scale, slope, *line, s_range)
+        global_s, edge_counts = matmul_sweep_scores(d0_sq, t_grid)
+        if timings_out is not None:
+            timings_out["grid"] = time.perf_counter() - t_ph
+        if edge_counts[-1] == cd.n_pairs:
+            raise SweepSaturated("Boundary range includes all points")
+    else:
+        n_pad = cd._n_pad
+        resident = _resident_bytes(cd)
+        hbm = device_hbm_total(cd.device)
+        cap_dev = max_edge_cap(n_pad, resident, hbm)
+        dev_possible = (
+            score_idx == 0
+            and os.environ.get("POPPUNK_TPU_SPARSE_SWEEP", "1") != "0"
+            and cap_dev > 0)
+        cap_budget = cap_dev - cap_dev // 50 if cap_dev else 0
+        xm0_l, ym0_l, t_all = _line_d0_params(s_range, slope, *line)
+
+        # bootstrap prefill: pass 1 already filled the band's edges and
+        # counted the EXACT cumulative counts over the full grid. The spec
+        # must match this call's geometry (it was planned from the same fit);
+        # a mismatch ignores the prefill.
+        pre_edges = None
+        pre_nact = 0
+        if prefill is not None and dev_possible:
+            p_edges, p_cum, p_spec = prefill
+            if (int(p_spec["slope"]) == int(slope)
+                    and len(p_spec["offsets"]) == len(s_range)
+                    and np.allclose(p_spec["offsets"], s_range)
+                    and np.allclose(p_spec["line"], line)
+                    and np.allclose(p_spec["scale"], np.asarray(scale))):
+                pre_edges = p_edges
+                pre_nact = int(p_spec["n_act"])
+                pre_cum = np.asarray(p_cum, np.int64)
+
+        # a uniform model-subsample ESTIMATE of the counts picks the
+        # scoreable range (the fill returns exact counts for free and its
+        # n_act filter is exact, so scores never depend on the estimate)
+        est_cum = est_margin = None
+        if (pre_edges is None and dev_possible and est_pairs is not None
+                and len(est_pairs) >= 10000):
+            est_cum, est_margin = _estimate_sweep_cum(
+                est_pairs, scale, slope, xm0_l, ym0_l, t_all, cd.n_pairs)
+
+        def run_exact_counts():
+            t_cn = time.perf_counter()
+            counts = (sweep_counts_buffered if cd.buf is not None
+                      else sweep_counts_streaming)
+            out = counts(cd, scale, s_range, slope, *line)
+            dt = time.perf_counter() - t_cn
+            sys.stderr.write(f"refine: counts pass {dt:.1f}s\n")
+            if timings_out is not None:
+                timings_out["counts"] = timings_out.get("counts", 0.0) + dt
+            if out[-1] == cd.n_pairs:
+                raise SweepSaturated("Boundary range includes all points")
+            return out
+
+        cum = None
+        if pre_edges is not None:
+            cum = pre_cum
             if cum[-1] == cd.n_pairs:
                 raise SweepSaturated("Boundary range includes all points")
-            if o_star < n_grid - 1:
-                sys.stderr.write(
-                    f"refine: offsets {o_star + 1}..{n_grid - 1} "
-                    f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
-                    f"(> cap {eff_cap}); scored as 1\n")
-            t_sc = time.perf_counter()
-            global_s = np.ones(n_grid)
-            global_s[:o_star + 1], _ = sweep_scores_sparse_device(
-                edges, t_all[:o_star + 1])
-            sys.stderr.write(
-                f"refine: device fill {edges.count} pairs "
-                f"{t_sc - t_ph:.1f}s, device score "
-                f"{time.perf_counter() - t_sc:.1f}s\n")
+        elif est_cum is None:
+            cum = run_exact_counts()
+
+        def pick_o_star(bound):
+            """Largest offset whose (estimated-with-margin or exact) count
+            fits under `bound`."""
+            if cum is not None:
+                ok = np.nonzero(cum <= bound)[0]
+            else:
+                ok = np.nonzero(est_cum + est_margin <= bound)[0]
+            if len(ok) == 0:
+                raise SweepSaturated(
+                    f"first sweep offset already holds "
+                    f"{int((cum if cum is not None else est_cum)[0])} "
+                    f"pairs (> max_sweep_fetch {bound})")
+            return int(ok.max())
+
+        # the host cap bounds host fetches; the device path covers at least
+        # as much, extending to >= 10 scoreable offsets within its memory
+        # budget (enough offsets to bracket the optimum)
+        if dev_possible:
+            base = (cum if cum is not None else est_cum + est_margin)
+            eff_cap = max(max_sweep_fetch, int(base[min(9, n_grid - 1)]) + 1)
+            eff_cap = min(eff_cap, cap_budget)
         else:
-            if o_star < n_grid - 1:
+            eff_cap = max_sweep_fetch
+        o_star = pick_o_star(eff_cap)
+        if pre_edges is not None:
+            # cap the scored range to the prefilled band; if the argmin lands
+            # at its edge the widen loop below refills exactly
+            o_star = min(o_star, pre_nact - 1)
+        use_sparse_dev = (
+            dev_possible
+            and (pre_edges is not None
+                 or hbm_feasible(
+                     n_pad, int((cum if cum is not None
+                                 else est_cum + est_margin)[o_star]),
+                     resident, hbm)))
+        if dev_possible and not use_sparse_dev and eff_cap > max_sweep_fetch:
+            # the device cap was chosen but the buffer does not fit: take the
+            # host path's own cap
+            eff_cap = max_sweep_fetch
+            o_star = pick_o_star(eff_cap)
+        if not use_sparse_dev and cum is None:
+            # the host engine needs exact counts before fetching
+            cum = run_exact_counts()
+            o_star = pick_o_star(eff_cap)
+        edges = None
+        while True:  # o_star strictly widens, so <= n_grid iterations
+            t_ph = time.perf_counter()
+            if use_sparse_dev and pre_edges is not None and o_star < pre_nact:
+                # the bootstrap prefill covers the scored range
+                edges = pre_edges
+                if o_star < n_grid - 1:
+                    sys.stderr.write(
+                        f"refine: offsets {o_star + 1}..{n_grid - 1} "
+                        f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
+                        f"(> cap {eff_cap}); scored as 1\n")
+                t_sc = time.perf_counter()
+                global_s = np.ones(n_grid)
+                global_s[:o_star + 1], _ = sweep_scores_sparse_device(
+                    edges, t_all[:o_star + 1])
                 sys.stderr.write(
-                    f"refine: offsets {o_star + 1}..{n_grid - 1} "
-                    f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
-                    f"(> max_sweep_fetch {eff_cap}); scored as 1\n")
-            i, j, idx, d0 = sweep_first_offsets(
-                cd, scale, s_range, slope, *line, _n_act=o_star + 1)
-            t_sc = time.perf_counter()
-            global_s = np.ones(n_grid)
-            global_s[:o_star + 1] = grow_network_scores(
-                cd.n, i, j, idx, o_star + 1, score_idx,
-                betweenness_sample, rng=rng)
-            sys.stderr.write(
-                f"refine: fetch {len(i)} pairs {t_sc - t_ph:.1f}s, "
-                f"score {time.perf_counter() - t_sc:.1f}s\n")
-        if timings_out is not None:
-            key = "fill" if use_sparse_dev else "fetch"
-            timings_out[key] = timings_out.get(key, 0.0) + t_sc - t_ph
-            timings_out["score"] = (timings_out.get("score", 0.0)
-                                    + time.perf_counter() - t_sc)
-        min_idx = int(np.argmin(global_s))
-        # the local bracket reaches min_idx + 1: widen the range if the
-        # argmin sits at the cap edge
-        if min_idx < o_star or o_star == n_grid - 1:
-            break
-        need = min(min_idx + 1, n_grid - 1)
-        widen_cap = eff_cap if use_sparse_dev else 2 * max_sweep_fetch
-        if cum[need] > widen_cap:
-            raise SweepSaturated(
-                "sweep optimum sits in an offset denser than "
-                "the max_sweep_fetch headroom — lower max_move")
-        o_star = need
+                    f"refine: bootstrap prefill {edges.count} pairs "
+                    f"(fill paid in pass 1), device score "
+                    f"{time.perf_counter() - t_sc:.1f}s\n")
+            elif use_sparse_dev:
+                e_total = int((cum if cum is not None
+                               else est_cum + est_margin)[o_star])
+                # drop the previous edge buffers BEFORE the refill so two full
+                # sets are never resident at once
+                edges = None
+                pre_edges = None
+                prefill = None
+                try:
+                    edges, cum_exact = sweep_fill_device(
+                        cd, scale, s_range, slope, *line, n_act=o_star + 1,
+                        e_total=e_total)
+                except SweepFillOverflow as e:
+                    # the estimate under-sized the buffer: pay for the exact
+                    # counts pass, re-pick the range, refill sized exactly
+                    sys.stderr.write(f"refine: {e}; falling back to the "
+                                     "exact counts pass\n")
+                    cum = run_exact_counts()
+                    o_star = pick_o_star(eff_cap)
+                    if not hbm_feasible(n_pad, int(cum[o_star]), resident,
+                                        hbm):
+                        use_sparse_dev = False
+                        eff_cap = max_sweep_fetch
+                        o_star = pick_o_star(eff_cap)
+                        continue
+                    edges, cum_exact = sweep_fill_device(
+                        cd, scale, s_range, slope, *line, n_act=o_star + 1,
+                        e_total=int(cum[o_star]))
+                cum = cum_exact
+                if cum[-1] == cd.n_pairs:
+                    raise SweepSaturated("Boundary range includes all points")
+                if o_star < n_grid - 1:
+                    sys.stderr.write(
+                        f"refine: offsets {o_star + 1}..{n_grid - 1} "
+                        f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
+                        f"(> cap {eff_cap}); scored as 1\n")
+                t_sc = time.perf_counter()
+                global_s = np.ones(n_grid)
+                global_s[:o_star + 1], _ = sweep_scores_sparse_device(
+                    edges, t_all[:o_star + 1])
+                sys.stderr.write(
+                    f"refine: device fill {edges.count} pairs "
+                    f"{t_sc - t_ph:.1f}s, device score "
+                    f"{time.perf_counter() - t_sc:.1f}s\n")
+            else:
+                if o_star < n_grid - 1:
+                    sys.stderr.write(
+                        f"refine: offsets {o_star + 1}..{n_grid - 1} "
+                        f"hold {cum[o_star + 1]}..{cum[-1]} pairs "
+                        f"(> max_sweep_fetch {eff_cap}); scored as 1\n")
+                i, j, idx, d0 = sweep_first_offsets(
+                    cd, scale, s_range, slope, *line, _n_act=o_star + 1)
+                t_sc = time.perf_counter()
+                global_s = np.ones(n_grid)
+                global_s[:o_star + 1] = grow_network_scores(
+                    cd.n, i, j, idx, o_star + 1, score_idx,
+                    betweenness_sample, rng=rng)
+                sys.stderr.write(
+                    f"refine: fetch {len(i)} pairs {t_sc - t_ph:.1f}s, "
+                    f"score {time.perf_counter() - t_sc:.1f}s\n")
+            if timings_out is not None:
+                key = "fill" if use_sparse_dev else "fetch"
+                timings_out[key] = timings_out.get(key, 0.0) + t_sc - t_ph
+                timings_out["score"] = (timings_out.get("score", 0.0)
+                                        + time.perf_counter() - t_sc)
+            min_idx = int(np.argmin(global_s))
+            # the local bracket reaches min_idx + 1: widen the range if the
+            # argmin sits at the cap edge
+            if min_idx < o_star or o_star == n_grid - 1:
+                break
+            need = min(min_idx + 1, n_grid - 1)
+            widen_cap = eff_cap if use_sparse_dev else 2 * max_sweep_fetch
+            if cum[need] > widen_cap:
+                raise SweepSaturated(
+                    "sweep optimum sits in an offset denser than "
+                    "the max_sweep_fetch headroom — lower max_move")
+            o_star = need
     global_s[np.isnan(global_s)] = 1
     min_idx = int(np.argmin(global_s))
 
     if no_local:
         s_opt = float(s_range[min_idx])
-    elif 0 < min_idx < n_grid - 1:
+    elif 0 < min_idx < n_grid - 1 and (edges is not None or cd.buf is None):
         # the flat 147-point micro-grid around the optimum: on the device
         # from the resident edge list (each sub-threshold's active set is
         # a prefix of the d0-sorted edges, so the level is one sweep), or
@@ -1058,6 +1351,31 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
         if timings_out is not None:
             timings_out["local"] = (timings_out.get("local", 0.0)
                                     + time.perf_counter() - t_ph)
+    elif 0 < min_idx < n_grid - 1:
+        # a buffered cd: the reference's bounded scalar search, each probe
+        # the matmul sweep or the host scorer at one threshold
+        import scipy.optimize
+
+        def threshold(s_val):
+            return offset_threshold(float(s_val), s_range, slope, *line)
+
+        if use_matmul:
+            def local_score(s_val):
+                return matmul_sweep_scores(d0_sq, [threshold(s_val)])[0][0]
+        else:
+            def local_score(s_val):
+                mask = d0 <= threshold(s_val)
+                return grow_network_scores(
+                    cd.n, i[mask], j[mask],
+                    np.zeros(int(mask.sum()), np.int32), 1, score_idx,
+                    betweenness_sample, rng=rng)[0]
+        t_ph = time.perf_counter()
+        res = scipy.optimize.minimize_scalar(
+            local_score, bounds=[s_range[min_idx - 1], s_range[min_idx + 1]],
+            method="Bounded", options={"disp": False})
+        s_opt = float(res.x)
+        if timings_out is not None:
+            timings_out["local"] = time.perf_counter() - t_ph
     else:
         s_opt = float(s_range[min_idx])
 
@@ -1072,7 +1390,9 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
         if (slope == 0 and optimal_x < 0) or (slope == 1 and optimal_y < 0):
             raise RuntimeError(
                 "Optimisation produced a boundary outside range")
-    if edges is not None:
+    if use_matmul:
+        sweep_data = ("device", d0_sq, s_range, line)
+    elif edges is not None:
         sweep_data = ("edges", edges, s_range, line)
     else:
         sweep_data = ("sparse", i, j, idx, d0, s_range, line)
@@ -1424,3 +1744,271 @@ def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
                       "the model boundary captures most of this population")
     i, j = fold_inverse(pos, cd._n_pad)
     return i.astype(np.int32), j.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# End-to-end scale pipeline (synthetic device population)
+
+
+def adjusted_rand_index(labels_true, labels_pred):
+    """Adjusted Rand index of two labelings (sklearn's
+    adjusted_rand_score, in its pair-confusion form): the pair counts are
+    exact integers from the contingency table, the ratio one float."""
+    _, t = np.unique(np.asarray(labels_true), return_inverse=True)
+    _, p = np.unique(np.asarray(labels_pred), return_inverse=True)
+    n = t.shape[0]
+    cont = np.bincount(t * (p.max() + 1) + p,
+                       minlength=(t.max() + 1) * (p.max() + 1)).reshape(
+        t.max() + 1, p.max() + 1).astype(np.int64)
+    sum_squares = int((cont ** 2).sum())
+    n_c = cont.sum(axis=1)
+    n_k = cont.sum(axis=0)
+    fp = int((cont @ n_k).sum()) - sum_squares
+    fn = int((cont.T @ n_c).sum()) - sum_squares
+    tp = sum_squares - n
+    tn = n * n - fp - fn - sum_squares
+    if fn == 0 and fp == 0:
+        return 1.0
+    return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn)
+                                        + (tp + fp) * (fp + tn))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
+                       sketchsize64=156, bbits=14, n_strains=None, chunk=512,
+                       knn=5, subsample=None, score_idx=0, seed=2,
+                       max_move=0.25, synth_kwargs=None, sharded=None,
+                       streaming=None, max_sweep_fetch=40_000_000,
+                       log=lambda msg: sys.stderr.write(msg), device=None):
+    """Full pipeline on a synthetic device population, timing each stage.
+
+    synth -> condensed dists + fused kNN (device) -> BGMM on subsample ->
+    refine boundary -> network -> clusters vs true strains. Returns a dict
+    of stage seconds and results; the host never holds an O(n^2) array.
+
+    The port is one device (``device``, None: ``_device.resolve``'s
+    choice). streaming=None takes the reference's rule with one device:
+    StreamingCondensed once the folded buffer (4 n^2 bytes) would pass
+    6e9 bytes, else the buffered fill (fill_condensed_device). The refine
+    then takes the matmul sweep on the buffer (n <= MATMUL_SWEEP_MAX_N),
+    the device sparse sweep, or the host scorer, and the network is
+    labelled on the device from the dense square or the edge list, or on
+    the host (components_native). n_strains defaults to 20 up to the 20480
+    tier, then grows as n/640 so the refine optimum's edge count (~n^2 /
+    2 n_strains) stays under max_sweep_fetch while the within blob remains
+    ~1% of the (5n) fit subsample. The ARI against the planted strains is
+    adjusted_rand_index's.
+    """
+    from .models.bgmm import BGMMFit
+    from .network.components import connected_components
+    from .network.graph import Graph
+    from .network.incremental import components_native
+    from .synth import synthetic_population_device
+
+    if sharded:
+        raise ValueError(
+            "sharded=True: the port runs the scale pipeline on one device; "
+            "the sharded fill waits for the multi-GPU item of ROADMAP.md "
+            "queue 1")
+    dev = _device.resolve(device)
+    timings = {}
+    out = {"n": n, "n_pairs": n * (n - 1) // 2}
+    if n_strains is None:
+        # past the 20480 tier, scale strains so within-strain pairs stay
+        # ~2e7: fetchable sparse AND still ~1% of the model subsample;
+        # capped at ~100 separable strains of the planted divergence range
+        n_strains = 20 if n <= 20480 else min(max(20, n // 640), 102)
+    if subsample is None:
+        # the reference's 100k fit cap is tuned for <= 20k genomes; at
+        # n/640 strains the fit sample scales with n to keep ~5 * n / 640
+        # within pairs in it
+        subsample = 100_000 if n <= 20480 else 5 * n
+    if synth_kwargs is None and n > 20480:
+        # separation margins must scale with the strain count: at 100+
+        # strains the default ranges' tails collide
+        synth_kwargs = dict(strain_div=(0.015, 0.03),
+                            accessory_strain=(0.55, 0.75))
+
+    t0 = time.perf_counter()
+    pop = synthetic_population_device(
+        n, klist, sketchsize64, bbits, n_strains=n_strains, seed=seed,
+        chunk=max(chunk, min(n, 2048)), device=dev, **(synth_kwargs or {}))
+    _sync(dev)
+    timings["synth"] = time.perf_counter() - t0
+    log(f"synth: {n} genomes on device in {timings['synth']:.1f}s\n")
+
+    def divide_down(c, rows):
+        """Largest value <= c dividing rows (halving walk; 1 always
+        divides) — the fill/streaming twins require chunk | rows."""
+        c = max(1, min(c, rows))
+        while rows % c:
+            c //= 2
+        return c
+
+    half = n // 2
+    if streaming is None:
+        streaming = 4.0 * n * n > 6e9
+    out["streaming"] = bool(streaming)
+    bootstrap = False
+    t0 = time.perf_counter()
+    if streaming:
+        # per-chunk transients are ~16 bytes * 2c * n * K across the
+        # match/correction/fit buffers; the reference's ~2.5 GB budget
+        c_max = max(32, int(2.5e9 / (2 * n * len(klist) * 16)))
+        c_stream = divide_down(min(chunk, 1 << (c_max.bit_length() - 1)),
+                               half)
+        # two-round bootstrap (score_idx 0): model fit from
+        # directly-computed subsample distances FIRST, then ONE streaming
+        # pass computes dists + kNN + maxima AND fills the refine band
+        bootstrap = (score_idx == 0
+                     and os.environ.get("POPPUNK_TPU_BOOTSTRAP", "1") != "0")
+        cd = StreamingCondensed(pop.planes, pop.lengths, pop.freqs, klist,
+                                sketchsize64, bbits, chunk=c_stream, knn=knn,
+                                subsample=(None if bootstrap
+                                           else (subsample, seed)),
+                                defer=bootstrap)
+        log("dists: streaming (no O(n^2) tensor; buffer would be "
+            f"{4.0 * n * n / 2**30:.1f} GiB)\n")
+        if bootstrap:
+            log("dists: deferred — two-round bootstrap (fit on direct "
+                "subsample dists, refine fill fused into pass 1)\n")
+    else:
+        cd = fill_condensed_device(pop.planes, pop.lengths, pop.freqs,
+                                   klist, sketchsize64, bbits,
+                                   chunk=divide_down(chunk, half), knn=knn)
+    _sync(dev)
+    if not bootstrap:
+        timings["dists+knn"] = time.perf_counter() - t0
+        out["pairs_per_s"] = out["n_pairs"] / timings["dists+knn"]
+        log(f"dists+knn: {out['n_pairs']} pairs in "
+            f"{timings['dists+knn']:.1f}s "
+            f"= {out['pairs_per_s'] / 1e6:.1f} Mpairs/s "
+            f"(+ kNN k={knn} fused)\n")
+
+    t0 = time.perf_counter()
+    if bootstrap:
+        sub = cd.subsample_pairs(subsample, seed=seed, block=32768)
+    else:
+        sub = cd.subsample_pairs(subsample, seed=seed)
+    model = BGMMFit("", max_samples=subsample, device=dev)
+    model.fit(sub, max_components=2)
+    timings["bgmm"] = time.perf_counter() - t0
+    log(f"bgmm: fit on {sub.shape[0]} subsampled pairs in "
+        f"{timings['bgmm']:.1f}s\n")
+
+    mean0 = model.means[model.within_label]
+    mean1 = model.means[model.between_label]
+    if bootstrap:
+        # plan the fill band from the subsample fit (host arithmetic;
+        # saturation shrinks max_move BEFORE any device pass runs), then
+        # run the single fused pass
+        while True:
+            try:
+                fill_spec = plan_sweep_band(
+                    cd, model.scale, mean0, mean1, max_move=max_move,
+                    max_sweep_fetch=max_sweep_fetch, est_pairs=sub)
+                break
+            except SweepSaturated as e:
+                if max_move / 4 < 1e-3:
+                    raise
+                max_move /= 4
+                log(f"refine: band saturated ({str(e)[:120]}), "
+                    f"replanning max_move={max_move}\n")
+        t0 = time.perf_counter()
+        cd.run_pass1(fill_spec)
+        _sync(dev)
+        timings["dists+knn"] = time.perf_counter() - t0
+        out["pairs_per_s"] = out["n_pairs"] / timings["dists+knn"]
+        log(f"dists+knn: {out['n_pairs']} pairs in "
+            f"{timings['dists+knn']:.1f}s "
+            f"= {out['pairs_per_s'] / 1e6:.1f} Mpairs/s "
+            f"(+ kNN k={knn} and "
+            f"{'band fill' if fill_spec else 'no fill'} fused)\n")
+
+    t0 = time.perf_counter()
+    # the synthetic between-blob has no outliers, so a generous max_move
+    # can put every pair inside the widest boundary (refine_fit_device's
+    # reference-faithful guard raises); back off until the sweep bites
+    refine_phases = {}
+    while True:
+        try:
+            opt_x, opt_y, s_opt, sweep = refine_fit_device(
+                cd, model.scale, mean0, mean1, max_move=max_move,
+                score_idx=score_idx, seed=seed,
+                max_sweep_fetch=max_sweep_fetch,
+                timings_out=refine_phases, est_pairs=sub,
+                prefill=(cd.pop_prefill() if bootstrap else None))
+            break
+        except SweepSaturated as e:
+            # only the sweep-geometry errors are retryable; device
+            # failures (out of memory etc.) propagate
+            if max_move / 4 < 1e-3:
+                raise
+            max_move /= 4
+            log(f"refine: sweep saturated ({str(e)[:120]}), retrying "
+                f"max_move={max_move}\n")
+    _sync(dev)
+    timings["refine"] = time.perf_counter() - t0
+    if refine_phases:
+        out["refine_phase_s"] = {k: round(v, 1)
+                                 for k, v in refine_phases.items()}
+    log(f"refine: boundary ({opt_x * model.scale[0]:.4f}, "
+        f"{opt_y * model.scale[1]:.4f}) via {sweep[0]} sweep in "
+        f"{timings['refine']:.1f}s\n")
+
+    t0 = time.perf_counter()
+    s_range, line = sweep[-2], sweep[-1]
+    t_final = offset_threshold(s_opt, s_range, 2, *line)
+    if sweep[0] == "device":
+        # components by device label propagation; only O(n) labels fetched
+        labels, out["n_edges"] = components_device(sweep[1], t_final)
+    elif sweep[0] == "edges":
+        # label propagation over the device-resident edge list
+        labels, out["n_edges"] = edge_components_device(sweep[1], t_final)
+    else:
+        _, i, j, idx, d0, _, _ = sweep
+        mask = d0 <= t_final
+        ei, ej = i[mask], j[mask]
+        del sweep, i, j, idx, d0, mask  # O(E) sweep buffers
+        nat = components_native(n, ei, ej)
+        if nat is not None:
+            labels = nat[0]
+        else:
+            labels = connected_components(
+                Graph(n, np.stack([ei, ej], axis=1)))[0]
+        out["n_edges"] = int(ei.shape[0])
+        del ei, ej
+    timings["network"] = time.perf_counter() - t0
+    out["n_clusters"] = int(labels.max()) + 1
+    log(f"network: {out['n_edges']} edges, {out['n_clusters']} clusters "
+        f"in {timings['network']:.1f}s\n")
+
+    # lineage tier from the fused kNN (rank-k sparse graph components,
+    # PopPUNK's lineage clusters): zero extra distance work
+    t0 = time.perf_counter()
+    rows, cols, _ = cd.knn_sparse()
+    nat = components_native(n, rows, cols)
+    if nat is not None:
+        lin_labels = nat[0]
+    else:
+        lin_labels = connected_components(
+            Graph(n, np.stack([rows, cols], axis=1)))[0]
+    timings["lineage"] = time.perf_counter() - t0
+    out["n_lineages"] = int(lin_labels.max()) + 1
+    log(f"lineage: rank-{cd.knn_col.shape[1]} graph -> "
+        f"{out['n_lineages']} lineages in {timings['lineage']:.1f}s\n")
+
+    out["ari"] = adjusted_rand_index(pop.strain, labels)
+    out["ari_lineage"] = adjusted_rand_index(pop.strain, lin_labels)
+    out["timings"] = timings
+    out["total_s"] = sum(timings.values())
+    # synth is fixture generation, not pipeline
+    out["pipeline_s"] = out["total_s"] - timings["synth"]
+    log(f"ARI vs planted strains: {out['ari']:.4f}; "
+        f"pipeline {out['pipeline_s']:.1f}s (+ synth fixture "
+        f"{timings['synth']:.1f}s)\n")
+    return out

@@ -10,7 +10,8 @@
   DBSCAN model's device, NJ and the SCE optimisers in torch, the device
   argument of the visualisation, embedding, tree and web entry points, the
   tools' CLI names and device choice, the scale tier's passes in torch and
-  its CLI's devices).
+  its CLI's devices, the synthetic population's draws in torch, the helper
+  scripts' CLI names).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
 - ``ops/distances.pack_planes`` packs what the JAX package's packs, in
@@ -87,6 +88,15 @@ def test_no_file_of_the_port_imports_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_scan_covers_the_scripts_and_the_synth():
+    for name in ("__main__", "synth", "scripts/__init__", "scripts/iterate",
+                 "scripts/batch_mst", "scripts/easy_run"):
+        assert os.path.join("poppunk_tpu_torch", name + ".py") in PORT_FILES
+    names = imported_modules(os.path.join("poppunk_tpu_torch", "scripts",
+                                          "iterate.py"))
+    assert "poppunk_tpu_torch.ops.distances.query_db" in names
+
+
 def test_the_scan_sees_relative_imports():
     names = imported_modules(os.path.join("poppunk_tpu_torch", "qc.py"))
     assert "poppunk_tpu_torch.network.graph.prune_graph" in names
@@ -145,7 +155,19 @@ COPIES = {
                   "sweep_fill_device", "plan_sweep_band",
                   "refine_fit_device", "_inside_2d",
                   "sweep2d_counts_streaming", "sweep2d_fetch_streaming",
-                  "qc_bad_pairs_streaming", "fetch_within_boundary"), None),
+                  "qc_bad_pairs_streaming", "fetch_within_boundary",
+                  "CondensedDevice", "fill_condensed_device",
+                  "sweep_counts_buffered", "edge_components_device",
+                  "_unfold_block", "build_d0_square", "matmul_sweep_scores",
+                  "components_device", "run_scale_pipeline"), None),
+    "synth.py": (("_bernoulli_words", "_keep_probs", "_masked_planes",
+                  "SyntheticSketches", "synthetic_population_device"),
+                 None),
+    "__main__.py": ((), ()),
+    **{f"scripts/{name}.py": (("get_options",), ()) for name in (
+        "rand_index", "silhouette", "extract_components",
+        "extract_distances", "add_weights", "distribute_fit", "easy_run",
+        "iterate", "batch_mst")},
     "ops/sparse_sweep.py": (("SweepEdges", "sweep_scores_sparse_device",
                              "hbm_feasible", "max_edge_cap"), None),
     "cli/scale.py": (("get_options", "main", "_pad_geometry", "_use_model",
@@ -332,6 +354,21 @@ def mixture():
             np.stack([np.eye(2) * 0.01] * 2), np.array([1.0, 1.0]))
 
 
+def synthetic_population():
+    from poppunk_tpu_torch.synth import synthetic_population_device
+
+    return synthetic_population_device(8, (13, 17), 1, 3, n_strains=2,
+                                       chunk=4).planes.device
+
+
+def condensed_device():
+    from poppunk_tpu_torch.scale import fill_condensed_device
+
+    planes, lengths, freqs, klist, ss64, bbits = tiny_planes()
+    return fill_condensed_device(planes.transpose(1, 2, 0, 3), lengths,
+                                 freqs, klist, ss64, bbits, knn=2).device
+
+
 def streaming_condensed():
     from poppunk_tpu_torch.scale import StreamingCondensed
 
@@ -363,6 +400,8 @@ ENTRY_POINTS = {
     "GaussianMixture": lambda tmp: GaussianMixture.from_numpy(
         *mixture()).means.device,
     "StreamingCondensed": lambda tmp: streaming_condensed(),
+    "fill_condensed_device": lambda tmp: condensed_device(),
+    "synthetic_population_device": lambda tmp: synthetic_population(),
 }
 CLIS = {
     "create_db_cli": lambda tmp: torch_main([
