@@ -79,8 +79,10 @@ Phases, each printing one JSON line with its seconds:
      run_scale_pipeline(n=20480) at the reference's defaults on the card
      (the folded condensed buffer, the 40-offset matmul sweep, components
      on the card; stage seconds, the fill's launches and kernel time,
-     peak device memory under 16 GB, the planted strains), the kernel
-     held to its plain version at the fill's operands; M2 the same
+     peak device memory under 16 GB net of what was live before, the
+     planted strains), its device stages rebuilt one at a time at its
+     boundary (each stage's memory, the same components), the kernel
+     held to its plain version at the streaming pass's operands; M2 the same
      population through the streaming route (the partition and edge
      count M1's, and at M1's boundary the dense product's edge count the
      streamed exact count); M3 ``python -m poppunk_tpu_torch --version``
@@ -2726,31 +2728,6 @@ def phase_l4c(torch, device, workdir, l3):
 M1_LIMIT_BYTES = 16e9
 
 
-class Capture:
-    """(args, kwargs, result) of every call of the named functions of a
-    module while open (wrapped, not replaced)."""
-
-    def __init__(self, module, *names):
-        self.module, self.calls = module, {name: [] for name in names}
-
-    def __enter__(self):
-        self.saved = {name: getattr(self.module, name) for name in self.calls}
-        for name, fn in self.saved.items():
-            def recorded(*args, _fn=fn, _name=name, **kwargs):
-                out = _fn(*args, **kwargs)
-                self.calls[_name].append((args, kwargs, out))
-                return out
-            setattr(self.module, name, recorded)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.module, name, fn)
-
-    def last(self, name):
-        return self.calls[name][-1]
-
-
 def time_products(torch, d0_sq, t):
     """One grid offset's adjacency product at threshold t on the M1
     square by three exact routes, each timed by CUDA events over 3 calls
@@ -2783,7 +2760,6 @@ def phase_m(torch, device, workdir, d, n=20480):
     m1_launches, m1 = phase_m1(torch, device, n)
     launches.update(m1_launches)
     launches.update(phase_m2(torch, device, m1, n))
-    del m1.sweep
     launches.update(phase_m3(torch, device, workdir, d))
     return launches, SimpleNamespace(kernel_err=m1.kernel_err)
 
@@ -2794,62 +2770,107 @@ def phase_m1(torch, device, n):
     subsample), on the card: the buffered route (the folded condensed
     buffer resident, the 40-offset matmul sweep, components on the card).
     Stage seconds, the refine's grid and local parts, the fill's launches
-    and their summed CUDA event time, pairs/s, peak device memory; fails
-    unless the route is ``device``, the ARI against the planted strains
-    is >= 0.99 with 20 clusters and the peak stays under M1_LIMIT_BYTES.
-    Then one offset's product is timed by three exact routes
-    (time_products), and the kernel is held to its plain version at the
-    fill's operands
-    (hold_steps_to_plain: the first step's two-range block and a row view
-    of the resident planes)."""
-    from poppunk_tpu_torch import scale, synth
-    from poppunk_tpu_torch.ops.distances import plane_geometry
+    and their summed CUDA event time, pairs/s, and the pipeline's peak
+    device memory net of what was allocated before it; fails unless the
+    route is ``device``, the ARI against the planted strains is >= 0.99
+    with 20 clusters and the net peak stays under M1_LIMIT_BYTES. Then
+    m1_rebuild reruns the pipeline's device stages at its boundary."""
+    from poppunk_tpu_torch import scale
 
     t0 = time.perf_counter()
     on_card = device.type == "cuda"
+    base = None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     log = []
-    with Capture(scale, "refine_fit_device", "components_device") as sc, \
-            Capture(synth, "synthetic_population_device") as sy:
-        out, seconds, fill_launches, kernel_s = counted(
-            torch, device, lambda: scale.run_scale_pipeline(
-                n=n, log=log.append, device=device))
-    peak = torch.cuda.max_memory_allocated() if on_card else None
-    args, kwargs, (_, _, s_opt, sweep) = sc.last("refine_fit_device")
-    labels = sc.last("components_device")[2][0] if sweep[0] == "device" \
-        else None
-    pop = sy.last("synthetic_population_device")[2]
-    emit({"phase": "M1", "n": n, "route": sweep[0],
-          "stages": out["timings"], "refine_parts": kwargs["timings_out"],
+    out, seconds, fill_launches, kernel_s = counted(
+        torch, device, lambda: scale.run_scale_pipeline(
+            n=n, log=log.append, device=device))
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    emit({"phase": "M1", "n": n, "route": out["route"],
+          "stages": out["timings"],
+          "refine_parts": out.get("refine_phase_s"),
           "pipeline_s": out["pipeline_s"], "n_edges": out["n_edges"],
           "n_clusters": out["n_clusters"], "ari": out["ari"],
           "n_lineages": out["n_lineages"], "ari_lineage": out["ari_lineage"],
           "fill_launches": fill_launches, "fill_kernel_s": kernel_s,
-          "pairs_per_s": out["pairs_per_s"], "peak_device_bytes": peak,
-          "limit_bytes": M1_LIMIT_BYTES, "log": log,
-          "seconds": elapsed(torch, t0)})
-    if sweep[0] != "device":
-        raise AssertionError(f"M1 took the {sweep[0]} sweep, not device")
+          "pairs_per_s": out["pairs_per_s"], "base_device_bytes": base,
+          "peak_device_bytes": peak, "limit_bytes": M1_LIMIT_BYTES,
+          "log": log, "seconds": elapsed(torch, t0)})
+    if out["route"] != "device":
+        raise AssertionError(f"M1 took the {out['route']} sweep, not device")
     if out["ari"] < 0.99 or out["n_clusters"] != 20:
         raise AssertionError(f"M1: ARI {out['ari']}, {out['n_clusters']} "
                              "clusters against 20 planted strains")
     if on_card and peak >= M1_LIMIT_BYTES:
-        raise AssertionError(f"M1 peak device memory {peak} >= "
+        raise AssertionError(f"M1 peak device memory {peak} (net) >= "
                              f"{M1_LIMIT_BYTES}")
-    products = (time_products(torch, sweep[1], scale.offset_threshold(
-        s_opt, sweep[2], 2, *sweep[3])) if on_card else None)
-    emit({"phase": "M1_products", "ms": products})
-    operands = SimpleNamespace(
-        planes=pop.planes, chunk=512,
-        _pad_bits=plane_geometry(pop.sketchsize64, pop.bbits)[2])
-    t = time.perf_counter()
-    errs, plain_s = hold_steps_to_plain(torch, operands)
+    return {"M1_fill": fill_launches}, m1_rebuild(torch, device, n, out)
+
+
+def m1_rebuild(torch, device, n, out):
+    """The pipeline's device stages again, on the same seed at M1's
+    boundary, one at a time: the synthetic population, the buffered fill,
+    the dense square, the product and the components at the boundary.
+    Each stage's device bytes live at its start and its peak, net of what
+    was allocated before the first (M1's memory breakdown). Fails unless
+    the components are M1's labels. Then one offset's product is timed by
+    three exact routes (time_products), the boundary's pairs are counted
+    once more by the streaming recompute from the planes (for M2), and the
+    kernel is held to its plain version at the streaming pass's operands
+    (hold_steps_to_plain: the first step's two-range block and a row view
+    of the resident planes)."""
+    from poppunk_tpu_torch import scale, synth
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    b = out["boundary"]
+    t = scale.offset_threshold(b["s_opt"], b["s_range"], 2, *b["line"])
+    memory, base = {}, torch.cuda.memory_allocated() if on_card else None
+
+    def stage(name, fn):
+        if on_card:
+            live = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        if on_card:
+            memory[name] = {"live": live,
+                            "peak": torch.cuda.max_memory_allocated() - base}
+        return got
+
+    # run_scale_pipeline's defaults at n <= 20480
+    klist, ss64, bbits, chunk = (13, 16, 19, 22, 25, 28), 156, 14, 512
+    pop = stage("synth", lambda: synth.synthetic_population_device(
+        n, klist, ss64, bbits, n_strains=20, seed=2,
+        chunk=max(chunk, min(n, 2048)), device=device))
+    cd = stage("fill", lambda: scale.fill_condensed_device(
+        pop.planes, pop.lengths, pop.freqs, klist, ss64, bbits, chunk=chunk,
+        knn=5))
+    d0_sq, _ = stage("square", lambda: scale.build_d0_square(
+        cd, b["scale"], 2, *b["line"], b["s_range"]))
+    dense = int(stage("product", lambda: scale.matmul_sweep_scores(
+        d0_sq, [t]))[1][0])
+    labels, _ = stage("components",
+                      lambda: scale.components_device(d0_sq, t))
+    if not np.array_equal(labels, out["labels"]):
+        raise AssertionError("the rebuilt square's components are not M1's")
+    products = time_products(torch, d0_sq, t) if on_card else None
+    del d0_sq, cd
+    scd = scale.StreamingCondensed(pop.planes, pop.lengths, pop.freqs,
+                                   klist, ss64, bbits, chunk=chunk,
+                                   defer=True)
+    streamed = int(scale.sweep_counts_streaming(
+        scd, b["scale"], np.array([b["s_range"][0], b["s_opt"]]), 2,
+        *b["line"])[1])
+    emit({"phase": "M1_rebuild", "memory": memory, "base_device_bytes": base,
+          "products_ms": products, "seconds": elapsed(torch, t0)})
+    t1 = time.perf_counter()
+    errs, plain_s = hold_steps_to_plain(torch, scd)
     emit({"phase": "M1_plain", "max_abs_err": errs, "plain_s": plain_s,
-          "seconds": elapsed(torch, t)})
-    return {"M1_fill": fill_launches}, SimpleNamespace(
-        out=out, labels=labels, scale=args[1], s_opt=s_opt, sweep=sweep,
-        kernel_err=max(errs.values()))
+          "seconds": elapsed(torch, t1)})
+    return SimpleNamespace(out=out, dense=dense, streamed=streamed,
+                           kernel_err=max(errs.values()))
 
 
 def phase_m2(torch, device, m1, n):
@@ -2858,39 +2879,28 @@ def phase_m2(torch, device, m1, n):
     sparse sweep. Fails unless the route is ``edges``, the edge count and
     clusters are M1's, the partition is M1's (ARI 1.0 between the label
     vectors), and at M1's boundary the dense product's edge count equals
-    the streamed exact count."""
+    the streamed exact count (both from m1_rebuild)."""
     from poppunk_tpu_torch import scale
 
     t0 = time.perf_counter()
     log = []
-    with Capture(scale, "refine_fit_device", "edge_components_device") as sc:
-        out, seconds, launches, kernel_s = counted(
-            torch, device, lambda: scale.run_scale_pipeline(
-                n=n, streaming=True, log=log.append, device=device))
-    args, kwargs, (_, _, _, sweep) = sc.last("refine_fit_device")
-    route = sweep[0]
-    labels = (sc.last("edge_components_device")[2][0]
-              if route == "edges" else None)
-    del sweep
-    agree = (scale.adjusted_rand_index(m1.labels, labels)
-             if labels is not None and m1.labels is not None else None)
-    _, d0_sq, s_range, line = m1.sweep
-    t_final = scale.offset_threshold(m1.s_opt, s_range, 2, *line)
-    dense = int(scale.matmul_sweep_scores(d0_sq, [t_final])[1][0])
-    streamed = int(scale.sweep_counts_streaming(
-        args[0], m1.scale, np.array([s_range[0], m1.s_opt]), 2, *line)[1])
-    emit({"phase": "M2", "n": n, "route": route, "stages": out["timings"],
-          "refine_parts": kwargs["timings_out"],
+    out, seconds, launches, kernel_s = counted(
+        torch, device, lambda: scale.run_scale_pipeline(
+            n=n, streaming=True, log=log.append, device=device))
+    agree = scale.adjusted_rand_index(m1.out["labels"], out["labels"])
+    emit({"phase": "M2", "n": n, "route": out["route"],
+          "stages": out["timings"],
+          "refine_parts": out.get("refine_phase_s"),
           "pipeline_s": out["pipeline_s"], "n_edges": out["n_edges"],
           "n_clusters": out["n_clusters"], "ari": out["ari"],
           "n_lineages": out["n_lineages"], "pass_launches": launches,
           "pass_kernel_s": kernel_s, "pairs_per_s": out["pairs_per_s"],
           "ari_vs_m1": agree, "m1_boundary_edges": {
-              "dense": dense, "streamed": streamed,
+              "dense": m1.dense, "streamed": m1.streamed,
               "m1": m1.out["n_edges"]}, "log": log,
           "seconds": elapsed(torch, t0)})
-    if route != "edges":
-        raise AssertionError(f"M2 took the {route} sweep, not edges")
+    if out["route"] != "edges":
+        raise AssertionError(f"M2 took the {out['route']} sweep, not edges")
     if (out["n_edges"], out["n_clusters"]) != (m1.out["n_edges"],
                                                m1.out["n_clusters"]):
         raise AssertionError(
@@ -2898,9 +2908,9 @@ def phase_m2(torch, device, m1, n):
             f"M1 {m1.out['n_edges']} / {m1.out['n_clusters']}")
     if agree != 1.0:
         raise AssertionError(f"M2's partition is not M1's (ARI {agree})")
-    if not dense == streamed == m1.out["n_edges"]:
-        raise AssertionError(f"at M1's boundary: dense {dense}, streamed "
-                             f"{streamed}, M1 {m1.out['n_edges']} edges")
+    if not m1.dense == m1.streamed == m1.out["n_edges"]:
+        raise AssertionError(f"at M1's boundary: dense {m1.dense}, streamed "
+                             f"{m1.streamed}, M1 {m1.out['n_edges']} edges")
     return {"M2_pass": launches}
 
 

@@ -114,6 +114,8 @@ _EPILOGUE_ROWS = 64
 # folded rows of a resident buffer a sweep slices at a time (the
 # reference's chunk_rows default)
 _BUF_ROWS = 1024
+# rows of the dense [n, n] square unfolded or thresholded at a time
+_SQUARE_ROWS = 2048
 
 
 def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
@@ -688,16 +690,15 @@ class _SweepGeometry:
         return _d0_chunk(flat, self.scale, self.xm0, self.ym0, self.slope)
 
 
-def _stream_pairs(cd, chunk_rows=None):
+def _stream_pairs(cd):
     """(s, the folded chunk from row s as flat [rows * (n - 1), 2]
     distances) for every chunk: the recompute shared by every pass after
     pass 1 (the reference's sweep, 2-D, QC and boundary groups). A
-    buffered cd slices ``chunk_rows`` folded rows of its buffer at a time
-    instead (default _BUF_ROWS)."""
+    buffered cd slices _BUF_ROWS folded rows of its buffer at a time
+    instead."""
     if cd.buf is not None:
-        rows = chunk_rows or _BUF_ROWS
-        for s in range(0, cd.buf.shape[0], rows):
-            yield s, cd.buf[s:s + rows].reshape(-1, 2)
+        for s in range(0, cd.buf.shape[0], _BUF_ROWS):
+            yield s, cd.buf[s:s + _BUF_ROWS].reshape(-1, 2)
         return
     n_pad = cd._n_pad
     nr = cd._n_real if cd._n_real < n_pad else None
@@ -708,39 +709,29 @@ def _stream_pairs(cd, chunk_rows=None):
         yield s, folded.reshape(-1, 2)
 
 
-def _stream_d0(cd, geom, chunk_rows=None):
+def _stream_d0(cd, geom):
     """(s, d0 of the folded chunk from row s) for every chunk."""
-    for s, flat in _stream_pairs(cd, chunk_rows):
+    for s, flat in _stream_pairs(cd):
         yield s, geom.d0(flat)
 
 
-def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1,
-                           chunk_rows=None):
+def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1):
     """Cumulative in-boundary pair count per offset (exact int64), no
-    pair fetch — the cheap pre-pass that sizes the real sweep."""
+    pair fetch — the cheap pre-pass that sizes the real sweep. On a
+    buffered cd it is also the reference's sweep_counts_buffered: the same
+    counts from the folded buffer (whose int32 per-dispatch histogram has
+    no counterpart)."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     cum = torch.zeros(geom.t.shape[0], dtype=torch.int64, device=cd.device)
-    for _, d0 in _stream_d0(cd, geom, chunk_rows):
+    for _, d0 in _stream_d0(cd, geom):
         cum += _cum_counts(d0, geom.t)
     return cum.cpu().numpy()
 
 
-def sweep_counts_buffered(cd, scale, offsets, slope, x0, y0, x1, y1,
-                          chunk_rows=1024):
-    """Buffered twin of sweep_counts_streaming: the same exact int64
-    counts from the folded device buffer, ``chunk_rows`` folded rows at a
-    time (the reference's int32 per-dispatch histogram has no
-    counterpart)."""
-    if cd.buf is None:
-        raise ValueError("sweep_counts_buffered needs a buffered cd")
-    return sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1,
-                                  chunk_rows)
-
-
 def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
-                        chunk_rows=1024, _n_act=None):
+                        _n_act=None):
     """Twin of threshold_iterate_1d_fast over the streamed pairs, or over
-    the folded buffer ``chunk_rows`` rows at a time on a buffered cd.
+    the folded buffer on a buffered cd.
 
     Returns (i, j, first_offset, d0) host arrays for pairs whose first
     offset is below _n_act (default: the whole grid) — the native sparse
@@ -750,7 +741,7 @@ def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
     n_pad = cd._n_pad
     n_act = geom.t.shape[0] if _n_act is None else int(_n_act)
     pos_out, idx_out, d0_out = [], [], []
-    for s, d0 in _stream_d0(cd, geom, chunk_rows):
+    for s, d0 in _stream_d0(cd, geom):
         idx = _first_offsets(d0, geom.t)
         pos = torch.nonzero(idx < n_act).squeeze(1)
         if pos.shape[0] == 0:
@@ -792,12 +783,12 @@ def offset_threshold(s_value, offsets, slope, x0, y0, x1, y1):
 
 
 def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
-                      e_total, chunk_rows=1024):
+                      e_total):
     """Stream every pair whose first offset is < n_act into device edge
     buffers; returns (SweepEdges, cum) where cum is the EXACT cumulative
     in-boundary pair count per offset over the whole grid — the fill's own
     histogram, so no separate counts pass is needed. A buffered cd's pairs
-    are sliced from its buffer, ``chunk_rows`` folded rows at a time.
+    are sliced from its buffer.
 
     e_total: expected pair count (exact from a counts pass, or a
     subsample estimate with margin) — sizes the buffers (_BandFill); a
@@ -806,7 +797,7 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
 
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     fill = _BandFill(cd._n_pad, geom.t, int(n_act), e_total, cd.device)
-    for s, d0 in _stream_d0(cd, geom, chunk_rows):
+    for s, d0 in _stream_d0(cd, geom):
         fill.add(d0, s)
     if fill.acc > fill.cap:
         raise SweepFillOverflow(
@@ -873,33 +864,36 @@ MATMUL_SWEEP_MAX_N = 20480
 
 def _unfold_block(d0_flat, s, n, c):
     """Rows [s, s+c) of the dense d0 square, gathered from the folded
-    flat buffer (diagonal = +inf so self-pairs never join a network)."""
+    flat buffer (diagonal = +inf so self-pairs never join a network).
+    The index arithmetic is int32 while n^2 fits it, which halves the
+    block's transients against int64."""
     dev = d0_flat.device
-    i = (s + torch.arange(c, device=dev))[:, None]
-    j = torch.arange(n, device=dev)[None, :]
+    idt = torch.int32 if n * n < 2**31 else torch.int64
+    i = (s + torch.arange(c, dtype=idt, device=dev))[:, None]
+    j = torch.arange(n, dtype=idt, device=dev)[None, :]
     lo = torch.minimum(i, j)
     hi = torch.maximum(i, j)
     first = lo < n - 1 - lo
     r = torch.where(first, lo, n - 1 - lo)
     q = torch.where(first, hi - lo - 1, hi - 1)
-    vals = d0_flat[(r * (n - 1) + q).clamp_(min=0)]
+    idx = r.mul_(n - 1).add_(q).clamp_(min=0)
+    vals = d0_flat.index_select(0, idx.view(-1)).view(c, n)
     return vals.masked_fill_(i == j, float("inf"))
 
 
-def build_d0_square(cd, scale, slope, x0, y0, x1, y1, offsets,
-                    block_rows=2048):
+def build_d0_square(cd, scale, slope, x0, y0, x1, y1, offsets):
     """Dense symmetric [n, n] float32 of per-pair signed boundary
     distances, unfolded from a buffered cd's folded buffer entirely on the
-    device, in row blocks. Returns (d0_sq, thresholds t for the
-    offsets)."""
+    device, _SQUARE_ROWS rows at a time. Returns (d0_sq, thresholds t for
+    the offsets)."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     n = cd.n
     d0_flat = torch.empty(cd.n_pairs, dtype=torch.float32, device=cd.device)
     for s, flat in _stream_pairs(cd):
         d0_flat[s * (n - 1):s * (n - 1) + flat.shape[0]] = geom.d0(flat)
     sq = torch.empty((n, n), dtype=torch.float32, device=cd.device)
-    for s in range(0, n, block_rows):
-        c = min(block_rows, n - s)
+    for s in range(0, n, _SQUARE_ROWS):
+        c = min(_SQUARE_ROWS, n - s)
         sq[s:s + c] = _unfold_block(d0_flat, s, n, c)
     return sq, geom.t.cpu().numpy()
 
@@ -921,45 +915,55 @@ def matmul_sweep_scores(d0_sq, thresholds):
     the time on an H100, PERF.md). A is symmetric, so its second operand
     is passed as A.t(): the same values, column-major, the layout cuBLAS's
     int8 product runs at full rate. The degrees, sum(A * (A @ A)) and the
-    edge count are int64 (integer sums accumulate in int64 without a
-    widened copy), and the score takes them in float64
-    (ops/device_sweep.network_score), so unlike the reference's float32
-    tree sums they stay exact at any offset."""
+    edge count are int64, summed _SQUARE_ROWS rows at a time: torch widens
+    an integer tensor to int64 with a full copy before it sums it, which
+    over the whole square would be 8 n^2 bytes (3.4 GB at n = 20480). The
+    score takes them in float64 (ops/device_sweep.network_score), so
+    unlike the reference's float32 tree sums they stay exact at any
+    offset."""
     from .ops.device_sweep import network_score
 
     n = d0_sq.shape[0]
     dev = d0_sq.device
-    A = torch.zeros((_int8_side(n),) * 2, dtype=torch.int8, device=dev)
+    side = _int8_side(n)
+    A = torch.zeros((side, side), dtype=torch.int8, device=dev)
     scores, edges = [], []
     for t in np.asarray(thresholds, np.float32):
         A[:n, :n] = d0_sq <= torch.tensor(t, device=dev)
-        deg = A.sum(dim=1)
-        paths = torch._int_mm(A, A.t()).mul_(A).sum()
+        AA = torch._int_mm(A, A.t())
+        deg = torch.empty(side, dtype=torch.int64, device=dev)
+        paths = torch.zeros((), dtype=torch.int64, device=dev)
+        for s in range(0, side, _SQUARE_ROWS):
+            rows = slice(s, s + _SQUARE_ROWS)
+            deg[rows] = A[rows].sum(dim=1)
+            paths += AA[rows].mul_(A[rows]).sum()
+        del AA  # before the next offset's product is allocated
         scores.append(network_score(deg, paths, n))
         edges.append(deg.sum() // 2)
     return (torch.stack(scores).cpu().numpy(),
             torch.stack(edges).cpu().numpy())
 
 
-def components_device(d0_sq, threshold, block_rows=2048):
+def components_device(d0_sq, threshold):
     """Cluster labels (compacted to 0..k-1 in first-seen order) and the
     exact edge count at a boundary, from the dense square on its device:
     min-label propagation, each round a masked row minimum over the
-    thresholded square in row blocks (the reference's while_loop), until
-    no label moves. Only O(n) labels cross to the host."""
+    thresholded square, _SQUARE_ROWS rows at a time (the reference's
+    while_loop), until no label moves. Only O(n) labels cross to the
+    host."""
     n = d0_sq.shape[0]
     t = torch.tensor(np.float32(threshold), device=d0_sq.device)
     n_edges = 0
-    for s in range(0, n, block_rows):
-        n_edges += int((d0_sq[s:s + block_rows] <= t).sum())
+    for s in range(0, n, _SQUARE_ROWS):
+        n_edges += int((d0_sq[s:s + _SQUARE_ROWS] <= t).sum())
     labels = torch.arange(n, dtype=torch.int32, device=d0_sq.device)
     while True:
         new = torch.empty_like(labels)
-        for s in range(0, n, block_rows):
-            cand = torch.where(d0_sq[s:s + block_rows] <= t, labels[None, :],
+        for s in range(0, n, _SQUARE_ROWS):
+            rows = slice(s, s + _SQUARE_ROWS)
+            cand = torch.where(d0_sq[rows] <= t, labels[None, :],
                                n).amin(dim=1)
-            new[s:s + block_rows] = torch.minimum(labels[s:s + block_rows],
-                                                  cand)
+            new[rows] = torch.minimum(labels[rows], cand)
         if torch.equal(new, labels):
             break
         labels = new
@@ -1151,9 +1155,7 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
 
         def run_exact_counts():
             t_cn = time.perf_counter()
-            counts = (sweep_counts_buffered if cd.buf is not None
-                      else sweep_counts_streaming)
-            out = counts(cd, scale, s_range, slope, *line)
+            out = sweep_counts_streaming(cd, scale, s_range, slope, *line)
             dt = time.perf_counter() - t_cn
             sys.stderr.write(f"refine: counts pass {dt:.1f}s\n")
             if timings_out is not None:
@@ -1801,7 +1803,10 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
     tier, then grows as n/640 so the refine optimum's edge count (~n^2 /
     2 n_strains) stays under max_sweep_fetch while the within blob remains
     ~1% of the (5n) fit subsample. The ARI against the planted strains is
-    adjusted_rand_index's.
+    adjusted_rand_index's. Beside the reference's keys the dict holds the
+    sweep's ``route`` ("device", "edges" or "sparse"), the ``boundary``
+    it chose (the model's scale, s_opt, the offset grid s_range and the
+    search line) and the cluster ``labels``.
     """
     from .models.bgmm import BGMMFit
     from .network.components import connected_components
@@ -1954,14 +1959,16 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
     _sync(dev)
     timings["refine"] = time.perf_counter() - t0
     if refine_phases:
-        out["refine_phase_s"] = {k: round(v, 1)
-                                 for k, v in refine_phases.items()}
+        out["refine_phase_s"] = refine_phases
     log(f"refine: boundary ({opt_x * model.scale[0]:.4f}, "
         f"{opt_y * model.scale[1]:.4f}) via {sweep[0]} sweep in "
         f"{timings['refine']:.1f}s\n")
 
     t0 = time.perf_counter()
     s_range, line = sweep[-2], sweep[-1]
+    out["route"] = sweep[0]
+    out["boundary"] = {"scale": np.asarray(model.scale), "s_opt": s_opt,
+                       "s_range": s_range, "line": line}
     t_final = offset_threshold(s_opt, s_range, 2, *line)
     if sweep[0] == "device":
         # components by device label propagation; only O(n) labels fetched
@@ -1983,6 +1990,7 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
         out["n_edges"] = int(ei.shape[0])
         del ei, ej
     timings["network"] = time.perf_counter() - t0
+    out["labels"] = labels
     out["n_clusters"] = int(labels.max()) + 1
     log(f"network: {out['n_edges']} edges, {out['n_clusters']} clusters "
         f"in {timings['network']:.1f}s\n")

@@ -162,24 +162,24 @@ def test_the_fill_refuses_a_ragged_chunk_and_odd_n(operands):
 
 @pytest.mark.parametrize("slope,chunk_rows", [(2, 8), (2, 7), (2, 1024),
                                               (0, 8), (1, 8)])
-def test_counts_equal_the_jax_package(jcd, same, slope, chunk_rows):
+def test_counts_equal_the_jax_package(jcd, same, slope, chunk_rows,
+                                      monkeypatch):
     """chunk_rows 8 divides the 128 folded rows, 7 leaves a ragged tail,
-    1024 is one chunk."""
+    1024 is one chunk; the port slices its buffer by _BUF_ROWS rows."""
     args = sweep_args(jcd, slope)
     want = jsc.sweep_counts_buffered(jcd, *args, chunk_rows=chunk_rows)
-    np.testing.assert_array_equal(
-        tsc.sweep_counts_buffered(same, *args, chunk_rows=chunk_rows), want)
-    # the streaming name on a buffered cd slices the buffer as well
+    monkeypatch.setattr(tsc, "_BUF_ROWS", chunk_rows)
     np.testing.assert_array_equal(tsc.sweep_counts_streaming(same, *args),
                                   want)
     assert want[-1] > want[0]
 
 
 @pytest.mark.parametrize("n_act", [None, 7])
-def test_fetch_and_fill_equal_the_jax_package(jcd, same, n_act):
+def test_fetch_and_fill_equal_the_jax_package(jcd, same, n_act,
+                                              monkeypatch):
     args = sweep_args(jcd)
-    ti, tj, tidx, td0 = tsc.sweep_first_offsets(same, *args, chunk_rows=24,
-                                                _n_act=n_act)
+    monkeypatch.setattr(tsc, "_BUF_ROWS", 24)
+    ti, tj, tidx, td0 = tsc.sweep_first_offsets(same, *args, _n_act=n_act)
     ji, jj, jidx, jd0 = jsc.sweep_first_offsets(jcd, *args, chunk_rows=24,
                                                 _n_act=n_act)
     assert len(ti) > 0
@@ -207,8 +207,9 @@ def squares(jcd, same):
     args = sweep_args(jcd)
     j_sq, j_t = jsc.build_d0_square(jcd, args[0], 2, *LINE, OFFSETS,
                                     block_rows=100)
-    t_sq, t_t = tsc.build_d0_square(same, args[0], 2, *LINE, OFFSETS,
-                                    block_rows=100)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsc, "_SQUARE_ROWS", 100)
+        t_sq, t_t = tsc.build_d0_square(same, args[0], 2, *LINE, OFFSETS)
     return np.asarray(j_sq), j_t, t_sq, t_t
 
 
@@ -253,6 +254,21 @@ def test_the_int8_product_is_exact(n):
     np.testing.assert_allclose(scores, want_s, rtol=1e-12)
 
 
+def test_the_int8_product_sums_in_row_blocks(monkeypatch):
+    """The degrees and paths summed 64 rows at a time, the last block
+    ragged (n 300 pads to 304), equal the float64 count."""
+    monkeypatch.setattr(tsc, "_SQUARE_ROWS", 64)
+    rng = np.random.default_rng(11)
+    d0 = rng.random((300, 300), dtype=np.float32)
+    d0 = np.minimum(d0, d0.T)
+    np.fill_diagonal(d0, np.inf)
+    ts = np.array([0.1, 0.5, 0.95], np.float32)
+    scores, edges = tsc.matmul_sweep_scores(torch.from_numpy(d0), ts)
+    want_s, want_e = float64_sweep(d0, ts)
+    np.testing.assert_array_equal(edges, want_e)
+    np.testing.assert_allclose(scores, want_s, rtol=1e-12)
+
+
 def float64_sweep(d0, ts):
     """(scores, edges) per threshold from float64 products on the host."""
     n = d0.shape[0]
@@ -290,15 +306,17 @@ def partition_pairs(a, b):
 
 
 @pytest.mark.parametrize("o", [3, 9, 15])
-def test_components_equal_the_jax_package(jcd, same, squares, o):
+def test_components_equal_the_jax_package(jcd, same, squares, o,
+                                          monkeypatch):
     j_sq, j_t, t_sq, t_t = squares
-    labels, n_edges = tsc.components_device(t_sq, t_t[o], block_rows=100)
+    monkeypatch.setattr(tsc, "_SQUARE_ROWS", 100)
+    labels, n_edges = tsc.components_device(t_sq, t_t[o])
     j_labels, j_edges = jsc.components_device(j_sq, j_t[o])
     np.testing.assert_array_equal(labels, j_labels)
     assert n_edges == j_edges
     # the edge-list route over the same boundary
     args = sweep_args(jcd)
-    k = int(tsc.sweep_counts_buffered(same, *args)[-1])
+    k = int(tsc.sweep_counts_streaming(same, *args)[-1])
     t_edges, _ = tsc.sweep_fill_device(same, *args, n_act=20, e_total=k)
     j_edges_l, _ = jsc.sweep_fill_device(jcd, *args, n_act=20, e_total=k)
     e_labels, e_k = tsc.edge_components_device(t_edges, t_t[o])
@@ -310,7 +328,7 @@ def test_components_equal_the_jax_package(jcd, same, squares, o):
 
 def test_edge_components_raise_past_the_round_cap(jcd, same, monkeypatch):
     args = sweep_args(jcd)
-    k = int(tsc.sweep_counts_buffered(same, *args)[-1])
+    k = int(tsc.sweep_counts_streaming(same, *args)[-1])
     edges, _ = tsc.sweep_fill_device(same, *args, n_act=20, e_total=k)
     monkeypatch.setattr(tsc, "_label_prop_rounds", lambda n: 1)
     with pytest.raises(RuntimeError, match="failed to converge"):
@@ -417,6 +435,8 @@ def test_pipeline_equals_the_jax_package(jpop, monkeypatch, streaming,
     assert len(t_rec.calls) == len(j_rec.calls) == 2  # network, lineage
     for t_labels, j_labels in zip(t_rec.calls, j_rec.calls):
         np.testing.assert_array_equal(t_labels, j_labels)
+    assert got["route"] == route
+    np.testing.assert_array_equal(got["labels"], t_rec.calls[0])
     assert set(got) >= set(want) - {"refine_phase_s"}
     assert got["timings"].keys() == want["timings"].keys()
 

@@ -157,7 +157,7 @@ COPIES = {
                   "sweep2d_counts_streaming", "sweep2d_fetch_streaming",
                   "qc_bad_pairs_streaming", "fetch_within_boundary",
                   "CondensedDevice", "fill_condensed_device",
-                  "sweep_counts_buffered", "edge_components_device",
+                  "edge_components_device",
                   "_unfold_block", "build_d0_square", "matmul_sweep_scores",
                   "components_device", "run_scale_pipeline"), None),
     "synth.py": (("_bernoulli_words", "_keep_probs", "_masked_planes",
