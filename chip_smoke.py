@@ -87,11 +87,28 @@ Phases, each printing one JSON line with its seconds:
      count M1's, and at M1's boundary the dense product's edge count the
      streamed exact count); M3 ``python -m poppunk_tpu_torch --version``
      and the helper scripts on phase D's database
+  N  the device mesh (parallel/, scale.py's row-sharded arms): a real mesh
+     over every card with two or more, else a virtual mesh of 4 shards on
+     cuda:0, shape (2, 2), named on a line of its own. N1 pairwise_block
+     on phase E's 1024 queries x 8192 references sharded over the mesh
+     against the single device, without and with the BGMM fused post,
+     under the standard kernel and then the packed one (classes bit for
+     bit, distances within DIST_TOL); N2 two worker processes of this
+     script (``--n2-worker``: init_distributed over gloo, pod_mesh over a
+     virtual (1 x 2) local mesh on cuda:0) computing their tiles of a
+     1024 x 4096 block, held bit for bit in counts to the single process;
+     N3 run_scale_pipeline(n=20480, mesh=...) buffered and streaming
+     against M1 and M2 (edges, boundary, partition; peak memory under
+     M1's limit), then the QC pass and the fixed-boundary fetch at M1's
+     boundary through _mesh_compact_pass against the single device
+``python3 chip_smoke.py --mesh-only`` runs A, B, E, M1's and M2's
+pipelines and N alone (for a host with several cards: N's mesh spans them).
 Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D, E, H-M, the packed kernel's over F and
-G, each phase run with the counts set to 0 just before it), the
-nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero; so does a host without CUDA.
+launches counted over phases D, E, H-N, the packed kernel's over F, G and
+N1's packed runs, each phase run with the counts set to 0 just before it;
+N2's are its workers' own counts), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
+does a host without CUDA.
 
 The CPU rehearsal of phases D-I (the README's) sets
 POPPUNK_TPU_TORCH_DEVICE=cpu: the port runs on the card unless asked.
@@ -2073,8 +2090,8 @@ def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
             peaks[name] = torch.cuda.max_memory_allocated()
         return out
 
-    chunk, n_pad = _pad_geometry(
-        n, 256, len(KLIST),
+    chunk, n_pad, _ = _pad_geometry(
+        n, 256, 1, False, len(KLIST),
         budget=2.5e9 * device_hbm_total(device) / HBM_TOTAL)
     if n_pad != n:
         raise AssertionError(f"{n} genomes pad to {n_pad}")
@@ -2755,13 +2772,15 @@ def time_products(torch, d0_sq, t):
 def phase_m(torch, device, workdir, d, n=20480):
     """M1-M3. Returns standard launches per stage, and M1's worst
     difference of the kernel from its plain version at the fill's own
-    operands."""
+    operands with M1's and M2's pipeline results (for phase N)."""
     launches = {}
     m1_launches, m1 = phase_m1(torch, device, n)
     launches.update(m1_launches)
-    launches.update(phase_m2(torch, device, m1, n))
+    m2_launches, m2 = phase_m2(torch, device, m1, n)
+    launches.update(m2_launches)
     launches.update(phase_m3(torch, device, workdir, d))
-    return launches, SimpleNamespace(kernel_err=m1.kernel_err)
+    return launches, SimpleNamespace(kernel_err=m1.kernel_err, n=n,
+                                     m1=m1.out, m2=m2)
 
 
 def phase_m1(torch, device, n):
@@ -2911,7 +2930,7 @@ def phase_m2(torch, device, m1, n):
     if not m1.dense == m1.streamed == m1.out["n_edges"]:
         raise AssertionError(f"at M1's boundary: dense {m1.dense}, streamed "
                              f"{m1.streamed}, M1 {m1.out['n_edges']} edges")
-    return {"M2_pass": launches}
+    return {"M2_pass": launches}, out
 
 
 def phase_m3(torch, device, workdir, d):
@@ -3044,10 +3063,373 @@ def phase_m3(torch, device, workdir, d):
 
 
 # --------------------------------------------------------------------------
+# N: the device mesh
+# --------------------------------------------------------------------------
+
+# N2's workers: each has this long to start, compute and gather
+N2_TIMEOUT = 120
+
+
+def sync_all(torch):
+    """Wait for queued work on every card (a mesh spreads it)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def smoke_mesh(torch, device):
+    """A real mesh over every card when there are two or more (n_q 2 when
+    the count is even and above 2, pairwise_block's rule), else a virtual
+    mesh of 4 shards on ``device``, shape (2, 2). Returns (mesh, kind)."""
+    from poppunk_tpu_torch.parallel.mesh import get_mesh
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n >= 2:
+        return get_mesh(n_q=2 if n % 2 == 0 and n > 2 else 1), "real"
+    return get_mesh(devices=[device] * 4, n_q=2), "virtual"
+
+
+def phase_n1(torch, device, e, mesh):
+    """N1: pairwise_block on phase E's queries against its references,
+    on one device (use_mesh=False) and sharded over ``mesh``
+    (use_mesh=True), without a post and with E's BGMM fused post, under
+    the current KERNEL_CHOICE. Fails unless the classes are equal bit for
+    bit and the distances within DIST_TOL (and records whether they are
+    bit-equal too). Returns the kernel's launches per route."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.distances import pairwise_block
+    from poppunk_tpu_torch.ops.fused_assign import model_post_spec
+
+    t0 = time.perf_counter()
+    ss64, bbits = PRODUCTION[:2]
+    ref = (e.planes[:e.n_ref], e.lengths[:e.n_ref], e.freqs[:e.n_ref])
+    qry = (e.planes[e.n_ref:], e.lengths[e.n_ref:], e.freqs[e.n_ref:])
+    counter = "LAUNCHES" if mc.KERNEL_CHOICE == "standard" \
+        else "PACKED_LAUNCHES"
+    runs, launches = {}, {"single": 0, "mesh": 0}
+    for post in ("none", "bgmm"):
+        spec = None if post == "none" else model_post_spec(e.model)
+        out = {}
+        for route in ("single", "mesh"):
+            n0 = getattr(mc, counter)
+            t = time.perf_counter()
+            got = pairwise_block(
+                qry[0], ref[0], qry[1], ref[1], qry[2], ref[2], KLIST, ss64,
+                bbits, post_spec=spec, device=device,
+                use_mesh=route == "mesh",
+                mesh=mesh if route == "mesh" else None)
+            sync_all(torch)
+            seconds = time.perf_counter() - t
+            n = getattr(mc, counter) - n0
+            launches[route] += n
+            out[route] = got if spec is not None else (got, None)
+            runs[f"{post}_{route}"] = {"seconds": seconds, "launches": n}
+        (d1, c1), (dm, cm) = out["single"], out["mesh"]
+        runs[post] = {"max_abs_err": float(np.abs(dm - d1).max()),
+                      "bit_equal": bool(np.array_equal(dm, d1))}
+        np.testing.assert_allclose(dm, d1, **DIST_TOL)
+        if spec is not None:
+            runs[post]["classes_equal"] = bool(np.array_equal(cm, c1))
+            if not runs[post]["classes_equal"]:
+                raise AssertionError(f"N1 ({mc.KERNEL_CHOICE}): the mesh's "
+                                     "BGMM classes differ")
+    emit({"phase": "N1", "kernel": mc.KERNEL_CHOICE,
+          "block": [int(qry[0].shape[0]), int(ref[0].shape[0])],
+          "mesh_shape": mesh.shape, "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+N2_BLOCK = (1024, 4096)  # queries x references, PRODUCTION geometry
+
+
+def n2_planes(nq, nr):
+    """N2's block: random planes from a seed (queries, references)."""
+    rng = np.random.default_rng(SEED + 9)
+    planes = random_planes(rng, nq + nr, PRODUCTION)
+    lengths = rng.integers(1_800_000, 2_200_000, nq + nr).astype(np.int32)
+    freqs = rng.dirichlet(np.ones(4) * 50, nq + nr).astype(np.float32)
+    return ((planes[:nq], lengths[:nq], freqs[:nq]),
+            (planes[nq:], lengths[nq:], freqs[nq:]))
+
+
+def n2_block(block, sharded, *args, **kwargs):
+    """The count-derived [nq, nr, K] block of N2 (``block`` = (nq, nr)):
+    the b-bit corrected Jaccards without the random-match term, an
+    elementwise function of the match counts alone, so equal blocks are
+    equal counts."""
+    (pq, lq, fq), (pr, lr, fr) = n2_planes(*block)
+    ss64, bbits = PRODUCTION[:2]
+    return sharded(*args, pq, pr, lq, lr, fq, fr, KLIST, ss64, bbits,
+                   random_correct=False, jaccard=True, **kwargs)
+
+
+def n2_worker(rank, port, out, device, block):
+    """One of N2's two processes: init_distributed (gloo for the host
+    gather), pod_mesh over a virtual (1 x 2) local mesh on ``device``
+    (cuda:0; the CPU in the rehearsal), the global mesh 2 x 2, its tiles
+    of the block, the gathered block saved by rank 0 and its digest
+    printed by both."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.parallel import (init_distributed, is_primary,
+                                            pod_mesh, sharded_pairwise_block)
+
+    init_distributed(f"localhost:{port}", 2, rank)
+    try:
+        device = torch.device(device)
+        mesh = pod_mesh(devices=[device, device])
+        if mesh.shape != {"q": 2, "r": 2} or len(mesh.tiles()) != 2:
+            raise AssertionError(f"rank {rank}: {mesh}")
+        t = time.perf_counter()
+        got = n2_block(block, sharded_pairwise_block, mesh)
+        seconds = time.perf_counter() - t
+        if is_primary():
+            np.save(out, got)
+        print(json.dumps({"rank": rank, "launches": mc.LAUNCHES,
+                          "seconds": seconds,
+                          "sha256": hashlib.sha256(got.tobytes())
+                          .hexdigest()}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_n2(torch, device, workdir):
+    """N2: two worker processes of the port (n2_worker), each with a free
+    port's gloo group and a timeout; fails unless both exit 0, both see
+    the whole gathered block (one digest) and rank 0's block equals this
+    process's single-device block bit for bit. Returns the launches: the
+    workers' (from their own counts) and this process's."""
+    import hashlib
+    import socket
+
+    from poppunk_tpu_torch.ops.distances import pairwise_block
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(workdir, "n2_block.npy")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--n2-worker", str(rank),
+         str(port), out, str(device), *map(str, N2_BLOCK)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=N2_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"N2 worker exited {p.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    got = np.load(out)
+    want, single_s, single_launches, _ = counted(
+        torch, device, lambda: n2_block(N2_BLOCK, pairwise_block,
+                                        device=device, use_mesh=False))
+    digests = {r["sha256"] for r in results}
+    equal = bool(np.array_equal(got, want))
+    emit({"phase": "N2", "block": list(N2_BLOCK), "workers": results,
+          "single_seconds": single_s, "bit_equal": equal,
+          "seconds": time.perf_counter() - t0})
+    if len(digests) != 1 or digests != {
+            hashlib.sha256(got.tobytes()).hexdigest()}:
+        raise AssertionError(f"N2: the ranks saw different blocks: {results}")
+    if not equal:
+        raise AssertionError("N2: the two-process block's counts differ "
+                             "from the single process's")
+    return sum(r["launches"] for r in results) + single_launches
+
+
+def phase_n3(torch, device, mesh, m):
+    """N3: run_scale_pipeline(n, mesh=mesh) on both routes against M1 and
+    M2 in the same run (the same seed): buffered and sharded, M1's edge
+    count, boundary and partition (ARI 1.0 between the label vectors),
+    peak device memory net of what was live before it under
+    M1_LIMIT_BYTES; streaming and sharded (no bootstrap under a mesh: pass
+    1, then the exact counts pass and the fill), M2's edge count and
+    partition. Then the QC pass and the fixed-boundary fetch at M1's
+    boundary through _mesh_compact_pass on the population's planes, equal
+    to the single device's (i, j, flags), the fetch holding M1's edges.
+    Returns standard launches per part."""
+    from poppunk_tpu_torch import scale, synth
+    from poppunk_tpu_torch.utils import decision_boundary, transform_line
+
+    n = m.n
+    on_card = device.type == "cuda"
+    launches = {}
+    for route, want in (("buffered", m.m1), ("streaming", m.m2)):
+        t0 = time.perf_counter()
+        base = None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        log = []
+        out, seconds, n_launch, kernel_s = counted(
+            torch, device, lambda: scale.run_scale_pipeline(
+                n=n, mesh=mesh, streaming=route == "streaming",
+                log=log.append))
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        agree = scale.adjusted_rand_index(want["labels"], out["labels"])
+        emit({"phase": f"N3_{route}", "n": n, "route": out["route"],
+              "stages": out["timings"],
+              "refine_parts": out.get("refine_phase_s"),
+              "pipeline_s": out["pipeline_s"], "n_edges": out["n_edges"],
+              "n_clusters": out["n_clusters"], "ari": out["ari"],
+              "ari_vs_single": agree, "s_opt": out["boundary"]["s_opt"],
+              "s_opt_single": want["boundary"]["s_opt"],
+              "launches": n_launch, "kernel_s": kernel_s,
+              "pairs_per_s": out["pairs_per_s"], "base_device_bytes": base,
+              "peak_device_bytes": peak, "log": log,
+              "seconds": elapsed(torch, t0)})
+        if out["route"] != want["route"]:
+            raise AssertionError(f"N3 {route}: the {out['route']} sweep, "
+                                 f"not {want['route']}")
+        if out["n_edges"] != want["n_edges"] or agree != 1.0:
+            raise AssertionError(
+                f"N3 {route}: {out['n_edges']} edges (single "
+                f"{want['n_edges']}), ARI against the single device {agree}")
+        np.testing.assert_allclose(out["boundary"]["s_opt"],
+                                   want["boundary"]["s_opt"], rtol=1e-4)
+        if on_card and route == "buffered" and peak >= M1_LIMIT_BYTES:
+            raise AssertionError(f"N3 peak device memory {peak} (net) >= "
+                                 f"{M1_LIMIT_BYTES}")
+        launches[f"N3_{route}"] = n_launch
+
+    # the compaction passes on the population's planes at M1's boundary
+    t0 = time.perf_counter()
+    klist, ss64, bbits, chunk = (13, 16, 19, 22, 25, 28), 156, 14, 512
+    pop = synth.synthetic_population_device(
+        n, klist, ss64, bbits, n_strains=20, seed=2,
+        chunk=max(chunk, min(n, 2048)), device=device)
+    b = m.m1["boundary"]
+    line = b["line"]
+    mean0, mean1 = np.array(line[:2]), np.array(line[2:])
+    bx, by = decision_boundary(
+        transform_line(b["s_opt"], mean0, mean1),
+        (mean1[1] - mean0[1]) / (mean1[0] - mean0[0]))
+    scale_b = np.asarray(b["scale"])
+    ops = (pop.planes, pop.lengths, pop.freqs, klist, ss64, bbits, chunk, n)
+    passes = {
+        "qc": lambda **kw: scale.qc_bad_pairs_streaming(
+            *ops, 0.95 * scale_b[0], 0.95 * scale_b[1], check_zero=False,
+            **kw),
+        "fetch": lambda **kw: scale.fetch_within_boundary(
+            *ops, scale_b, bx, by, 2, **kw)}
+    parts, n_launch = {}, 0
+    for name, run in passes.items():
+        one, s1, l1, _ = counted(torch, device, lambda: run(device=device))
+        got, sm, lm, _ = counted(torch, device, lambda: run(mesh=mesh))
+        n_launch += l1 + lm
+        parts[name] = {"pairs": int(len(got[0])), "single_s": s1,
+                       "mesh_s": sm, "single_launches": l1,
+                       "mesh_launches": lm}
+        for a, w in zip(got, one):
+            if not np.array_equal(a, w):
+                raise AssertionError(f"N3 {name}: the mesh's pairs differ "
+                                     "from the single device's")
+    emit({"phase": "N3_compact", "n": n, "boundary": [float(bx), float(by)],
+          "passes": parts, "m1_edges": m.m1["n_edges"],
+          "seconds": elapsed(torch, t0)})
+    if parts["fetch"]["pairs"] != m.m1["n_edges"]:
+        raise AssertionError(f"N3: the fetch holds {parts['fetch']['pairs']}"
+                             f" pairs at M1's boundary, M1 "
+                             f"{m.m1['n_edges']} edges")
+    launches["N3_compact"] = n_launch
+    return launches
+
+
+def phase_n(torch, device, workdir, e, m, mesh):
+    """N1 (standard kernel), N2 and N3. Returns standard launches per
+    stage."""
+    launches = {f"N1_{route}": n for route, n in
+                phase_n1(torch, device, e, mesh).items()}
+    launches["N2"] = phase_n2(torch, device, workdir)
+    launches.update(phase_n3(torch, device, mesh, m))
+    return launches
+
+
+# --------------------------------------------------------------------------
+
+def all_vs_all_routes(torch, device, e):
+    """Phase E's all-vs-all (condensed_self_block over its references)
+    with pairwise_block's automatic mesh (every card from 65,536 pairs a
+    chunk) and with the mesh turned off (``ops/distances._auto_mesh``
+    replaced for the call), each twice, in turns; fails unless the rows
+    are equal bit for bit."""
+    from poppunk_tpu_torch.ops import distances
+
+    ss64, bbits = PRODUCTION[:2]
+    args = (e.planes[:e.n_ref], e.lengths[:e.n_ref], e.freqs[:e.n_ref],
+            KLIST, ss64, bbits)
+    auto = distances._auto_mesh
+    seconds, rows = {"auto": [], "one_card": []}, {}
+    for route in ("auto", "one_card", "one_card", "auto"):
+        distances._auto_mesh = (auto if route == "auto"
+                                else lambda device, n_pairs: None)
+        try:
+            t = time.perf_counter()
+            rows[route] = distances.condensed_self_block(*args,
+                                                         device=device)
+            sync_all(torch)
+            seconds[route].append(time.perf_counter() - t)
+        finally:
+            distances._auto_mesh = auto
+    equal = bool(np.array_equal(rows["auto"], rows["one_card"]))
+    emit({"phase": "E_all_vs_all_routes", "genomes": int(e.n_ref),
+          "cards": torch.cuda.device_count(), "seconds": seconds,
+          "bit_equal": equal})
+    if not equal:
+        raise AssertionError("the all-vs-all rows differ between routes")
+
+
+def mesh_only(torch, device):
+    """``--mesh-only``: phase N with what it reads (phase E's population,
+    M1's and M2's pipelines at 20,480 as the single-device results), for a
+    run over several cards. Prints each part's launches; no kernel line."""
+    from poppunk_tpu_torch import scale
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        _, e = phase_e(torch, device, workdir)
+        all_vs_all_routes(torch, device, e)
+        n = 20480
+        t0 = time.perf_counter()
+        m1 = scale.run_scale_pipeline(n=n, device=device, log=lambda m: None)
+        m2 = scale.run_scale_pipeline(n=n, streaming=True, device=device,
+                                      log=lambda m: None)
+        emit({"phase": "M_single", "m1_stages": m1["timings"],
+              "m2_stages": m2["timings"], "m1_edges": m1["n_edges"],
+              "m2_edges": m2["n_edges"], "seconds": elapsed(torch, t0)})
+        m = SimpleNamespace(n=n, m1=m1, m2=m2)
+        mesh, kind = smoke_mesh(torch, device)
+        emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
+              "devices": [str(dev) for dev in mesh.flat()]})
+        mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
+        emit({"phase": "N_launches", "kernel": "standard",
+              "stages": phase_n(torch, device, workdir, e, m, mesh)})
+        mc.KERNEL_CHOICE = "packed"
+        emit({"phase": "N_launches", "kernel": "packed",
+              "stages": phase_n1(torch, device, e, mesh)})
+        mc.KERNEL_CHOICE = "standard"
+
 
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--n2-worker"]:
+        rank, port, out, dev, nq, nr = sys.argv[2:8]
+        return n2_worker(int(rank), int(port), out, dev, (int(nq), int(nr)))
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke.py: torch.cuda.is_available() is False; "
                          "this script measures the port on a CUDA card\n")
@@ -3063,6 +3445,13 @@ def main():
     device = torch.device("cuda", 0)
     smi = phase_a(torch)
     phase_b()
+    if sys.argv[1:] == ["--mesh-only"]:
+        mesh_only(torch, device)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     kernels = phase_c(torch, device)
     l0_err, _ = phase_l0(torch, device)
     kernels["match_counts"]["max_abs_err"] = max(
@@ -3112,6 +3501,16 @@ def main():
         m = path("M", lambda: phase_m(torch, device, workdir, d), *std)
         kernels["match_counts"]["max_abs_err"] = max(
             kernels["match_counts"]["max_abs_err"], m.kernel_err)
+        mesh, kind = smoke_mesh(torch, device)
+        emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
+              "devices": [str(dev) for dev in mesh.flat()]})
+        path("N", lambda: (phase_n(torch, device, workdir, e, m, mesh),
+                           None), *std)
+        mc.KERNEL_CHOICE = "packed"
+        path("N_packed", lambda: ({
+            f"N1_packed_{route}": n for route, n in
+            phase_n1(torch, device, e, mesh).items()}, None), *packed)
+        mc.KERNEL_CHOICE = "standard"
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

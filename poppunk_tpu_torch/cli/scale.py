@@ -27,8 +27,12 @@ scoreable cells' union, the host scorer per grid row), --multi-boundary,
 --mandrake (a second streaming pass for the accessory kNN, then the SCE),
 --run-qc (sketch QC and one streaming distance-QC pass before the fit) and
 --use-model (a refine or threshold boundary applied in one streaming
-pass). One card is one device: --single-device is accepted and changes
-nothing.
+pass). With more than one card the streaming passes are row-sharded over
+every card (parallel.mesh, scale.py's row-sharded mesh) once the
+population has at least 4 * cards * chunk genomes, as in the reference;
+--single-device turns the mesh off. The column-sharded arms are not
+ported: a population whose replicated planes pass 8e9 bytes on a mesh
+raises (pass --single-device).
 
 The distance passes and the sweeps run on ``cuda:<--deviceid>``, and the
 start model too, unless ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU;
@@ -206,29 +210,46 @@ def get_options(arg_list=None):
 _CHUNK_BUDGET = 2.5e9
 
 
-def _pad_geometry(n_real, chunk, n_kmers=6, budget=_CHUNK_BUDGET):
-    """(chunk, n_pad) honouring the folded layout's divisibility: n_pad/2
-    must divide by chunk. Pads are zero-sketch genomes masked exactly via
-    n_real. ``budget`` bounds a step's transients, ~16 bytes * 2c * n * K
-    across the count, correction and fit buffers."""
+def _pad_geometry(n_real, chunk, n_devices, use_mesh, n_kmers=6,
+                  budget=_CHUNK_BUDGET):
+    """(chunk, n_pad, mesh or None) honouring the folded layout's
+    divisibility: n_pad/2 must divide by chunk (and by the device count
+    when sharded). Pads are zero-sketch genomes masked exactly via n_real.
+    ``budget`` bounds a step's transients, ~16 bytes * 2c * n * K across
+    the count, correction and fit buffers. The mesh (every card,
+    parallel.mesh.get_mesh()) is taken when asked for, with more than one
+    device and at least 4 * n_devices * chunk genomes, the reference's
+    rule; the population then pads to 2 * chunk * n_devices."""
     c = int(chunk)
     c_budget = max(32, int(budget / (2 * max(n_real, 2) * n_kmers * 16)))
     while c > 32 and c > c_budget:
         c //= 2
     while c > 1 and 2 * c > max(n_real, 2):
         c //= 2
-    gran = 2 * c
+    mesh = None
+    if use_mesh and n_devices > 1 and n_real >= 4 * n_devices * c:
+        from ..parallel.mesh import get_mesh
+
+        mesh = get_mesh()
+        gran = 2 * c * n_devices
+    else:
+        gran = 2 * c
     n_pad = -(-n_real // gran) * gran
-    return c, n_pad
+    return c, n_pad, mesh
 
 
 def _chunk_geometry(n_real, args, klist, device):
-    """_pad_geometry at ``device``'s budget: the reference's per-step
-    budget scaled by the card's memory (sparse_sweep.device_hbm_total)."""
+    """_pad_geometry at ``device``'s budget (the reference's per-step
+    budget scaled by the card's memory, sparse_sweep.device_hbm_total),
+    over the default mesh's devices when ``device`` is one of them and
+    --single-device is not set."""
     from ..ops.sparse_sweep import HBM_TOTAL, device_hbm_total
+    from ..parallel.mesh import visible_devices
 
+    devices = visible_devices()
     return _pad_geometry(
-        n_real, args.chunk, n_kmers=len(klist),
+        n_real, args.chunk, len(devices) if device in devices else 1,
+        not args.single_device, n_kmers=len(klist),
         budget=_CHUNK_BUDGET * device_hbm_total(device) / HBM_TOTAL)
 
 
@@ -287,24 +308,29 @@ def main(arg_list=None):
         f"Streaming fit: {n_real} genomes, {n_pairs} pairs, "
         f"k = {list(map(int, klist))}\n")
 
-    chunk, n_pad = _chunk_geometry(n_real, args, klist, dist_device)
+    chunk, n_pad, mesh = _chunk_geometry(n_real, args, klist, dist_device)
+    if mesh is not None:
+        sys.stderr.write(
+            f"Sharding streaming passes over {mesh.size} devices\n")
 
     t0 = time.perf_counter()
     planes, lengths, freqs = pack_planes(sketches, klist, plane_major=True,
                                          pad_to=n_pad)
     subsample = min(args.model_subsample, n_pairs)
-    # two-round bootstrap (score_idx 0, constrained): fit the start model
-    # on directly computed subsample distances first, then fuse the refine
-    # band's edge fill into the single streaming pass
+    # two-round bootstrap (single device, score_idx 0, constrained): fit
+    # the start model on directly computed subsample distances first, then
+    # fuse the refine band's edge fill into the single streaming pass
     # (scale.plan_sweep_band)
-    bootstrap = (args.score_idx == 0 and not args.unconstrained
+    bootstrap = (mesh is None and args.score_idx == 0
+                 and not args.unconstrained
                  and os.environ.get("POPPUNK_TPU_BOOTSTRAP", "1") != "0")
     cd = StreamingCondensed(
         planes, lengths, freqs, klist, sketches[0].sketchsize64,
         sketches[0].bbits, chunk=chunk, knn=knn,
         dist_col=1 if args.use_accessory else 0,
         subsample=(None if bootstrap else (subsample, args.seed)),
-        n_real=n_real, defer=bootstrap, device=dist_device)
+        n_real=n_real, defer=bootstrap, device=dist_device, mesh=mesh,
+        shard_planes="auto")
     del planes
     if not bootstrap:
         dt = time.perf_counter() - t0
@@ -509,14 +535,14 @@ def _use_model(args, ref_db, output, names, sketches, klist, dist_device,
         f"({n * (n - 1) // 2} pairs, one streaming pass)\n")
 
     t0 = time.perf_counter()
-    chunk, n_pad = _chunk_geometry(n, args, klist, dist_device)
+    chunk, n_pad, mesh = _chunk_geometry(n, args, klist, dist_device)
     planes, lengths, freqs = pack_planes(sketches, klist, plane_major=True,
                                          pad_to=n_pad)
     i, j = fetch_within_boundary(
         planes, lengths, freqs, klist, sketches[0].sketchsize64,
         sketches[0].bbits, chunk, n, model.scale, bx, by, slope,
         max_fetch=max(args.max_sweep_fetch, 100_000_000),
-        device=dist_device)
+        device=dist_device, mesh=mesh, shard_planes="auto")
     sys.stderr.write(
         f"Boundary pass: {len(i)} within-strain pairs in "
         f"{time.perf_counter() - t0:.1f}s\n")
@@ -555,7 +581,7 @@ def _mandrake_embedding(args, cd, names, output, device):
     k = min(50, cd.n - 1)
     cd2 = StreamingCondensed(cd.planes, cd.lengths, cd.freqs, cd._klist,
                              cd._ss64, cd._bbits, chunk=cd.chunk, knn=k,
-                             dist_col=1, n_real=cd.n)
+                             dist_col=1, n_real=cd.n, mesh=cd._mesh)
     rows, cols, dists = cd2.knn_sparse()
     emb = embedding_from_knn(rows, cols, dists, cd.n, k,
                              args.perplexity, max_iter=args.mandrake_iter,
@@ -591,7 +617,7 @@ def _run_qc(args, ref_db, output, names, sketches, klist, device):
         "Running streaming QC on distances (cutoffs: core "
         f"{qc_dict['max_pi_dist']}, accessory {qc_dict['max_a_dist']}, "
         f"zero proportion {qc_dict['prop_zero']})\n")
-    chunk, n_pad = _chunk_geometry(n, args, klist, device)
+    chunk, n_pad, mesh = _chunk_geometry(n, args, klist, device)
     planes, lengths, freqs = pack_planes(sketches, klist,
                                          plane_major=True, pad_to=n_pad)
     i, j, flags = qc_bad_pairs_streaming(
@@ -600,7 +626,8 @@ def _run_qc(args, ref_db, output, names, sketches, klist, device):
         qc_dict["max_a_dist"],
         # prop_zero >= 1 disables the zero rule: skip zero-pair
         # compaction (clonal populations hold O(n_pairs) zero pairs)
-        check_zero=qc_dict["prop_zero"] < 1, device=device)
+        check_zero=qc_dict["prop_zero"] < 1, device=device, mesh=mesh,
+        shard_planes="auto")
     long_mask = (flags & 1) > 0
     long_edges = list(zip(i[long_mask].tolist(), j[long_mask].tolist()))
     failed_idx = prune_edges(long_edges, query_start=n)

@@ -86,21 +86,48 @@ def planes_to_tensor(planes, device=None):
             _device.resolve(device))
 
 
-def _random_jaccard(k, len_q, len_r, freq_q, freq_r, use_rc=True):
-    """Expected Jaccard of two random sequences with these lengths and
-    base compositions (torch twin of sketch/random_match.py and the
-    reference's _random_jaccard_jnp). The 4-wide dots run in full float32
-    (TF32 is off on the card, see _device.py)."""
-    p = (freq_q @ freq_r.T) ** k  # [nq, nr]
-    if use_rc:
-        # ACGT reversed is the complement permutation
-        p = p + (freq_q @ torch.flip(freq_r, dims=[1]).T) ** k
+def _dot4(a, b):
+    """[nq, 4] x [nr, 4] -> f32 [nq, nr] of sum_c a[:, c] * b[:, c], as
+    separate products and sums in a fixed order. A matmul's blocking
+    depends on the tile's shape, so its last bit would too; this result
+    is the same whatever the tile (a query chunk, a mesh shard), which
+    keeps the sharded block and the classes on it bit-equal to the
+    single-device ones."""
+    out = a[:, 0, None] * b[None, :, 0]
+    for c in range(1, a.shape[1]):
+        out = out + a[:, c, None] * b[None, :, c]
+    return out
+
+
+def _random_match_dots(freq_q, freq_r, use_rc=True):
+    """(dot, reverse-complement dot or None) of the base compositions."""
+    dot = _dot4(freq_q, freq_r)
+    # ACGT reversed is the complement permutation
+    return dot, (_dot4(freq_q, torch.flip(freq_r, dims=[1])) if use_rc
+                 else None)
+
+
+def _random_jaccard_dots(k, len_q, len_r, dots):
+    """_random_jaccard from the precomputed _random_match_dots."""
+    dot, dot_rc = dots
+    p = dot ** k  # [nq, nr]
+    if dot_rc is not None:
+        p = p + dot_rc ** k
     n1 = (len_q.to(torch.float32) - k + 1).clamp(min=1.0)[:, None]
     n2 = (len_r.to(torch.float32) - k + 1).clamp(min=1.0)[None, :]
     inter = n1 * n2 * p
     union = n1 + n2 - inter
     r = torch.where(union <= 0, 1.0, inter / union.clamp(min=1e-30))
     return r.clamp(0.0, 1.0 - 1e-6)
+
+
+def _random_jaccard(k, len_q, len_r, freq_q, freq_r, use_rc=True):
+    """Expected Jaccard of two random sequences with these lengths and
+    base compositions (torch twin of sketch/random_match.py and the
+    reference's _random_jaccard_jnp). The 4-wide dots run in float32,
+    in a fixed order (_dot4)."""
+    return _random_jaccard_dots(k, len_q, len_r,
+                                _random_match_dots(freq_q, freq_r, use_rc))
 
 
 def corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
@@ -111,9 +138,9 @@ def corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
     obs = matches.to(torch.float32) / nbins
     j = ((obs - expected) / (1.0 - expected)).clamp(0.0, 1.0)
     if random_correct:
-        r = torch.stack([_random_jaccard(float(k), len_q, len_r, freq_q,
-                                         freq_r, use_rc) for k in klist],
-                        dim=-1)
+        dots = _random_match_dots(freq_q, freq_r, use_rc)
+        r = torch.stack([_random_jaccard_dots(float(k), len_q, len_r, dots)
+                         for k in klist], dim=-1)
         j = ((j - r) / (1.0 - r)).clamp(0.0, 1.0)
     return j
 
@@ -172,16 +199,60 @@ def _to_host(out, post_spec):
     return out[0].cpu().numpy(), out[1].cpu().numpy()
 
 
+# Below this many pairs the sharding overhead outweighs the parallelism;
+# small problems take the single-device path
+_SHARD_MIN_PAIRS = 1 << 16
+
+
+def _auto_mesh(device, n_pairs):
+    """The mesh pairwise_block shards over when the caller leaves it to
+    the reference's rule: the computing device is a card, the default mesh
+    (every visible card of every process) holds more than one device, and
+    the block has at least _SHARD_MIN_PAIRS pairs; n_q = 2 when the device
+    count is even and above 2. None: the single-device path."""
+    if device.type != "cuda" or n_pairs < _SHARD_MIN_PAIRS:
+        return None
+    from ..parallel.mesh import default_device_count, get_mesh
+
+    n_dev = default_device_count()
+    if n_dev < 2:
+        return None
+    return get_mesh(n_dev, n_q=2 if n_dev % 2 == 0 and n_dev > 2 else 1)
+
+
 def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
                    sketchsize64, bbits, random_correct=True, use_rc=True,
-                   jaccard=False, chunk=512, post_spec=None, device=None):
+                   jaccard=False, chunk=512, post_spec=None, device=None,
+                   use_mesh=None, mesh=None):
     """Dense [nq, nr] block, chunked over queries: f32 [nq, nr, 2]
     (core, accessory) or [nq, nr, K] Jaccards; with ``post_spec``
     (ops/fused_assign) also the per-pair classes from the same pass. It
-    runs on ``device`` (None: ``_device.resolve``'s choice)."""
+    runs on ``device`` (None: ``_device.resolve``'s choice).
+
+    With more than one card in the default mesh and a big enough block
+    (``use_mesh`` None, _auto_mesh's rule), or with ``use_mesh=True``, the
+    block is computed sharded over a ('q', 'r') device mesh
+    (parallel/dists.py): ``mesh``, or the default mesh over every card."""
     if post_spec is not None and jaccard:
         raise ValueError("post_spec requires (core, accessory) output")
     device = _device.resolve(device)
+    if use_mesh is None:
+        mesh = mesh or _auto_mesh(device,
+                                  planes_q.shape[0] * planes_r.shape[0])
+    elif use_mesh:
+        if mesh is None:
+            from ..parallel.mesh import get_mesh
+
+            mesh = get_mesh()
+    else:
+        mesh = None
+    if mesh is not None:
+        from ..parallel.dists import sharded_pairwise_block
+
+        return sharded_pairwise_block(
+            mesh, planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
+            sketchsize64, bbits, random_correct, use_rc, jaccard,
+            post_spec=post_spec)
     pad_bits = plane_geometry(sketchsize64, bbits)[2]
     ref = _Operands(planes_r, len_r, freq_r, device, pad_bits)
     qry = _Operands(planes_q, len_q, freq_q, device, pad_bits)
@@ -203,17 +274,42 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
     """Condensed i<j all-vs-all rows without the n x n square: each query
     chunk is compared only with the genomes from its own first row on,
     and sliced to its upper-triangle rows at once. It runs on ``device``
-    (None: ``_device.resolve``'s choice)."""
+    (None: ``_device.resolve``'s choice); a chunk of n x chunk pairs or
+    more is sharded over the default mesh by pairwise_block's rule
+    (_auto_mesh), a smaller one never. The sharded chunks run against
+    every genome, whose shards are placed on the mesh once for the pass
+    (re-placing them per chunk would move n planes per chunk)."""
     device = _device.resolve(device)
-    ops = _Operands(planes, lengths, freqs, device,
-                    plane_geometry(sketchsize64, bbits)[2])
+    pad_bits = plane_geometry(sketchsize64, bbits)[2]
+    ops = None  # on the device at the first chunk the mesh does not take
+    refs = None  # on the mesh at the first chunk it takes
     n = planes.shape[0]
     out, out_extra = [], []
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        o = _to_host(_dist_chunk(
-            ops.rows(start, stop), ops.rows(start, n), klist, sketchsize64,
-            bbits, random_correct, use_rc, jaccard, post_spec), post_spec)
+        mesh = _auto_mesh(device, n * (stop - start))
+        if mesh is not None:
+            from ..parallel.dists import (ShardedReferences,
+                                          sharded_pairwise_block)
+
+            if refs is None:
+                refs = ShardedReferences(mesh, planes, lengths, freqs,
+                                         pad_bits)
+            o = sharded_pairwise_block(
+                mesh, planes[start:stop], planes, lengths[start:stop],
+                lengths, freqs[start:stop], freqs, klist, sketchsize64,
+                bbits, random_correct, use_rc, jaccard, q_chunk=chunk,
+                post_spec=post_spec, refs=refs)
+            # columns from the chunk's first genome on, as the single route
+            o = (tuple(a[:, start:] for a in o) if post_spec is not None
+                 else o[:, start:])
+        else:
+            if ops is None:
+                ops = _Operands(planes, lengths, freqs, device, pad_bits)
+            o = _to_host(_dist_chunk(
+                ops.rows(start, stop), ops.rows(start, n), klist,
+                sketchsize64, bbits, random_correct, use_rc, jaccard,
+                post_spec), post_spec)
         block, extra = o if post_spec is not None else (o, None)
         for local in range(stop - start):
             out.append(block[local, local + 1:])

@@ -54,6 +54,19 @@ What differs from the reference, and why:
 Pads: odd populations (or any n off the chunk grid) are padded with zero
 genomes; ``n_real`` masks them exactly (+inf folded distances, never kNN
 neighbours, never drawn into the subsample).
+
+The row-sharded mesh (``mesh=``, a parallel.mesh.Mesh): device d owns the
+folded rows [d * half_loc, (d + 1) * half_loc), half_loc = n // 2 / n_dev,
+with the planes replicated on every device (``Tensor.to``: one copy per
+distinct device). Every pass walks the shards in waves: step k of every
+shard is enqueued, each on its device, before any is read back
+(_stream_pairs); counts are summed per shard, fetched pairs and the
+predeclared subsample are put back in ascending global row order, and the
+fill's per-shard edge buffers are concatenated on the mesh's first device,
+so every result is the single-device one. The buffered tier's buffer is
+row-sharded the same way (fill_condensed_sharded). The column-sharded arms
+(planes split over the genome axis, shard_planes) are not ported: a mesh
+that resolves to them raises (_refuse_column_sharding).
 """
 
 import os
@@ -223,13 +236,14 @@ class _BandFill:
     below n_act, filled chunk by chunk in folded order, plus the exact
     per-offset histogram over the full threshold grid. The buffers hold
     e_total (an exact count, or an estimate with margin) plus slack for
-    pairs that sit exactly on a threshold; overflowing lanes are counted
-    but never written, and the caller checks ``acc`` against ``cap``."""
+    pairs that sit exactly on a threshold, or ``cap`` slots when given
+    (a mesh shard's); overflowing lanes are counted but never written,
+    and the caller checks ``acc`` against ``cap``."""
 
-    def __init__(self, n, t, n_act, e_total, device):
+    def __init__(self, n, t, n_act, e_total, device, cap=None):
         from .ops.sparse_sweep import band_slots
 
-        self.cap = band_slots(e_total)
+        self.cap = band_slots(e_total) if cap is None else int(cap)
         self.n = n
         self.t = t
         self.t_band = t[n_act - 1]  # widest active offset's threshold
@@ -337,44 +351,137 @@ def streaming_hbm_accounting(n, klist, sketchsize64, bbits, chunk, knn,
     }
 
 
+def _resolve_shard_planes(shard_planes, mesh, n, klist, ss64, bbits,
+                          chunk, knn):
+    """ONE home for the column-sharding policy: "auto" switches when the
+    REPLICATED planes would crowd a 16 GB device (past ~100k genomes at
+    production geometry) and the genome axis divides the mesh."""
+    if shard_planes != "auto":
+        return bool(shard_planes)
+    if mesh is None:
+        return False
+    n_dev = int(np.prod(list(mesh.shape.values())))
+    acct = streaming_hbm_accounting(n, klist, ss64, bbits, chunk, knn,
+                                    n_dev, shard_planes=False)
+    return acct["planes"] > 8e9 and n % n_dev == 0
+
+
+def _refuse_column_sharding(shard_planes, mesh, n, klist, ss64, bbits,
+                            chunk, knn):
+    """Raise when a mesh pass would take the column-sharded arms (planes
+    split over the genome axis): they are not ported. Nothing falls back
+    to the row-sharded or single-device route."""
+    if mesh is not None and _resolve_shard_planes(
+            shard_planes, mesh, n, klist, ss64, bbits, chunk, knn):
+        raise NotImplementedError(
+            f"shard_planes={shard_planes!r} resolves to column-sharded "
+            f"planes for n={n} over {mesh.size} devices; the column-sharded "
+            "arms (_ColShardedStream, _col_compact_pass) are the next item "
+            "of ROADMAP.md queue 1 and not ported yet; pass "
+            "shard_planes=False for the row-sharded mesh")
+
+
+def _mesh_devices(mesh):
+    """The row shards' devices, device d = mesh entry d. The scale tier's
+    mesh is one process's: every device must be this process's."""
+    if (mesh.ranks != mesh.rank).any():
+        raise ValueError("the scale tier's row-sharded mesh runs in one "
+                         "process; this mesh spans several")
+    return mesh.flat()
+
+
+def _unfold_knn(ki, kd, n):
+    """Per-genome [n, k] kNN arrays from the folded per-shard layout
+    [half, 2, k] (row s: genome s in [:, 0], its mirror n-1-s in [:, 1]);
+    host numpy."""
+    half = n // 2
+    knn_col = np.empty((n, ki.shape[2]), np.int64)
+    knn_dist = np.empty((n, ki.shape[2]), np.float32)
+    knn_col[:half] = ki[:, 0]
+    knn_col[half:] = ki[::-1, 1]
+    knn_dist[:half] = kd[:, 0]
+    knn_dist[half:] = kd[::-1, 1]
+    return knn_col, knn_dist
+
+
+def _fold_knn_rows(ki, kd, off, c, top_i, top_d):
+    """Write one step's kNN ([2c, k], low rows then mirrors ascending) into
+    a shard's folded [half_loc, 2, k] arrays at local row ``off``: the
+    mirror of folded row s is genome n-1-s, hence the reversal."""
+    ki[off:off + c, 0], ki[off:off + c, 1] = top_i[:c], top_i[c:].flip(0)
+    kd[off:off + c, 0], kd[off:off + c, 1] = top_d[:c], top_d[c:].flip(0)
+
+
 class StreamingCondensed:
     """The condensed distances of a population, never stored.
 
-    Exposes the consumer surface of the reference's StreamingCondensed on
-    one device: n, n_pairs, knn_col / knn_dist, max_scale,
-    subsample_pairs, knn_sparse and the bootstrap prefill; ``buf`` stays
-    None. Device memory is the resident planes plus one step's transients.
+    Exposes the consumer surface of the reference's StreamingCondensed:
+    n, n_pairs, knn_col / knn_dist, max_scale, subsample_pairs,
+    knn_sparse and the bootstrap prefill; ``buf`` stays None. Device
+    memory is the resident planes plus one step's transients (per device
+    on a mesh, where a repeated device holds one step per shard of a
+    wave).
 
     planes: plane-major [K, P, n_pad, Wp], numpy uint32 (moved to the
     device here) or an int32 tensor already on it. It runs on ``device``
-    (None: ``_device.resolve``'s choice), or on the tensor's device.
+    (None: ``_device.resolve``'s choice), or on the tensor's device; with
+    ``mesh`` (parallel.mesh.Mesh) the folded rows are row-sharded over the
+    mesh's devices and the planes replicated on each, and ``device`` is
+    the mesh's first. shard_planes asks for the column-sharded arms
+    ("auto": the reference's rule), which are not ported and raise.
     """
 
     buf = None
 
     def __init__(self, planes, lengths, freqs, klist, sketchsize64, bbits,
                  chunk=256, knn=5, dist_col=0, subsample=None, n_real=None,
-                 defer=False, device=None):
+                 defer=False, device=None, mesh=None, shard_planes=False):
+        n = planes.shape[2]  # PADDED count (even); see n_real
+        if n_real is None:
+            n_real = n
+        if not n_real <= n:
+            raise ValueError(f"n_real ({n_real}) must be <= n ({n})")
+        half = fold_rows(n)
+        _refuse_column_sharding(shard_planes, mesh, n, klist, sketchsize64,
+                                bbits, chunk, knn)
+        self._mesh = mesh
+        if mesh is not None:
+            devices = _mesh_devices(mesh)
+            n_dev = len(devices)
+            if half % n_dev:
+                raise ValueError(f"n//2 ({half}) must be a multiple of "
+                                 f"the device count ({n_dev})")
+            self._half_loc = half // n_dev
+            chunk = min(chunk, self._half_loc)
+            if self._half_loc % chunk:
+                raise ValueError(f"per-device rows ({self._half_loc}) "
+                                 f"must be a multiple of chunk ({chunk})")
+            device = devices[0]
+        else:
+            chunk = min(chunk, half)
+            if half % chunk:
+                raise ValueError(
+                    f"n//2 ({half}) must be a multiple of chunk ({chunk})")
+            self._half_loc = half
         if isinstance(planes, torch.Tensor):
             # resolve keeps float32 products in full precision on a card
-            self.device = _device.resolve(planes.device)
-            self.planes = planes
+            self.device = _device.resolve(planes.device if device is None
+                                          else device)
+            self.planes = planes.to(self.device)
         else:
             self.device = _device.resolve(device)
             self.planes = planes_to_tensor(planes, self.device)
         self.lengths = torch.as_tensor(lengths, device=self.device)
         self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                      device=self.device)
-        n = self.planes.shape[2]  # PADDED count (even); see n_real
-        if n_real is None:
-            n_real = n
-        if not n_real <= n:
-            raise ValueError(f"n_real ({n_real}) must be <= n ({n})")
-        half = fold_rows(n)
-        chunk = min(chunk, half)
-        if half % chunk:
-            raise ValueError(
-                f"n//2 ({half}) must be a multiple of chunk ({chunk})")
+        # (first folded row, planes, lengths, freqs) per row shard; the
+        # operands are replicated with .to, one copy per distinct device
+        self._shards = [
+            (d * self._half_loc, self.planes.to(dev), self.lengths.to(dev),
+             self.freqs.to(dev))
+            for d, dev in enumerate(devices if mesh is not None
+                                    else [self.device])]
+        self._n_dev = len(self._shards)
         self.n = int(n_real)
         self._n_pad = n
         self._n_real = int(n_real)
@@ -416,34 +523,38 @@ class StreamingCondensed:
         # pass with the refine band's edge fill fused in (run_pass1)
         self._deferred = bool(defer)
         if not defer:
-            self._pass1_single()
+            self._pass1()
 
     def run_pass1(self, fill_spec=None):
         """Execute the deferred pass 1 (see __init__(defer=True)).
 
         fill_spec (from plan_sweep_band) fuses the refine sweep's
         in-boundary edge fill into the same chunk walk: dict(scale,
-        offsets, slope, line, n_act, e_total). On buffer overflow the
-        stats results are KEPT and the prefill is discarded —
-        refine_fit_device then refills exactly, as if no bootstrap ran."""
+        offsets, slope, line, n_act, e_total); a single device's only,
+        as in the reference (its bootstrap runs without a mesh). On
+        buffer overflow the stats results are KEPT and the prefill is
+        discarded — refine_fit_device then refills exactly, as if no
+        bootstrap ran."""
         if not self._deferred:
             raise RuntimeError("pass 1 already ran")
-        self._pass1_single(fill_spec)
+        if fill_spec is not None and self._mesh is not None:
+            raise ValueError(
+                "the bootstrap's fused band fill requires a single device "
+                "(the mesh tiers run the standard pass 1)")
+        self._pass1(fill_spec)
         self._deferred = False
 
-    def _pass1_single(self, fill_spec=None):
+    def _pass1(self, fill_spec=None):
         """Pass 1: fused kNN, column maxima and the predeclared-subsample
-        gather (the reference's _stream_stats_range), optionally with the
-        boundary-band edge fill (_stream_stats_fill_range)."""
+        gather (the reference's _stream_stats_range, and on a mesh the
+        stats body of its _ShardedStream: per-shard kNN in the folded
+        layout and column maxima, max-combined on the host), optionally
+        with the boundary-band edge fill (_stream_stats_fill_range; one
+        device). Each wave enqueues one step per shard before the next."""
         n = self._n_pad
-        half = fold_rows(n)
         c = self.chunk
         knn = self._knn_k
-        dev = self.device
         nr = self._n_real if self._n_real < n else None
-        ki = torch.zeros((n, knn), dtype=torch.int64, device=dev)
-        kd = torch.zeros((n, knn), dtype=torch.float32, device=dev)
-        cmax = torch.full((2,), float("-inf"), device=dev)
         fill = None
         if fill_spec is not None:
             # the bootstrap computes the model subsample directly; a
@@ -453,29 +564,51 @@ class StreamingCondensed:
                                   fill_spec["offsets"], fill_spec["slope"],
                                   fill_spec["line"])
             fill = _BandFill(n, geom.t, int(fill_spec["n_act"]),
-                             fill_spec["e_total"], dev)
+                             fill_spec["e_total"], self.device)
+        state = []
+        for row0, planes, _, _ in self._shards:
+            dev = planes.device
+            state.append((
+                torch.zeros((self._half_loc, 2, knn), dtype=torch.int64,
+                            device=dev),
+                torch.zeros((self._half_loc, 2, knn), dtype=torch.float32,
+                            device=dev),
+                torch.full((2,), float("-inf"), device=dev),
+                # the sampled positions on the shard's device, uploaded
+                # once: no copy from the host inside the walk
+                None if self._sub_spec is None else torch.as_tensor(
+                    self._sub_flat, device=dev)))
         sub_parts = []
-        for g, s in enumerate(range(0, half, c)):
-            folded, top_i, top_d = _fold_block(
-                self.planes, self.lengths, self.freqs, s, c, self._klist,
-                self._ss64, self._bbits, self._pad_bits, knn,
-                self._dist_col, nr)
-            finite = folded.masked_fill(torch.isinf(folded), float("-inf"))
-            cmax = torch.maximum(cmax, finite.amax(dim=(0, 1)))
-            del finite
-            ki[s:s + c], ki[n - s - c:n - s] = top_i[:c], top_i[c:]
-            kd[s:s + c], kd[n - s - c:n - s] = top_d[:c], top_d[c:]
-            flat = folded.reshape(-1, 2)
-            if fill is not None:
-                fill.add(geom.d0(flat), s)
-            if self._sub_spec is not None:
-                b0, b1 = self._sub_bounds[g], self._sub_bounds[g + 1]
-                if b1 > b0:
-                    loc = torch.as_tensor(
-                        self._sub_flat[b0:b1] - g * c * (n - 1), device=dev)
-                    sub_parts.append(flat[loc])
+        for off in range(0, self._half_loc, c):
+            wave = [_fold_block(planes, lengths, freqs, row0 + off, c,
+                                self._klist, self._ss64, self._bbits,
+                                self._pad_bits, knn, self._dist_col, nr)
+                    for row0, planes, lengths, freqs in self._shards]
+            for d, (folded, top_i, top_d) in enumerate(wave):
+                ki, kd, cmax, sub_flat = state[d]
+                s = self._shards[d][0] + off
+                finite = folded.masked_fill(torch.isinf(folded),
+                                            float("-inf"))
+                cmax.copy_(torch.maximum(cmax, finite.amax(dim=(0, 1))))
+                del finite
+                if knn:
+                    _fold_knn_rows(ki, kd, off, c, top_i, top_d)
+                flat = folded.reshape(-1, 2)
+                if fill is not None:
+                    fill.add(geom.d0(flat), s)
+                if self._sub_spec is not None:
+                    g = s // c  # the global chunk
+                    b0, b1 = self._sub_bounds[g], self._sub_bounds[g + 1]
+                    if b1 > b0:
+                        loc = sub_flat[b0:b1] - g * c * (n - 1)
+                        sub_parts.append((g, flat[loc]))
+            del wave
         if self._sub_spec is not None:
-            self._sub_vals = torch.cat(sub_parts).cpu().numpy()
+            # back in global chunk order (folded-flat order), whatever
+            # the shard each chunk came from
+            self._sub_vals = torch.cat(
+                [v.cpu() for _, v in sorted(sub_parts,
+                                            key=lambda p: p[0])]).numpy()
         if fill is not None:
             if fill.acc > fill.cap:
                 sys.stderr.write(
@@ -490,9 +623,13 @@ class StreamingCondensed:
                     SweepEdges(fill.bi, fill.bj, fill.bd, fill.acc, n,
                                n_real=self._n_real),
                     fill.cum.cpu().numpy(), dict(fill_spec))
-        self.knn_col = ki[:self._n_real].cpu().numpy()
-        self.knn_dist = kd[:self._n_real].cpu().numpy()
-        self._cmax = cmax.cpu().numpy()
+        knn_col, knn_dist = _unfold_knn(
+            torch.cat([st[0].cpu() for st in state]).numpy(),
+            torch.cat([st[1].cpu() for st in state]).numpy(), n)
+        self.knn_col = knn_col[:self._n_real]
+        self.knn_dist = knn_dist[:self._n_real]
+        self._cmax = torch.stack([st[2].cpu() for st in state]).amax(
+            dim=0).numpy()
 
     def max_scale(self):
         """Column maxima over every pair (accumulated in pass 1)."""
@@ -561,40 +698,112 @@ class CondensedDevice:
     """The folded condensed buffer plus its O(n) side products.
 
     buf: float32 [n//2, n-1, 2] on the device, the folded layout (each
-    unordered pair once); knn_col / knn_dist: host [n, knn] arrays. It
-    exposes what refine and the band planning read on a
-    StreamingCondensed (n, n_pairs, device, the padded width) with a
-    buffer in place of the planes, so every sweep slices the buffer
-    instead of recomputing distances."""
+    unordered pair once); on a row-sharded mesh (fill_condensed_sharded)
+    the tuple of its row shards, shard d [n//2 / n_dev, n-1, 2] on mesh
+    device d. knn_col / knn_dist: host [n, knn] arrays. It exposes what
+    refine and the band planning read on a StreamingCondensed (n,
+    n_pairs, device, the padded width) with a buffer in place of the
+    planes, so every sweep slices the buffer instead of recomputing
+    distances; its readers walk the shards in row order."""
 
     def __init__(self, buf, n, knn_row, knn_col, knn_dist):
         self.buf = buf
         self.n = n
         self._n_pad = self._n_real = n
         self.n_pairs = n * (n - 1) // 2
-        self.device = buf.device
+        shards = buf if isinstance(buf, tuple) else (buf,)
+        self._n_dev = len(shards)
+        self._half_loc = shards[0].shape[0]
+        self.device = shards[0].device
         self.knn_row = knn_row
         self.knn_col = knn_col
         self.knn_dist = knn_dist
 
+    def shards(self):
+        """(first folded row, buffer) of every row shard, in row order."""
+        if isinstance(self.buf, tuple):
+            return [(d * self._half_loc, b) for d, b in enumerate(self.buf)]
+        return [(0, self.buf)]
+
     def max_scale(self):
         """Column maxima over every pair (the model preprocessing scale)."""
-        return self.buf.amax(dim=(0, 1)).cpu().numpy()
+        maxima = [b.amax(dim=(0, 1)) for _, b in self.shards()]
+        return torch.stack([m.cpu() for m in maxima]).amax(dim=0).numpy()
 
     def subsample_pairs(self, size, seed=42):
         """Random pair subsample for model fitting, the reference's draw
-        over folded flat positions, gathered from the buffer (O(size))."""
+        over folded flat positions, gathered from the buffer (O(size)),
+        shard by shard in row order."""
         rng = np.random.default_rng(seed)
-        pos = rng.choice(self.n_pairs, size=min(size, self.n_pairs),
-                         replace=False)
-        idx = torch.as_tensor(np.sort(pos), device=self.device)
-        return self.buf.reshape(-1, 2)[idx].cpu().numpy()
+        pos = np.sort(rng.choice(self.n_pairs, size=min(size, self.n_pairs),
+                                 replace=False))
+        width = self.n - 1
+        parts = []
+        for row0, b in self.shards():
+            lo, hi = np.searchsorted(
+                pos, [row0 * width, (row0 + b.shape[0]) * width])
+            if hi > lo:
+                idx = torch.as_tensor(pos[lo:hi] - row0 * width,
+                                      device=b.device)
+                parts.append(b.reshape(-1, 2)[idx])
+        return torch.cat([p.cpu() for p in parts]).numpy()
 
     def knn_sparse(self):
         """(row, col, dist) grouped by row, each row's neighbours in
         ascending-distance order (ops/sparse_knn.knn_from_condensed's
         layout)."""
         return _knn_sparse(self.knn_col, self.knn_dist)
+
+
+def _fill_shards(devices, planes, lengths, freqs, klist, sketchsize64,
+                 bbits, chunk, knn, dist_col):
+    """The buffered fill over row shards, one per device (the planes
+    replicated with .to): each device's shard of the folded buffer and
+    its kNN in the folded layout, in waves of one step per shard. Returns
+    (buffers, host knn_col, host knn_dist)."""
+    n = planes.shape[2]
+    half_loc = fold_rows(n) // len(devices)
+    pad_bits = plane_geometry(sketchsize64, bbits)[2]
+    klist = tuple(int(k) for k in klist)
+    ops = [(d * half_loc, planes.to(dev), lengths.to(dev), freqs.to(dev))
+           for d, dev in enumerate(devices)]
+    bufs, kis, kds = [], [], []
+    for _, pl, _, _ in ops:
+        dev = pl.device
+        bufs.append(torch.empty((half_loc, n - 1, 2), dtype=torch.float32,
+                                device=dev))
+        kis.append(torch.zeros((half_loc, 2, knn), dtype=torch.int64,
+                               device=dev))
+        kds.append(torch.zeros((half_loc, 2, knn), dtype=torch.float32,
+                               device=dev))
+    c = chunk
+    for off in range(0, half_loc, c):
+        wave = [_fold_block(pl, ln, fr, row0 + off, c, klist, sketchsize64,
+                            bbits, pad_bits, knn, dist_col)
+                for row0, pl, ln, fr in ops]
+        for d, (folded, top_i, top_d) in enumerate(wave):
+            bufs[d][off:off + c] = folded
+            if knn:
+                _fold_knn_rows(kis[d], kds[d], off, c, top_i, top_d)
+        del wave
+    knn_col, knn_dist = _unfold_knn(
+        torch.cat([k.cpu() for k in kis]).numpy(),
+        torch.cat([k.cpu() for k in kds]).numpy(), n)
+    return bufs, knn_col, knn_dist
+
+
+def _buffer_operands(planes, lengths, freqs, device):
+    """(device, planes, lengths, freqs) for a fill: numpy planes moved to
+    ``device`` (None: ``_device.resolve``'s choice), a tensor's device
+    kept."""
+    if isinstance(planes, torch.Tensor):
+        dev = _device.resolve(planes.device if device is None else device)
+        planes = planes.to(dev)
+    else:
+        dev = _device.resolve(device)
+        planes = planes_to_tensor(planes, dev)
+    return (dev, planes, torch.as_tensor(lengths, device=dev),
+            torch.as_tensor(freqs, dtype=torch.float32, device=dev))
 
 
 def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
@@ -607,37 +816,56 @@ def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
     buffer and its rows' fused kNN into [n, knn] arrays. planes:
     plane-major [K, P, n, Wp], numpy uint32 or an int32 tensor on its
     device (``device`` None: ``_device.resolve``'s choice)."""
-    if isinstance(planes, torch.Tensor):
-        dev = _device.resolve(planes.device)
-    else:
-        dev = _device.resolve(device)
-        planes = planes_to_tensor(planes, dev)
-    lengths = torch.as_tensor(lengths, device=dev)
-    freqs = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
+    dev, planes, lengths, freqs = _buffer_operands(planes, lengths, freqs,
+                                                   device)
     n = planes.shape[2]
     half = fold_rows(n)
     chunk = min(chunk, half)
     if half % chunk:
         raise ValueError(
             f"n//2 ({half}) must be a multiple of chunk ({chunk})")
-    pad_bits = plane_geometry(sketchsize64, bbits)[2]
-    knn = min(knn, n - 1)
-    klist = tuple(int(k) for k in klist)
+    bufs, knn_col, knn_dist = _fill_shards(
+        [dev], planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
+        min(knn, n - 1), dist_col)
+    return CondensedDevice(bufs[0], n, np.arange(n, dtype=np.int64),
+                           knn_col, knn_dist)
 
-    buf = torch.empty((half, n - 1, 2), dtype=torch.float32, device=dev)
-    ki = torch.zeros((n, knn), dtype=torch.int64, device=dev)
-    kd = torch.zeros((n, knn), dtype=torch.float32, device=dev)
-    c = chunk
-    for s in range(0, half, c):
-        folded, top_i, top_d = _fold_block(
-            planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
-            pad_bits, knn, dist_col)
-        buf[s:s + c] = folded
-        if knn:
-            ki[s:s + c], ki[n - s - c:n - s] = top_i[:c], top_i[c:]
-            kd[s:s + c], kd[n - s - c:n - s] = top_d[:c], top_d[c:]
-    return CondensedDevice(buf, n, np.arange(n, dtype=np.int64),
-                           ki.cpu().numpy(), kd.cpu().numpy())
+
+def fill_condensed_sharded(planes, lengths, freqs, klist, sketchsize64,
+                           bbits, mesh=None, chunk=512, knn=5, dist_col=0):
+    """The sharded twin of fill_condensed_device: the folded condensed
+    buffer lives row-sharded across every device of the mesh (None:
+    parallel.mesh.get_mesh()).
+
+    Each device owns half/n_dev contiguous folded rows and runs the same
+    _fold_block loop over its shard, the planes replicated; the fused kNN
+    is accumulated per device in the folded layout [half_loc, 2, k] (row
+    i and its mirror n-1-i share a folded row), so every output shard is
+    contiguous. Returns a CondensedDevice whose buf is the tuple of
+    shards."""
+    from .parallel.mesh import get_mesh
+
+    if mesh is None:
+        mesh = get_mesh()
+    devices = _mesh_devices(mesh)
+    _, planes, lengths, freqs = _buffer_operands(planes, lengths, freqs,
+                                                 devices[0])
+    n = planes.shape[2]
+    half = fold_rows(n)
+    n_dev = len(devices)
+    if half % n_dev:
+        raise ValueError(f"n//2 ({half}) must be a multiple of the device "
+                         f"count ({n_dev})")
+    half_loc = half // n_dev
+    chunk = min(chunk, half_loc)
+    if half_loc % chunk:
+        raise ValueError(f"per-device rows ({half_loc}) must be a multiple "
+                         f"of chunk ({chunk})")
+    bufs, knn_col, knn_dist = _fill_shards(
+        devices, planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
+        min(knn, n - 1), dist_col)
+    return CondensedDevice(tuple(bufs), n, np.arange(n, dtype=np.int64),
+                           knn_col, knn_dist)
 
 
 # ---------------------------------------------------------------------------
@@ -672,22 +900,41 @@ def _d0_chunk(chunk_x, scale, xm0, ym0, slope):
     return x - xm0 if slope == 0 else y - ym0
 
 
+class _OnDevices:
+    """Host values copied to each device once, on first use."""
+
+    def __init__(self, **values):
+        self._host = values
+        self._dev = {}
+
+    def at(self, device):
+        if device not in self._dev:
+            self._dev[device] = {
+                k: torch.as_tensor(v, device=device)
+                for k, v in self._host.items()}
+        return self._dev[device]
+
+
 class _SweepGeometry:
-    """One sweep's line geometry on a StreamingCondensed's device: the
-    thresholds t, the d0 reference boundary (xm0, ym0) and the scale."""
+    """One sweep's line geometry: the thresholds t, the d0 reference
+    boundary (xm0, ym0) and the scale, on the device of each chunk it is
+    applied to (a mesh shard's); ``t`` is the copy on cd's device."""
 
     def __init__(self, cd, scale, offsets, slope, line):
         xm0, ym0, t = _line_d0_params(offsets, slope, *line)
-        dev = cd.device
-        self.t = torch.as_tensor(np.asarray(t, np.float32), device=dev)
-        self.scale = torch.as_tensor(np.asarray(scale, np.float32),
-                                     device=dev)
-        self.xm0 = torch.tensor(xm0, dtype=torch.float32, device=dev)
-        self.ym0 = torch.tensor(ym0, dtype=torch.float32, device=dev)
+        self._on = _OnDevices(
+            t=np.asarray(t, np.float32),
+            scale=np.asarray(scale, np.float32),
+            xm0=np.float32(xm0), ym0=np.float32(ym0))
+        self.t = self.t_at(cd.device)
         self.slope = int(slope)
 
+    def t_at(self, device):
+        return self._on.at(device)["t"]
+
     def d0(self, flat):
-        return _d0_chunk(flat, self.scale, self.xm0, self.ym0, self.slope)
+        g = self._on.at(flat.device)
+        return _d0_chunk(flat, g["scale"], g["xm0"], g["ym0"], self.slope)
 
 
 def _stream_pairs(cd):
@@ -695,18 +942,35 @@ def _stream_pairs(cd):
     distances) for every chunk: the recompute shared by every pass after
     pass 1 (the reference's sweep, 2-D, QC and boundary groups). A
     buffered cd slices _BUF_ROWS folded rows of its buffer at a time
-    instead."""
+    instead.
+
+    On a row-sharded cd the shards are walked in waves: step k of every
+    shard is enqueued (each on its device) before any of them is yielded,
+    then they are yielded in shard order, each on its shard's device. So
+    s ascends within a shard but not across a wave: a consumer that keeps
+    an order puts its parts back in row order (_in_row_order)."""
     if cd.buf is not None:
-        for s in range(0, cd.buf.shape[0], _BUF_ROWS):
-            yield s, cd.buf[s:s + _BUF_ROWS].reshape(-1, 2)
+        shards = cd.shards()
+        for off in range(0, shards[0][1].shape[0], _BUF_ROWS):
+            for row0, buf in shards:
+                yield row0 + off, buf[off:off + _BUF_ROWS].reshape(-1, 2)
         return
     n_pad = cd._n_pad
     nr = cd._n_real if cd._n_real < n_pad else None
-    for s in range(0, fold_rows(n_pad), cd.chunk):
-        folded, _, _ = _fold_block(cd.planes, cd.lengths, cd.freqs, s,
-                                   cd.chunk, cd._klist, cd._ss64, cd._bbits,
-                                   cd._pad_bits, 0, 0, nr)
-        yield s, folded.reshape(-1, 2)
+    for off in range(0, cd._half_loc, cd.chunk):
+        wave = [(row0 + off, _fold_block(
+            planes, lengths, freqs, row0 + off, cd.chunk, cd._klist,
+            cd._ss64, cd._bbits, cd._pad_bits, 0, 0, nr)[0])
+            for row0, planes, lengths, freqs in cd._shards]
+        for s, folded in wave:
+            yield s, folded.reshape(-1, 2)
+        del wave
+
+
+def _in_row_order(parts):
+    """Parts keyed by their chunk's first row -> the parts in ascending
+    row order (every part's positions lie in its chunk's own range)."""
+    return [p for _, p in sorted(parts, key=lambda kp: kp[0])]
 
 
 def _stream_d0(cd, geom):
@@ -720,12 +984,29 @@ def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1):
     pair fetch — the cheap pre-pass that sizes the real sweep. On a
     buffered cd it is also the reference's sweep_counts_buffered: the same
     counts from the folded buffer (whose int32 per-dispatch histogram has
-    no counterpart)."""
+    no counterpart); on a row-sharded cd, sweep_counts_mesh's sum."""
+    return sweep_counts_mesh(cd, scale, offsets, slope, x0, y0, x1, y1)[0]
+
+
+def sweep_counts_mesh(cd, scale, offsets, slope, x0, y0, x1, y1):
+    """Exact counts per row shard: (global_cum int64 [n_grid], per_dev
+    int64 [n_dev, n_grid]) cumulative in-boundary pair counts. Row d of
+    per_dev counts exactly the pairs shard d's fill will append — the
+    sizing input of the sharded sweep_fill_device. Each shard sums on its
+    own device; nothing is read back until the walk ends. One device: a
+    single row."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
-    cum = torch.zeros(geom.t.shape[0], dtype=torch.int64, device=cd.device)
-    for _, d0 in _stream_d0(cd, geom):
-        cum += _cum_counts(d0, geom.t)
-    return cum.cpu().numpy()
+    rows = cd._half_loc
+    cums = {}
+    for s, d0 in _stream_d0(cd, geom):
+        d = s // rows
+        t = geom.t_at(d0.device)
+        if d not in cums:
+            cums[d] = torch.zeros(t.shape[0], dtype=torch.int64,
+                                  device=d0.device)
+        cums[d] += _cum_counts(d0, t)
+    per_dev = np.stack([cums[d].cpu().numpy() for d in sorted(cums)])
+    return per_dev.sum(axis=0), per_dev
 
 
 def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
@@ -736,20 +1017,23 @@ def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
     Returns (i, j, first_offset, d0) host arrays for pairs whose first
     offset is below _n_act (default: the whole grid) — the native sparse
     scorer's input, plus each pair's d0 for re-thresholding at any offset
-    (the local step). Fetches O(E), in folded order."""
+    (the local step). Fetches O(E), in folded order (on a row-sharded cd,
+    the shards' parts back in global row order)."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     n_pad = cd._n_pad
     n_act = geom.t.shape[0] if _n_act is None else int(_n_act)
-    pos_out, idx_out, d0_out = [], [], []
+    parts = []
     for s, d0 in _stream_d0(cd, geom):
-        idx = _first_offsets(d0, geom.t)
+        idx = _first_offsets(d0, geom.t_at(d0.device))
         pos = torch.nonzero(idx < n_act).squeeze(1)
         if pos.shape[0] == 0:
             continue
-        pos_out.append(pos.cpu().numpy() + s * (n_pad - 1))
-        idx_out.append(idx[pos].cpu().numpy().astype(np.int32))
-        d0_out.append(d0[pos].cpu().numpy())
-    return _finalise_sweep(pos_out, idx_out, d0_out, n_pad)
+        parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
+                          idx[pos].cpu().numpy().astype(np.int32),
+                          d0[pos].cpu().numpy())))
+    parts = _in_row_order(parts)
+    return _finalise_sweep([p[0] for p in parts], [p[1] for p in parts],
+                           [p[2] for p in parts], n_pad)
 
 
 def _finalise_sweep(pos_out, idx_out, d0_out, n):
@@ -783,18 +1067,22 @@ def offset_threshold(s_value, offsets, slope, x0, y0, x1, y1):
 
 
 def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
-                      e_total):
+                      e_total, e_per_dev=None):
     """Stream every pair whose first offset is < n_act into device edge
     buffers; returns (SweepEdges, cum) where cum is the EXACT cumulative
     in-boundary pair count per offset over the whole grid — the fill's own
     histogram, so no separate counts pass is needed. A buffered cd's pairs
-    are sliced from its buffer.
+    are sliced from its buffer; a row-sharded cd fills per shard
+    (_sweep_fill_mesh, sized by e_per_dev when given).
 
     e_total: expected pair count (exact from a counts pass, or a
     subsample estimate with margin) — sizes the buffers (_BandFill); a
     true overflow raises SweepFillOverflow before anything is scored."""
     from .ops.sparse_sweep import SweepEdges
 
+    if cd._n_dev > 1:
+        return _sweep_fill_mesh(cd, scale, offsets, slope, x0, y0, x1, y1,
+                                n_act, e_total, e_per_dev)
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     fill = _BandFill(cd._n_pad, geom.t, int(n_act), e_total, cd.device)
     for s, d0 in _stream_d0(cd, geom):
@@ -805,6 +1093,56 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
             f"{fill.cap} (counts pass estimated {e_total})")
     return (SweepEdges(fill.bi, fill.bj, fill.bd, fill.acc, cd._n_pad,
                        n_real=cd._n_real), fill.cum.cpu().numpy())
+
+
+def _sweep_fill_mesh(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
+                     e_total, e_per_dev=None):
+    """Mesh arm of sweep_fill_device (row-sharded): each shard appends its
+    own pairs, decoded to global (i, j), into its own edge buffers on its
+    device; the shards' edges are then concatenated on the mesh's first
+    device in shard order = ascending global rows, the single-device
+    fill's order, and scored there.
+
+    e_per_dev: exact per-shard pair counts (from sweep_counts_mesh) when
+    available, which size each shard tight. Otherwise each shard takes
+    the estimate's per-shard share with a 2x skew guard (strain blocks
+    are contiguous in row space, so one shard can hold well over the
+    mean); a shard overflow raises SweepFillOverflow and the caller
+    falls back to exact counts."""
+    from .ops import sparse_sweep
+
+    n_dev = cd._n_dev
+    n_pad = cd._n_pad
+    rows = cd._half_loc
+    geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
+    if e_per_dev is not None:
+        cap = sparse_sweep.band_slots(int(np.max(e_per_dev)))
+    else:
+        est = max(int(e_total), 1)
+        cap = sparse_sweep.band_slots(min(est, 2 * est // n_dev + 1))
+    fills = {}
+    for s, d0 in _stream_d0(cd, geom):
+        d = s // rows
+        if d not in fills:
+            fills[d] = _BandFill(n_pad, geom.t_at(d0.device), int(n_act),
+                                 e_total, d0.device, cap=cap)
+        fills[d].add(d0, s)
+    fills = [fills[d] for d in sorted(fills)]
+    acc = np.array([f.acc for f in fills], np.int64)
+    if np.any(acc > cap):
+        d_bad = int(np.argmax(acc))
+        raise SweepFillOverflow(
+            f"sweep fill overflow: device {d_bad} holds {int(acc[d_bad])} "
+            f"pairs > shard buffer {cap} (estimated {e_total} total)")
+    dev = cd.device
+    cum = sum(f.cum.cpu().numpy() for f in fills)
+
+    def gather(name):
+        return torch.cat([getattr(f, name)[:f.acc].to(dev) for f in fills])
+
+    return (sparse_sweep.SweepEdges(gather("bi"), gather("bj"),
+                                    gather("bd"), int(acc.sum()), n_pad,
+                                    n_real=cd._n_real), cum)
 
 
 def edge_components_device(edges, threshold):
@@ -884,8 +1222,10 @@ def _unfold_block(d0_flat, s, n, c):
 def build_d0_square(cd, scale, slope, x0, y0, x1, y1, offsets):
     """Dense symmetric [n, n] float32 of per-pair signed boundary
     distances, unfolded from a buffered cd's folded buffer entirely on the
-    device, _SQUARE_ROWS rows at a time. Returns (d0_sq, thresholds t for
-    the offsets)."""
+    device, _SQUARE_ROWS rows at a time; a row-sharded buffer's d0 is
+    computed on each shard's device and gathered on the mesh's first,
+    where the square lives (n <= MATMUL_SWEEP_MAX_N bounds it). Returns
+    (d0_sq, thresholds t for the offsets)."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     n = cd.n
     d0_flat = torch.empty(cd.n_pairs, dtype=torch.float32, device=cd.device)
@@ -971,10 +1311,23 @@ def components_device(d0_sq, threshold):
 
 
 def _resident_bytes(cd):
-    """Device bytes a cd holds: its planes and its buffer, where present."""
-    return sum(t.numel() * t.element_size()
-               for t in (getattr(cd, "planes", None), cd.buf)
-               if t is not None)
+    """Bytes a cd holds on its device (the mesh's first, where the sweep's
+    edge list lives and is scored): its planes, and its buffer or the
+    buffer shards on that device, each storage once. This is the
+    device-count term of the reference's accounting: a shard on another
+    card holds nothing here, a virtual mesh's shards all do."""
+    tensors = [getattr(cd, "planes", None)]
+    if cd.buf is not None:
+        tensors += [b for _, b in cd.shards()]
+    seen, total = set(), 0
+    for t in tensors:
+        if t is None or t.device != cd.device:
+            continue
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.numel() * t.element_size()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1153,9 +1506,15 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
             est_cum, est_margin = _estimate_sweep_cum(
                 est_pairs, scale, slope, xm0_l, ym0_l, t_all, cd.n_pairs)
 
+        # the exact counts pass; on a mesh it also keeps the per-shard
+        # counts that size the sharded fill's shards
+        per_dev_cum = None
+
         def run_exact_counts():
+            nonlocal per_dev_cum
             t_cn = time.perf_counter()
-            out = sweep_counts_streaming(cd, scale, s_range, slope, *line)
+            out, per_dev_cum = sweep_counts_mesh(cd, scale, s_range, slope,
+                                                 *line)
             dt = time.perf_counter() - t_cn
             sys.stderr.write(f"refine: counts pass {dt:.1f}s\n")
             if timings_out is not None:
@@ -1246,7 +1605,9 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
                 try:
                     edges, cum_exact = sweep_fill_device(
                         cd, scale, s_range, slope, *line, n_act=o_star + 1,
-                        e_total=e_total)
+                        e_total=e_total,
+                        e_per_dev=(per_dev_cum[:, o_star]
+                                   if per_dev_cum is not None else None))
                 except SweepFillOverflow as e:
                     # the estimate under-sized the buffer: pay for the exact
                     # counts pass, re-pick the range, refill sized exactly
@@ -1262,7 +1623,8 @@ def refine_fit_device(cd, scale, mean0, mean1, max_move=0.9, min_move=1e-9,
                         continue
                     edges, cum_exact = sweep_fill_device(
                         cd, scale, s_range, slope, *line, n_act=o_star + 1,
-                        e_total=int(cum[o_star]))
+                        e_total=int(cum[o_star]),
+                        e_per_dev=per_dev_cum[:, o_star])
                 cum = cum_exact
                 if cum[-1] == cd.n_pairs:
                     raise SweepSaturated("Boundary range includes all points")
@@ -1454,48 +1816,55 @@ def sweep2d_counts_streaming(cd, scale, x_grid, y_grid):
     [len(y_grid), len(x_grid)]. Every cell is compared with _inside_2d
     (the first-x-offset shortcut of refine_fit_device_2d's host step can
     move a grazing pair by one cell); the transient is one grid row,
-    [len(x_grid), c * (n - 1)]."""
-    xg = _f32(cd, x_grid)[:, None]
-    yg = _f32(cd, y_grid)
-    scale_d = _f32(cd, scale)
-    cum = torch.zeros((yg.shape[0], xg.shape[0]), dtype=torch.int64,
-                      device=cd.device)
+    [len(x_grid), c * (n - 1)]. A row-sharded cd counts per shard on its
+    device, summed on the host at the end."""
+    on = _OnDevices(xg=np.asarray(x_grid, np.float32)[:, None],
+                    yg=np.asarray(y_grid, np.float32),
+                    scale=np.asarray(scale, np.float32))
+    cums = {}
     for _, flat in _stream_pairs(cd):
-        x, y = _scaled(flat, scale_d)
-        for r in range(yg.shape[0]):
-            cum[r] += _inside_2d(x, y, xg, yg[r]).sum(dim=1)
-    return cum.cpu().numpy()
+        g = on.at(flat.device)
+        x, y = _scaled(flat, g["scale"])
+        cum = cums.get(flat.device)
+        if cum is None:
+            cum = cums[flat.device] = torch.zeros(
+                (len(y_grid), len(x_grid)), dtype=torch.int64,
+                device=flat.device)
+        for r in range(len(y_grid)):
+            cum[r] += _inside_2d(x, y, g["xg"], g["yg"][r]).sum(dim=1)
+    return sum(c.cpu().numpy() for c in cums.values())
 
 
 def sweep2d_fetch_streaming(cd, scale, x_caps, y_grid):
     """(i, j, x_scaled, y_scaled) for pairs inside the union of per-row
     cap boundaries (x_caps[r] = widest scoreable x_max of row r, <= 0
     disables the row) — the O(E) host working set of the 2-D sweep, in
-    folded order, i and j int32."""
+    folded order (a row-sharded cd's parts back in global row order), i
+    and j int32."""
     rows = [r for r, xm in enumerate(np.asarray(x_caps, np.float32))
             if xm > 0]
-    xc = _f32(cd, x_caps)
-    yg = _f32(cd, y_grid)
-    scale_d = _f32(cd, scale)
+    on = _OnDevices(xc=np.asarray(x_caps, np.float32),
+                    yg=np.asarray(y_grid, np.float32),
+                    scale=np.asarray(scale, np.float32))
     n_pad = cd._n_pad
-    pos_out, x_out, y_out = [], [], []
+    parts = []
     for s, flat in _stream_pairs(cd):
-        x, y = _scaled(flat, scale_d)
-        inside = torch.zeros(x.shape[0], dtype=torch.bool, device=cd.device)
+        g = on.at(flat.device)
+        x, y = _scaled(flat, g["scale"])
+        inside = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         for r in rows:
-            inside |= _inside_2d(x, y, xc[r], yg[r])
+            inside |= _inside_2d(x, y, g["xc"][r], g["yg"][r])
         pos = torch.nonzero(inside).squeeze(1)
         if pos.shape[0] == 0:
             continue
-        pos_out.append(pos.cpu().numpy() + s * (n_pad - 1))
-        x_out.append(x[pos].cpu().numpy())
-        y_out.append(y[pos].cpu().numpy())
-    if not pos_out:
+        parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
+                          x[pos].cpu().numpy(), y[pos].cpu().numpy())))
+    if not parts:
         z = np.zeros(0, np.int32)
         return z, z, np.zeros(0, np.float32), np.zeros(0, np.float32)
-    i, j = fold_inverse(np.concatenate(pos_out), n_pad)
-    return (i.astype(np.int32), j.astype(np.int32),
-            np.concatenate(x_out), np.concatenate(y_out))
+    pos, xs, ys = (np.concatenate(a) for a in zip(*_in_row_order(parts)))
+    i, j = fold_inverse(pos, n_pad)
+    return i.astype(np.int32), j.astype(np.int32), xs, ys
 
 
 def refine_fit_device_2d(cd, scale, mean0, mean1, max_move=0.9,
@@ -1650,21 +2019,27 @@ def multi_refine_device(cd, scale, mean0, mean1, s_max, n_boundary_points,
 
 
 def _operands(planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
-              n_real, device):
+              n_real, device, mesh=None, shard_planes=False):
     """A StreamingCondensed whose pass 1 never runs: the operands on the
     device (numpy planes moved there; a resident tensor taken as it is,
-    never copied) and the chunk geometry, for _stream_pairs."""
+    never copied) and the chunk geometry, for _stream_pairs; row-sharded
+    over ``mesh`` when given (column-sharding raises)."""
     return StreamingCondensed(planes, lengths, freqs, klist, sketchsize64,
                               bbits, chunk=chunk, knn=0, n_real=n_real,
-                              defer=True, device=device)
+                              defer=True, device=device, mesh=mesh,
+                              shard_planes=shard_planes)
 
 
-def _compact(cd, pass_fn, max_fetch, what):
+def _mesh_compact_pass(cd, pass_fn, max_fetch, what):
     """Flat folded positions where ``pass_fn(flat)`` (a [m] bool or uint8
     flag tensor per chunk) is non-zero, with the flags there, in folded
-    order; raises RuntimeError once more than ``max_fetch`` are found."""
+    order; raises RuntimeError once more than ``max_fetch`` are found.
+    A row-sharded cd compacts each shard's chunks on its device, each
+    wave enqueued before it is read back; the positions, offset by each
+    chunk's global first row (d * half_loc + off) * (n - 1), come back in
+    ascending global row order. One device is a one-shard mesh."""
     n_pad = cd._n_pad
-    pos_out, flag_out = [], []
+    parts = []
     total = 0
     for s, flat in _stream_pairs(cd):
         flags = pass_fn(flat)
@@ -1673,17 +2048,18 @@ def _compact(cd, pass_fn, max_fetch, what):
         if total > max_fetch:
             raise RuntimeError(f"more than {max_fetch} pairs {what}")
         if pos.shape[0]:
-            pos_out.append(pos.cpu().numpy() + s * (n_pad - 1))
-            flag_out.append(flags[pos].cpu().numpy())
-    if not pos_out:
+            parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
+                              flags[pos].cpu().numpy())))
+    if not parts:
         return np.zeros(0, np.int64), np.zeros(0, np.uint8)
-    return np.concatenate(pos_out), np.concatenate(flag_out)
+    pos, flags = zip(*_in_row_order(parts))
+    return np.concatenate(pos), np.concatenate(flags)
 
 
 def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
                            bbits, chunk, n_real, max_pi_dist, max_a_dist,
                            max_fetch=40_000_000, check_zero=True,
-                           device=None):
+                           device=None, mesh=None, shard_planes=False):
     """Distance-QC pre-pass over a plane-major population with no O(n^2)
     anywhere: the streaming twin of qc.qc_dist_mat's row scan
     (qcDistMat, PopPUNK/qc.py:295-369 loads the full condensed matrix).
@@ -1695,13 +2071,17 @@ def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
     gate). check_zero=False (prop_zero >= 1, the rule disabled) skips zero
     pairs: clonal populations hold O(n_pairs) of them. planes: numpy, or
     an int32 tensor already on its device (``device`` None:
-    ``_device.resolve``'s choice)."""
+    ``_device.resolve``'s choice). With ``mesh``, rows shard over its
+    devices (_mesh_compact_pass); shard_planes asks for the column-sharded
+    arms, which are not ported and raise."""
     cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
-                   chunk, n_real, device)
-    max_pi = torch.tensor(max_pi_dist, dtype=torch.float32, device=cd.device)
-    max_a = torch.tensor(max_a_dist, dtype=torch.float32, device=cd.device)
+                   chunk, n_real, device, mesh, shard_planes)
+    on = _OnDevices(max_pi=np.float32(max_pi_dist),
+                    max_a=np.float32(max_a_dist))
 
     def flag(flat):
+        g = on.at(flat.device)
+        max_pi, max_a = g["max_pi"], g["max_a"]
         core, acc = flat[:, 0], flat[:, 1]
         finite = torch.isfinite(core)
         flags = (finite & ((core > max_pi) | (acc > max_a))).to(torch.uint8)
@@ -1710,7 +2090,7 @@ def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
                 torch.uint8)
         return flags
 
-    pos, flags = _compact(
+    pos, flags = _mesh_compact_pass(
         cd, flag, max_fetch, "fail distance QC — the thresholds reject most "
         "of the population; loosen --max-pi-dist/--max-a-dist")
     i, j = fold_inverse(pos, cd._n_pad)
@@ -1720,7 +2100,8 @@ def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
 
 def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
                           bbits, chunk, n_real, scale, bx, by, slope=2,
-                          max_fetch=100_000_000, device=None):
+                          max_fetch=100_000_000, device=None, mesh=None,
+                          shard_planes=False):
     """(i, j) of every pair inside a fixed boundary, streamed from the
     sketches with no O(n^2) tensor — the --use-model path's network
     construction (the reference re-assigns the full host matrix,
@@ -1728,22 +2109,26 @@ def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
     assign_threshold <= 0 rule on scaled distances: _inside_2d at slope
     2, x - bx <= 0 at slope 0, y - by <= 0 at slope 1. int32, in folded
     order; raises RuntimeError past ``max_fetch``. planes: numpy, or an
-    int32 tensor already on its device, as qc_bad_pairs_streaming's."""
+    int32 tensor already on its device, and ``mesh`` / shard_planes, as
+    qc_bad_pairs_streaming's."""
     cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
-                   chunk, n_real, device)
-    scale_d = _f32(cd, scale)
-    bxd, byd = _f32(cd, bx), _f32(cd, by)
+                   chunk, n_real, device, mesh, shard_planes)
+    on = _OnDevices(scale=np.asarray(scale, np.float32),
+                    bx=np.float32(bx), by=np.float32(by))
 
     def inside(flat):
-        x, y = _scaled(flat, scale_d)
+        g = on.at(flat.device)
+        bxd, byd = g["bx"], g["by"]
+        x, y = _scaled(flat, g["scale"])
         if slope == 2:
             return _inside_2d(x, y, bxd, byd)
         if slope == 0:
             return x - bxd <= 0
         return y - byd <= 0
 
-    pos, _ = _compact(cd, inside, max_fetch, "fall inside the boundary — "
-                      "the model boundary captures most of this population")
+    pos, _ = _mesh_compact_pass(
+        cd, inside, max_fetch, "fall inside the boundary — the model "
+        "boundary captures most of this population")
     i, j = fold_inverse(pos, cd._n_pad)
     return i.astype(np.int32), j.astype(np.int32)
 
@@ -1785,17 +2170,27 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
                        knn=5, subsample=None, score_idx=0, seed=2,
                        max_move=0.25, synth_kwargs=None, sharded=None,
                        streaming=None, max_sweep_fetch=40_000_000,
-                       log=lambda msg: sys.stderr.write(msg), device=None):
+                       log=lambda msg: sys.stderr.write(msg), device=None,
+                       mesh=None):
     """Full pipeline on a synthetic device population, timing each stage.
 
     synth -> condensed dists + fused kNN (device) -> BGMM on subsample ->
     refine boundary -> network -> clusters vs true strains. Returns a dict
     of stage seconds and results; the host never holds an O(n^2) array.
 
-    The port is one device (``device``, None: ``_device.resolve``'s
-    choice). streaming=None takes the reference's rule with one device:
-    StreamingCondensed once the folded buffer (4 n^2 bytes) would pass
-    6e9 bytes, else the buffered fill (fill_condensed_device). The refine
+    Devices, the reference's rule over the port's device set: ``mesh``
+    (a parallel.mesh.Mesh, the only way a virtual mesh reaches the
+    pipeline), else every visible card when ``device`` is None
+    (parallel.mesh.get_mesh()), else ``device`` alone. streaming=None:
+    StreamingCondensed once the folded buffer's per-device share (4 n^2 /
+    n_dev bytes) would pass 6e9 bytes, else the buffered fill.
+    sharded=None turns the row-sharded mesh on for the buffered fill when
+    there are more devices than one and n // 2 divides by their count
+    (fill_condensed_sharded; sharded=True asks for it whatever the count),
+    and the streaming passes take the mesh under the same rule, without
+    the bootstrap (the reference runs it on one device only). The
+    population is drawn, and the model fitted, on the first device. The
+    refine
     then takes the matmul sweep on the buffer (n <= MATMUL_SWEEP_MAX_N),
     the device sparse sweep, or the host scorer, and the network is
     labelled on the device from the dense square or the edge list, or on
@@ -1812,14 +2207,22 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
     from .network.components import connected_components
     from .network.graph import Graph
     from .network.incremental import components_native
+    from .parallel.mesh import get_mesh, visible_devices
     from .synth import synthetic_population_device
 
-    if sharded:
-        raise ValueError(
-            "sharded=True: the port runs the scale pipeline on one device; "
-            "the sharded fill waits for the multi-GPU item of ROADMAP.md "
-            "queue 1")
-    dev = _device.resolve(device)
+    if mesh is not None:
+        devices = _mesh_devices(mesh)
+    elif device is None:
+        devices = visible_devices()
+    else:
+        devices = [_device.resolve(device)]
+    dev = _device.resolve(devices[0])
+    n_dev = len(devices)
+
+    def sync():
+        for d in set(devices):
+            _sync(d)
+
     timings = {}
     out = {"n": n, "n_pairs": n * (n - 1) // 2}
     if n_strains is None:
@@ -1842,7 +2245,7 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
     pop = synthetic_population_device(
         n, klist, sketchsize64, bbits, n_strains=n_strains, seed=seed,
         chunk=max(chunk, min(n, 2048)), device=dev, **(synth_kwargs or {}))
-    _sync(dev)
+    sync()
     timings["synth"] = time.perf_counter() - t0
     log(f"synth: {n} genomes on device in {timings['synth']:.1f}s\n")
 
@@ -1856,7 +2259,9 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
 
     half = n // 2
     if streaming is None:
-        streaming = 4.0 * n * n > 6e9
+        streaming = 4.0 * n * n / max(n_dev, 1) > 6e9
+    if sharded is None:
+        sharded = (not streaming and n_dev > 1 and half % n_dev == 0)
     out["streaming"] = bool(streaming)
     bootstrap = False
     t0 = time.perf_counter()
@@ -1864,28 +2269,46 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
         # per-chunk transients are ~16 bytes * 2c * n * K across the
         # match/correction/fit buffers; the reference's ~2.5 GB budget
         c_max = max(32, int(2.5e9 / (2 * n * len(klist) * 16)))
-        c_stream = divide_down(min(chunk, 1 << (c_max.bit_length() - 1)),
-                               half)
-        # two-round bootstrap (score_idx 0): model fit from
-        # directly-computed subsample distances FIRST, then ONE streaming
-        # pass computes dists + kNN + maxima AND fills the refine band
-        bootstrap = (score_idx == 0
+        c_stream = 1 << (c_max.bit_length() - 1)
+        mesh_s = None
+        if n_dev > 1 and half % n_dev == 0:
+            mesh_s = mesh if mesh is not None else get_mesh(
+                devices=devices)
+        # chunk must divide the per-device rows, not just half
+        rows_loc = half // n_dev if mesh_s is not None else half
+        c_stream = divide_down(min(chunk, c_stream), rows_loc)
+        if mesh_s is not None:
+            log(f"dists: streaming sharded over {n_dev} devices\n")
+        # two-round bootstrap (single device, score_idx 0): model fit
+        # from directly-computed subsample distances FIRST, then ONE
+        # streaming pass computes dists + kNN + maxima AND fills the
+        # refine band
+        bootstrap = (mesh_s is None and score_idx == 0
                      and os.environ.get("POPPUNK_TPU_BOOTSTRAP", "1") != "0")
         cd = StreamingCondensed(pop.planes, pop.lengths, pop.freqs, klist,
                                 sketchsize64, bbits, chunk=c_stream, knn=knn,
                                 subsample=(None if bootstrap
                                            else (subsample, seed)),
-                                defer=bootstrap)
+                                defer=bootstrap, mesh=mesh_s,
+                                shard_planes="auto")
         log("dists: streaming (no O(n^2) tensor; buffer would be "
             f"{4.0 * n * n / 2**30:.1f} GiB)\n")
         if bootstrap:
             log("dists: deferred — two-round bootstrap (fit on direct "
                 "subsample dists, refine fill fused into pass 1)\n")
+    elif sharded:
+        mesh_b = mesh if mesh is not None else get_mesh(devices=devices)
+        cd = fill_condensed_sharded(pop.planes, pop.lengths, pop.freqs,
+                                    klist, sketchsize64, bbits, mesh=mesh_b,
+                                    chunk=divide_down(chunk,
+                                                      half // mesh_b.size),
+                                    knn=knn)
+        log(f"dists: folded buffer sharded over {mesh_b.size} devices\n")
     else:
         cd = fill_condensed_device(pop.planes, pop.lengths, pop.freqs,
                                    klist, sketchsize64, bbits,
                                    chunk=divide_down(chunk, half), knn=knn)
-    _sync(dev)
+    sync()
     if not bootstrap:
         timings["dists+knn"] = time.perf_counter() - t0
         out["pairs_per_s"] = out["n_pairs"] / timings["dists+knn"]
@@ -1925,7 +2348,7 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
                     f"replanning max_move={max_move}\n")
         t0 = time.perf_counter()
         cd.run_pass1(fill_spec)
-        _sync(dev)
+        sync()
         timings["dists+knn"] = time.perf_counter() - t0
         out["pairs_per_s"] = out["n_pairs"] / timings["dists+knn"]
         log(f"dists+knn: {out['n_pairs']} pairs in "
@@ -1956,7 +2379,7 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
             max_move /= 4
             log(f"refine: sweep saturated ({str(e)[:120]}), retrying "
                 f"max_move={max_move}\n")
-    _sync(dev)
+    sync()
     timings["refine"] = time.perf_counter() - t0
     if refine_phases:
         out["refine_phase_s"] = refine_phases

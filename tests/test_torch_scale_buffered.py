@@ -441,11 +441,6 @@ def test_pipeline_equals_the_jax_package(jpop, monkeypatch, streaming,
     assert got["timings"].keys() == want["timings"].keys()
 
 
-def test_sharded_is_refused():
-    with pytest.raises(ValueError, match="multi-GPU"):
-        tsc.run_scale_pipeline(n=64, sharded=True, log=lambda m: None)
-
-
 @pytest.mark.parametrize("case", ["random", "same", "one_cluster",
                                   "singletons", "relabelled", "strings"])
 def test_adjusted_rand_index_equals_sklearn(case):

@@ -409,5 +409,5 @@ def test_a_scale_run_loads_no_jax(jax_db, tmp_path):
 def test_pad_geometry_equals_the_jax_packages_on_one_device(n, chunk, k):
     c, n_pad, mesh = jax_pad_geometry(n, chunk, 1, False, n_kmers=k)
     assert mesh is None
-    assert _pad_geometry(n, chunk, n_kmers=k) == (c, n_pad)
+    assert _pad_geometry(n, chunk, 1, False, n_kmers=k) == (c, n_pad, None)
     assert n_pad >= n and (n_pad // 2) % c == 0

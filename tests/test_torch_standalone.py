@@ -97,6 +97,15 @@ def test_the_scan_covers_the_scripts_and_the_synth():
     assert "poppunk_tpu_torch.ops.distances.query_db" in names
 
 
+def test_the_scan_covers_the_parallel_subpackage():
+    for name in ("__init__", "mesh", "dists", "distributed"):
+        assert os.path.join("poppunk_tpu_torch", "parallel",
+                            name + ".py") in PORT_FILES
+    names = imported_modules(os.path.join("poppunk_tpu_torch", "parallel",
+                                          "dists.py"))
+    assert "poppunk_tpu_torch.ops.distances._dist_chunk" in names
+
+
 def test_the_scan_sees_relative_imports():
     names = imported_modules(os.path.join("poppunk_tpu_torch", "qc.py"))
     assert "poppunk_tpu_torch.network.graph.prune_graph" in names
@@ -159,7 +168,9 @@ COPIES = {
                   "CondensedDevice", "fill_condensed_device",
                   "edge_components_device",
                   "_unfold_block", "build_d0_square", "matmul_sweep_scores",
-                  "components_device", "run_scale_pipeline"), None),
+                  "components_device", "run_scale_pipeline",
+                  "fill_condensed_sharded", "sweep_counts_mesh",
+                  "_sweep_fill_mesh", "_mesh_compact_pass"), None),
     "synth.py": (("_bernoulli_words", "_keep_probs", "_masked_planes",
                   "SyntheticSketches", "synthetic_population_device"),
                  None),
@@ -172,6 +183,13 @@ COPIES = {
                              "hbm_feasible", "max_edge_cap"), None),
     "cli/scale.py": (("get_options", "main", "_pad_geometry", "_use_model",
                       "_mandrake_embedding", "_run_qc"), None),
+    "parallel/__init__.py": ((), ()),
+    "parallel/mesh.py": (("get_mesh",), None),
+    "parallel/dists.py": (("_local_block", "_fetch",
+                           "sharded_pairwise_block", "sharded_query_dists",
+                           "sharded_self_dists"), None),
+    "parallel/distributed.py": (("init_distributed", "pod_mesh",
+                                 "is_primary"), None),
 }
 
 
