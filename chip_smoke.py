@@ -101,12 +101,29 @@ Phases, each printing one JSON line with its seconds:
      against M1 and M2 (edges, boundary, partition; peak memory under
      M1's limit), then the QC pass and the fixed-boundary fetch at M1's
      boundary through _mesh_compact_pass against the single device
+  O  the column-sharded scale tier (scale.py's _ColShardedStream) on N's
+     mesh: O1 M's population (20,480 genomes, K 6) through
+     StreamingCondensed(shard_planes=True) (kNN, maxima and subsample bit
+     for bit against the single device), refine over the column shards
+     (M2's edges and partition, s_opt within rtol 1e-4) and the QC and
+     fetch passes through _compact_pass's column arm at M1's boundary
+     (N3's pairs as sets); O1 and O2 hold kernel 1's plane-major route to
+     its plain version at their own query blocks and shards; O2 pass 1
+     at 131,072 genomes drawn on the card with shard_planes="auto"
+     (column shards; seconds, launches, kernel time,
+     peak device memory against streaming_hbm_accounting's column figure,
+     256 genomes' kNN against a full-row recompute)
+  P  the batched device Brandes (ops/brandes_device.py) at bench.py's
+     bench_brandes_ab shapes (100 components of 1000 vertices padded to
+     1024, degree ~40, 100 sources): exact products held to the native
+     engine within rtol 1e-5, TF32 products timed with their error
 ``python3 chip_smoke.py --mesh-only`` runs A, B, E, M1's and M2's
-pipelines and N alone (for a host with several cards: N's mesh spans them).
-Then the kernel summary line ({"kernels": [...]}: the standard kernel's
-launches counted over phases D, E, H-N, the packed kernel's over F, G and
-N1's packed runs, each phase run with the counts set to 0 just before it;
-N2's are its workers' own counts), the nvidia-smi line, and last
+pipelines, N and O1 alone (for a host with several cards: their mesh
+spans them). Then the kernel summary line ({"kernels": [...]}: the
+standard kernel's launches counted over phases D, E, H-O, the packed
+kernel's over F, G and N1's packed runs, each phase run with the counts
+set to 0 just before it; N2's are its workers' own counts), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a host without CUDA.
 
@@ -2057,6 +2074,23 @@ def hold_steps_to_plain(torch, cd):
     return errs, plain_s
 
 
+def card_chunk(device, n, chunk, n_kmers):
+    """The scale CLI's chunk for n genomes from --chunk ``chunk`` at
+    ``device``'s budget (cli/scale.py's _pad_geometry on one device,
+    the reference's per-step budget scaled by the card's memory); fails
+    if n would pad."""
+    from poppunk_tpu_torch.cli.scale import _pad_geometry
+    from poppunk_tpu_torch.ops.sparse_sweep import (HBM_TOTAL,
+                                                    device_hbm_total)
+
+    c, n_pad, _ = _pad_geometry(
+        n, chunk, 1, False, n_kmers,
+        budget=2.5e9 * device_hbm_total(device) / HBM_TOTAL)
+    if n_pad != n:
+        raise AssertionError(f"{n} genomes pad to {n_pad}")
+    return c
+
+
 def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
                   knn, ranks=None, summary_sample=None):
     """The scale CLI's default path as library calls, on planes already
@@ -2067,11 +2101,9 @@ def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
     (cli/scale.py's helpers), and with ``ranks`` the lineage fit from the
     fused kNN. Returns (clusters, a record of the run)."""
     from poppunk_tpu_torch.cli.scale import (_network_and_clusters,
-                                             _pad_geometry, _write_lineages)
+                                             _write_lineages)
     from poppunk_tpu_torch.models import BGMMFit
     from poppunk_tpu_torch.ops import match_counts as mc
-    from poppunk_tpu_torch.ops.sparse_sweep import (HBM_TOTAL,
-                                                    device_hbm_total)
     from poppunk_tpu_torch.scale import (StreamingCondensed,
                                          plan_sweep_band, refine_fit_device)
 
@@ -2090,11 +2122,7 @@ def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
             peaks[name] = torch.cuda.max_memory_allocated()
         return out
 
-    chunk, n_pad, _ = _pad_geometry(
-        n, 256, 1, False, len(KLIST),
-        budget=2.5e9 * device_hbm_total(device) / HBM_TOTAL)
-    if n_pad != n:
-        raise AssertionError(f"{n} genomes pad to {n_pad}")
+    chunk = card_chunk(device, n, 256, len(KLIST))
     cd = StreamingCondensed(planes, lengths, freqs, KLIST, ss64, bbits,
                             chunk=chunk, knn=knn, defer=True, device=device)
     subsample = min(100000, cd.n_pairs)
@@ -2697,10 +2725,10 @@ def phase_l4c(torch, device, workdir, l3):
     bad = 0
     for s in range(0, len(qi), 8192):
         dd = _pair_block_dists(
-            cd.planes, cd.lengths, cd.freqs,
+            cd._pair_rows, cd.lengths, cd.freqs,
             torch.as_tensor(qi[s:s + 8192], device=device),
             torch.as_tensor(qj[s:s + 8192], device=device), cd._klist,
-            cd._ss64, cd._bbits, cd._pad_bits).cpu().numpy()
+            cd._ss64, cd._bbits).cpu().numpy()
         tol = DIST_TOL["atol"] + DIST_TOL["rtol"] * cuts
         long_ok = (dd > cuts - tol).any(axis=1)
         zero_ok = (np.abs(dd) <= DIST_TOL["atol"]).any(axis=1)
@@ -3261,7 +3289,8 @@ def phase_n3(torch, device, mesh, m):
     partition. Then the QC pass and the fixed-boundary fetch at M1's
     boundary through _mesh_compact_pass on the population's planes, equal
     to the single device's (i, j, flags), the fetch holding M1's edges.
-    Returns standard launches per part."""
+    Returns standard launches per part and the mesh's pairs of each pass
+    (for phase O1)."""
     from poppunk_tpu_torch import scale, synth
     from poppunk_tpu_torch.utils import decision_boundary, transform_line
 
@@ -3326,10 +3355,11 @@ def phase_n3(torch, device, mesh, m):
             **kw),
         "fetch": lambda **kw: scale.fetch_within_boundary(
             *ops, scale_b, bx, by, 2, **kw)}
-    parts, n_launch = {}, 0
+    parts, n_launch, pairs = {}, 0, {}
     for name, run in passes.items():
         one, s1, l1, _ = counted(torch, device, lambda: run(device=device))
         got, sm, lm, _ = counted(torch, device, lambda: run(mesh=mesh))
+        pairs[name] = got
         n_launch += l1 + lm
         parts[name] = {"pairs": int(len(got[0])), "single_s": s1,
                        "mesh_s": sm, "single_launches": l1,
@@ -3346,17 +3376,344 @@ def phase_n3(torch, device, mesh, m):
                              f" pairs at M1's boundary, M1 "
                              f"{m.m1['n_edges']} edges")
     launches["N3_compact"] = n_launch
-    return launches
+    return launches, pairs
 
 
 def phase_n(torch, device, workdir, e, m, mesh):
     """N1 (standard kernel), N2 and N3. Returns standard launches per
-    stage."""
+    stage and N3's pairs of the QC pass and the fetch."""
     launches = {f"N1_{route}": n for route, n in
                 phase_n1(torch, device, e, mesh).items()}
     launches["N2"] = phase_n2(torch, device, workdir)
-    launches.update(phase_n3(torch, device, mesh, m))
-    return launches
+    n3_launches, pairs = phase_n3(torch, device, mesh, m)
+    launches.update(n3_launches)
+    return launches, pairs
+
+
+# run_scale_pipeline's defaults: K 6, sketch 9984, 14 planes
+M_GEOMETRY = ((13, 16, 19, 22, 25, 28), 156, 14)
+
+
+def hold_col_tile_to_plain(torch, cd):
+    """Kernel 1's plane-major route at a column tile's own operands, bit
+    for bit against the plain version on the same device: the first
+    chunk's query block as _ColShardedStream.waves assembles it (rows
+    [0, c) and [n - c, n), gathered from the shards that own them)
+    against the last shard's resident [K, P, n_loc, Wp] planes. These
+    launches compare; no path counts them. Returns (max_abs_err, the
+    plain version's seconds, the operands' shapes)."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    cs = cd._cs
+    shard = cs.planes[-1]
+    q = cs._rows([(0, cs.c), (cs.n - cs.c, cs.n)], shard.device)
+    got = mc.match_counts(q, shard, cs.pad_bits, plane_major=True)
+    t = time.perf_counter()
+    want = mc.match_counts_torch(q, shard, cs.pad_bits, plane_major=True)
+    plain_s = elapsed(torch, t)
+    err = max_abs_err(got, want)
+    shapes = [list(q.shape), list(shard.shape)]
+    if err:
+        raise AssertionError(f"the plane-major route disagrees with the "
+                             f"plain version at the column tile {shapes}: "
+                             f"{err}")
+    return err, plain_s, shapes
+
+
+def pair_keys(i, j, n):
+    """Sorted int64 keys i * n + j of a pair list: equal sets, equal
+    arrays."""
+    return np.sort(np.asarray(i, np.int64) * n + np.asarray(j, np.int64))
+
+
+def phase_o(torch, device, mesh, m, n3_pairs):
+    """O1 and O2. Returns standard launches per part, and the worst
+    difference of the kernel from its plain version at their column
+    tiles."""
+    launches, err1 = phase_o1(torch, device, mesh, m, n3_pairs)
+    launches2, err2 = phase_o2(torch, device, mesh)
+    launches.update(launches2)
+    return launches, max(err1, err2)
+
+
+def phase_o1(torch, device, mesh, m, n3_pairs):
+    """O1: the column-sharded streaming tier on phase N's mesh at M's
+    population (n 20,480 of M_GEOMETRY, 20 strains, seed 2, drawn on the
+    card): StreamingCondensed(mesh=, shard_planes=True) with
+    run_scale_pipeline's chunk, kNN 5 and its 100,000-pair subsample
+    predeclared, against the same pass on the first device alone (M2's
+    single-device route): kNN, column maxima and subsample bit for bit.
+    Then the BGMM on that subsample and refine_fit_device over the column
+    shards (the per-device fills, the device sparse sweep; max_move backed
+    off on saturation, as the pipeline does): M2's edge count and
+    partition (ARI 1.0 between the label vectors), s_opt within rtol
+    1e-4. Then the QC pass and the fixed-boundary fetch at M1's boundary
+    through _compact_pass's column arm: N3's pairs as sets (its QC pairs
+    in their order too). The chunk is the CLI's at --chunk 512, M2's.
+    Kernel 1 is held to its plain version at the column tile's operands
+    (hold_col_tile_to_plain). Returns standard launches per part and
+    that difference."""
+    from poppunk_tpu_torch import scale, synth
+    from poppunk_tpu_torch.models.bgmm import BGMMFit
+    from poppunk_tpu_torch.utils import decision_boundary, transform_line
+
+    t0 = time.perf_counter()
+    n = m.n
+    klist, ss64, bbits = M_GEOMETRY
+    subsample, seed = 100_000, 2
+    pop = synth.synthetic_population_device(
+        n, klist, ss64, bbits, n_strains=20, seed=seed,
+        chunk=max(512, min(n, 2048)), device=device)
+    ops = (pop.planes, pop.lengths, pop.freqs, klist, ss64, bbits)
+    kw = dict(chunk=card_chunk(device, n, 512, len(klist)), knn=5,
+              subsample=(subsample, seed))
+    col, col_s, col_l, col_k = counted(
+        torch, device, lambda: scale.StreamingCondensed(
+            *ops, mesh=mesh, shard_planes=True, **kw))
+    one, one_s, one_l, one_k = counted(
+        torch, device, lambda: scale.StreamingCondensed(*ops, device=device,
+                                                        **kw))
+    sub = col.subsample_pairs(subsample, seed=seed)
+    equal = {
+        "knn_col": bool(np.array_equal(col.knn_col, one.knn_col)),
+        "knn_dist": bool(np.array_equal(col.knn_dist, one.knn_dist)),
+        "max_scale": bool(np.array_equal(col.max_scale(),
+                                          one.max_scale())),
+        "subsample": bool(np.array_equal(
+            sub, one.subsample_pairs(subsample, seed=seed)))}
+    del one
+    tile_err, plain_s, tile_shapes = hold_col_tile_to_plain(torch, col)
+    model = BGMMFit("", max_samples=subsample, device=device)
+    model.fit(sub, max_components=2)
+    mean0 = model.means[model.within_label]
+    mean1 = model.means[model.between_label]
+    parts, max_move = {}, 0.25
+
+    def refine():
+        nonlocal max_move
+        while True:
+            try:
+                return scale.refine_fit_device(
+                    col, model.scale, mean0, mean1, max_move=max_move,
+                    score_idx=0, seed=seed, timings_out=parts,
+                    est_pairs=sub)
+            except scale.SweepSaturated:
+                if max_move / 4 < 1e-3:
+                    raise
+                max_move /= 4
+
+    (_, _, s_opt, sweep), ref_s, ref_l, ref_k = counted(torch, device,
+                                                         refine)
+    labels, n_edges = scale.edge_components_device(
+        sweep[1], scale.offset_threshold(s_opt, sweep[-2], 2, *sweep[-1]))
+    agree = scale.adjusted_rand_index(m.m2["labels"], labels)
+    del sweep, col
+
+    # the compaction passes at M1's boundary, as N3 runs them
+    b = m.m1["boundary"]
+    line = b["line"]
+    bm0, bm1 = np.array(line[:2]), np.array(line[2:])
+    bx, by = decision_boundary(
+        transform_line(b["s_opt"], bm0, bm1),
+        (bm1[1] - bm0[1]) / (bm1[0] - bm0[0]))
+    scale_b = np.asarray(b["scale"])
+    cops = (*ops, 512, n)
+    passes = {
+        "qc": lambda: scale.qc_bad_pairs_streaming(
+            *cops, 0.95 * scale_b[0], 0.95 * scale_b[1], check_zero=False,
+            mesh=mesh, shard_planes=True),
+        "fetch": lambda: scale.fetch_within_boundary(
+            *cops, scale_b, bx, by, 2, mesh=mesh, shard_planes=True)}
+    compact = {}
+    for name, run in passes.items():
+        got, sec, n_l, k_s = counted(torch, device, run)
+        want = n3_pairs[name]
+        same = bool(np.array_equal(pair_keys(got[0], got[1], n),
+                                   pair_keys(want[0], want[1], n)))
+        if name == "qc":
+            same &= all(np.array_equal(a, w) for a, w in zip(got, want))
+        compact[name] = {"pairs": int(len(got[0])), "seconds": sec,
+                         "launches": n_l, "kernel_s": k_s,
+                         "n3_pairs_equal": same}
+    emit({"phase": "O1", "n": n, "mesh_shape": mesh.shape,
+          "chunk": kw["chunk"], "pass1": {
+              "column_s": col_s, "column_launches": col_l,
+              "column_kernel_s": col_k, "single_s": one_s,
+              "single_launches": one_l, "single_kernel_s": one_k},
+          "bit_equal": equal, "plane_major_vs_plain": {
+              "max_abs_err": tile_err, "plain_s": plain_s,
+              "query_and_shard": tile_shapes}, "refine": {
+              "seconds": ref_s, "parts": parts, "launches": ref_l,
+              "kernel_s": ref_k, "max_move": max_move},
+          "n_edges": n_edges, "m2_edges": m.m2["n_edges"],
+          "ari_vs_m2": agree, "s_opt": s_opt,
+          "s_opt_m2": m.m2["boundary"]["s_opt"], "compact": compact,
+          "seconds": elapsed(torch, t0)})
+    if not all(equal.values()):
+        raise AssertionError(f"O1: the column shards differ from the single "
+                             f"device: {equal}")
+    if n_edges != m.m2["n_edges"] or agree != 1.0:
+        raise AssertionError(f"O1: {n_edges} edges (M2 {m.m2['n_edges']}), "
+                             f"ARI against M2 {agree}")
+    np.testing.assert_allclose(s_opt, m.m2["boundary"]["s_opt"], rtol=1e-4)
+    if not all(c["n3_pairs_equal"] for c in compact.values()):
+        raise AssertionError(f"O1: the compaction passes' pairs are not "
+                             f"N3's: {compact}")
+    return {"O1_pass1": col_l + one_l, "O1_refine": ref_l,
+            "O1_compact": sum(c["launches"] for c in compact.values())}, \
+        tile_err
+
+
+def phase_o2(torch, device, mesh, n=131072, n_strains=128, spot=256):
+    """O2: pass 1 alone at n genomes of M_GEOMETRY drawn on the card
+    (planted_population_on_card, set-up) on phase N's mesh with
+    shard_planes="auto", which must take the column shards (the
+    replicated planes pass the reference's 8e9 bytes); the chunk is the
+    scale CLI's at its default --chunk 256, kNN 5. Reports the
+    pass's seconds, launches, kernel event time and full-row pairs/s, and
+    the net peak device memory (from before the shards are copied, the
+    drawn planes excluded) against streaming_hbm_accounting's column
+    figure for each shard on this card; fails past it. Then ``spot``
+    random genomes' kNN are held bit for bit to a single-device full-row
+    recompute from the drawn planes (_tile_dists against all n columns,
+    _seq_topk), and kernel 1 to its plain version at the column tile's
+    operands (hold_col_tile_to_plain). Returns standard launches and
+    that difference."""
+    from poppunk_tpu_torch import scale
+
+    klist, ss64, bbits = M_GEOMETRY
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    planes, lengths, freqs, _ = planted_population_on_card(
+        torch, device, n, n_strains, SEED + 7, ss64=ss64, bbits=bbits,
+        klist=klist)
+    make_s = elapsed(torch, t)
+    n_dev = mesh.size
+    chunk = card_chunk(device, n, 256, len(klist))
+    on_card = device.type == "cuda"
+    base = None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    cd = scale.StreamingCondensed(planes, lengths, freqs, klist, ss64, bbits,
+                                  chunk=chunk, knn=5, defer=True, mesh=mesh,
+                                  shard_planes="auto")
+    shard_s = elapsed(torch, t)
+    if not cd._col:
+        raise AssertionError(f"O2: shard_planes='auto' kept the row shards "
+                             f"at {n} genomes")
+    _, pass_s, launches, kernel_s = counted(torch, device, cd.run_pass1)
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    acct = scale.streaming_hbm_accounting(n, klist, ss64, bbits, chunk, 5,
+                                          n_dev, shard_planes=True)
+    here = sum(1 for p in cd.planes if p.device == device)
+    limit = here * acct["total"]
+    t = time.perf_counter()
+    idx = np.sort(np.random.default_rng(SEED + 8).choice(n, spot,
+                                                         replace=False))
+    rows = torch.as_tensor(idx, device=device)
+    d = scale._tile_dists(planes[:, :, rows], planes, lengths[rows], lengths,
+                          freqs[rows], freqs, klist, ss64, bbits,
+                          cd._pad_bits)
+    near = d[..., 0]
+    near[torch.arange(spot, device=device), rows] = float("inf")  # self
+    top_i, top_d = scale._seq_topk(near, 5)
+    spot_equal = bool(np.array_equal(top_i.cpu().numpy(), cd.knn_col[idx])
+                      and np.array_equal(top_d.cpu().numpy(),
+                                         cd.knn_dist[idx]))
+    spot_s = elapsed(torch, t)
+    del d, near
+    tile_err, plain_s, tile_shapes = hold_col_tile_to_plain(torch, cd)
+    emit({"phase": "O2", "n": n, "mesh_shape": mesh.shape, "chunk": chunk,
+          "make_data_seconds": make_s, "shard_copy_seconds": shard_s,
+          "pass1_seconds": pass_s, "pass1_launches": launches,
+          "pass1_kernel_s": kernel_s, "pass1_rest_s": pass_s - kernel_s,
+          "full_row_pairs_per_s": n * n / pass_s,
+          "replicated_planes_bytes": scale.streaming_hbm_accounting(
+              n, klist, ss64, bbits, chunk, 5, n_dev)["planes"],
+          "peak_device_bytes": peak, "accounting_per_device": acct,
+          "shards_on_this_card": here, "limit_bytes": limit,
+          "spot_genomes": spot, "spot_knn_bit_equal": spot_equal,
+          "spot_seconds": spot_s, "plane_major_vs_plain": {
+              "max_abs_err": tile_err, "plain_s": plain_s,
+              "query_and_shard": tile_shapes},
+          "seconds": elapsed(torch, t0)})
+    if on_card and peak > limit:
+        raise AssertionError(f"O2 peak device memory {peak} (net) exceeds "
+                             f"the accounting {limit}")
+    if not spot_equal:
+        raise AssertionError("O2: the column shards' kNN differ from the "
+                             "full-row recompute")
+    return {"O2_pass1": launches}, tile_err
+
+
+def random_components(rng, n_comp, m, deg):
+    """n_comp G(m, deg / m) graphs (each pair an edge with probability
+    deg / m, drawn once in the upper triangle and symmetrised), as bool
+    [n_comp, m, m] dense adjacencies (bench.py's bench_brandes_ab
+    statistics, drawn with numpy from a seed)."""
+    adj = np.zeros((n_comp, m, m), bool)
+    for c in range(n_comp):
+        upper = np.triu(rng.random((m, m)) < deg / m, 1)
+        adj[c] = upper | upper.T
+    return adj
+
+
+def phase_p(torch, device, n_comp=100, m=1000, deg=40, n_sources=100,
+            m_pad=1024):
+    """P: the batched device Brandes (ops/brandes_device.py) at
+    bench.py:1306 bench_brandes_ab's shapes: n_comp components of m
+    vertices at mean degree ~deg, padded to m_pad, the same n_sources
+    sampled sources in each. exact=True is held to the port's native
+    engine (network/incremental.brandes_native, OpenMP graph_core.cpp)
+    within rtol 1e-5, atol 1e-5 (tests/test_brandes_device.py) on every
+    component; exact=False (TF32 products) is timed and its largest
+    relative error printed; the native engine's time over the components
+    beside them. Device times by CUDA events (host seconds on the CPU
+    rehearsal), second of two calls each, the per-level host sync
+    included."""
+    import scipy.sparse
+
+    from poppunk_tpu_torch.network.incremental import brandes_native
+    from poppunk_tpu_torch.ops.brandes_device import brandes_batched_device
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    adj = random_components(rng, n_comp, m, deg)
+    sources = rng.choice(m, size=n_sources, replace=False)
+    csr = [scipy.sparse.csr_matrix(a) for a in adj]
+    t = time.perf_counter()
+    native = np.stack([brandes_native(a, sources) for a in csr])
+    native_s = time.perf_counter() - t
+    dense = np.zeros((n_comp, m_pad, m_pad), np.float32)
+    dense[:, :m, :m] = adj
+    A = torch.as_tensor(dense, device=device)
+    src = torch.as_tensor(np.tile(sources[None], (n_comp, 1)),
+                          dtype=torch.int32, device=device)
+    out, ms = {}, {}
+    for exact in (True, False):
+        brandes_batched_device(A, src, exact=exact)
+        if device.type == "cuda":
+            ms[exact] = event_ms(torch, lambda: out.__setitem__(
+                exact, brandes_batched_device(A, src, exact=exact)), 1)
+        else:
+            t = time.perf_counter()
+            out[exact] = brandes_batched_device(A, src, exact=exact)
+            ms[exact] = 1e3 * (time.perf_counter() - t)
+    got = {k: v[:, :m].double().cpu().numpy() for k, v in out.items()}
+    rel = {k: float((np.abs(v - native) / np.maximum(np.abs(native), 1e-30)
+                     ).max()) for k, v in got.items()}
+    close = bool(np.allclose(got[True], native, rtol=1e-5, atol=1e-5))
+    emit({"phase": "P", "components": n_comp, "vertices": m, "padded": m_pad,
+          "mean_degree": float(adj.sum() / (n_comp * m)),
+          "sources": n_sources, "exact_ms": ms[True], "tf32_ms": ms[False],
+          "native_s": native_s, "exact_max_rel_err": rel[True],
+          "tf32_max_rel_err": rel[False], "exact_within_tol": close,
+          "seconds": time.perf_counter() - t0})
+    if not close:
+        raise AssertionError(f"P: exact=True differs from the native engine "
+                             f"(largest relative error {rel[True]})")
 
 
 # --------------------------------------------------------------------------
@@ -3394,9 +3751,10 @@ def all_vs_all_routes(torch, device, e):
 
 
 def mesh_only(torch, device):
-    """``--mesh-only``: phase N with what it reads (phase E's population,
-    M1's and M2's pipelines at 20,480 as the single-device results), for a
-    run over several cards. Prints each part's launches; no kernel line."""
+    """``--mesh-only``: phases N and O1 with what they read (phase E's
+    population, M1's and M2's pipelines at 20,480 as the single-device
+    results), for a run over several cards. Prints each part's launches;
+    no kernel line."""
     from poppunk_tpu_torch import scale
     from poppunk_tpu_torch.ops import match_counts as mc
 
@@ -3416,12 +3774,16 @@ def mesh_only(torch, device):
         emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
               "devices": [str(dev) for dev in mesh.flat()]})
         mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
+        n_launches, n3_pairs = phase_n(torch, device, workdir, e, m, mesh)
         emit({"phase": "N_launches", "kernel": "standard",
-              "stages": phase_n(torch, device, workdir, e, m, mesh)})
+              "stages": n_launches})
         mc.KERNEL_CHOICE = "packed"
         emit({"phase": "N_launches", "kernel": "packed",
               "stages": phase_n1(torch, device, e, mesh)})
         mc.KERNEL_CHOICE = "standard"
+        mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
+        emit({"phase": "O_launches", "kernel": "standard",
+              "stages": phase_o1(torch, device, mesh, m, n3_pairs)[0]})
 
 
 def main():
@@ -3504,13 +3866,19 @@ def main():
         mesh, kind = smoke_mesh(torch, device)
         emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
               "devices": [str(dev) for dev in mesh.flat()]})
-        path("N", lambda: (phase_n(torch, device, workdir, e, m, mesh),
-                           None), *std)
+        n3_pairs = path("N", lambda: phase_n(torch, device, workdir, e, m,
+                                             mesh), *std)
         mc.KERNEL_CHOICE = "packed"
         path("N_packed", lambda: ({
             f"N1_packed_{route}": n for route, n in
             phase_n1(torch, device, e, mesh).items()}, None), *packed)
         mc.KERNEL_CHOICE = "standard"
+        o_err = path("O", lambda: phase_o(torch, device, mesh, m,
+                                          n3_pairs), *std)
+        kernels["match_counts"]["max_abs_err"] = max(
+            kernels["match_counts"]["max_abs_err"], o_err)
+        del n3_pairs
+    phase_p(torch, device)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this
     loaded = sorted(m for m in sys.modules if m in ("jax", "poppunk_tpu")

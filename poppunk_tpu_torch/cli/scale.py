@@ -332,6 +332,9 @@ def main(arg_list=None):
         n_real=n_real, defer=bootstrap, device=dist_device, mesh=mesh,
         shard_planes="auto")
     del planes
+    if cd._col:
+        sys.stderr.write("Column-sharded planes over the mesh "
+                         "(replicated residency would crowd HBM)\n")
     if not bootstrap:
         dt = time.perf_counter() - t0
         sys.stderr.write(
@@ -570,10 +573,10 @@ def _use_model(args, ref_db, output, names, sketches, klist, dist_device,
 
 def _mandrake_embedding(args, cd, names, output, device):
     """SCE embedding from one extra streaming pass over ``cd``'s resident
-    planes that accumulates the ACCESSORY kNN (the reference's mandrake
-    gathers kNN from a dense square accessory matrix, mandrake.py:60-67 —
-    an O(n^2) object this path never builds); the optimiser on
-    ``device``."""
+    planes (its column shards on a column-sharded cd) that accumulates the
+    ACCESSORY kNN (the reference's mandrake gathers kNN from a dense square
+    accessory matrix, mandrake.py:60-67 — an O(n^2) object this path
+    never builds); the optimiser on ``device``."""
     from ..embedding import embedding_from_knn, write_mandrake_dot
     from ..scale import StreamingCondensed
 

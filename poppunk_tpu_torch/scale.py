@@ -64,9 +64,18 @@ shard is enqueued, each on its device, before any is read back
 predeclared subsample are put back in ascending global row order, and the
 fill's per-shard edge buffers are concatenated on the mesh's first device,
 so every result is the single-device one. The buffered tier's buffer is
-row-sharded the same way (fill_condensed_sharded). The column-sharded arms
-(planes split over the genome axis, shard_planes) are not ported: a mesh
-that resolves to them raises (_refuse_column_sharding).
+row-sharded the same way (fill_condensed_sharded).
+
+The column-sharded mesh (shard_planes=True, or "auto" past 8e9 bytes of
+replicated planes, _resolve_shard_planes): device d owns genome block
+[d * n_loc, (d + 1) * n_loc) of the planes, and every device walks all
+folded chunks, computing its column slice of each chunk's tile
+(_ColShardedStream). Pass 1 merges the shards' kNN into the single
+device's order; the counts and fills stay per device, and the fetches and
+compactions (_compact_pass) come back grouped by owning device, then
+chunk, as the reference's do. Every distance, count and kNN equals the
+single device's bit for bit: each pair's arithmetic is the same whatever
+the tile's shape (_tile_dists).
 """
 
 import os
@@ -151,15 +160,8 @@ def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
     pq = torch.cat([planes[:, :, lo], planes[:, :, hi]], dim=2)
     lq = torch.cat([lengths[lo], lengths[hi]])
     fq = torch.cat([freqs[lo], freqs[hi]])
-    matches = match_counts_device(pq, planes, pad_bits, plane_major=True)
-    d = torch.empty((2 * c, n, 2), dtype=torch.float32, device=dev)
-    for a in range(0, 2 * c, _EPILOGUE_ROWS):
-        b = min(a + _EPILOGUE_ROWS, 2 * c)
-        j = corrected_jaccards(matches[a:b], klist, lq[a:b], lengths,
-                               fq[a:b], freqs, sketchsize64, bbits, True,
-                               True)
-        d[a:b] = core_accessory(j, klist)
-    del matches
+    d = _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
+                    bbits, pad_bits)
 
     i_vec = s + torch.arange(c, device=dev)  # global ids of the low block
     q = torch.arange(n - 1, device=dev)
@@ -188,21 +190,46 @@ def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
     return folded, top_i, top_d
 
 
-def _seq_topk(col, knn):
+def _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
+                bbits, pad_bits):
+    """f32 [rows, cols, 2] distances of the plane-major query block pq
+    [K, P, rows, Wp] against the resident planes [K, P, cols, Wp]: one
+    launch of the kernel's plane-major route, then the corrections and the
+    k-mer fit _EPILOGUE_ROWS rows at a time. Each pair's arithmetic is the
+    same whatever the block's shape (ops/distances._dot4), so a column
+    shard's tile holds the single device's values bit for bit."""
+    matches = match_counts_device(pq, planes, pad_bits, plane_major=True)
+    rows = pq.shape[2]
+    d = torch.empty((rows, planes.shape[2], 2), dtype=torch.float32,
+                    device=planes.device)
+    for a in range(0, rows, _EPILOGUE_ROWS):
+        b = min(a + _EPILOGUE_ROWS, rows)
+        j = corrected_jaccards(matches[a:b], klist, lq[a:b], lengths,
+                               fq[a:b], freqs, sketchsize64, bbits, True,
+                               True)
+        d[a:b] = core_accessory(j, klist)
+    return d
+
+
+def _seq_topk(col, knn, ids=None):
     """k smallest entries per row of ``col`` ordered by (value, index)
     ascending — ties resolve to the LOWEST index, as the reference's
     argmin passes and lax.top_k do. One torch.topk over int64 keys
     (value bits << 32 | column): the keys are unique, so the order is
     total whatever torch.topk does with ties. The float bits map to
-    integers of the same order (negative values flipped). Returns (idx
-    int64 [rows, k], dist f32 [rows, k])."""
+    integers of the same order (negative values flipped; the map is its
+    own inverse). ``ids`` (int64, col's shape) replaces the column index:
+    the kNN merge of column shards passes each candidate's global genome.
+    Returns (idx int64 [rows, k], dist f32 [rows, k])."""
     bits = col.view(torch.int32)
     key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
     key <<= 32
-    key |= torch.arange(col.shape[1], device=col.device)
+    key |= (torch.arange(col.shape[1], device=col.device) if ids is None
+            else ids)
     top = torch.topk(key, knn, dim=1, largest=False, sorted=True).values
-    top_i = top & 0xFFFFFFFF
-    return top_i, torch.gather(col, 1, top_i)
+    hi = (top >> 32).to(torch.int32)
+    return top & 0xFFFFFFFF, (hi ^ ((hi >> 31) & 0x7FFFFFFF)).view(
+        torch.float32)
 
 
 def _fold_pairs(pos, s, n):
@@ -254,14 +281,16 @@ class _BandFill:
         self.acc = 0  # exact: a Python int
         self.cum = torch.zeros(t.shape[0], dtype=torch.int64, device=device)
 
-    def add(self, d0, s):
+    def add(self, d0, pairs):
+        """Count one chunk's d0 and append its in-band pairs; ``pairs``
+        maps the chunk's flat positions to global (i, j) tensors."""
         self.cum += _cum_counts(d0, self.t)
         pos = torch.nonzero(d0 <= self.t_band).squeeze(1)  # ascending
         k = pos.shape[0]
         room = max(0, min(k, self.cap - self.acc))
         if room:
             pos = pos[:room]
-            gi, gj = _fold_pairs(pos, s, self.n)
+            gi, gj = pairs(pos)
             sl = slice(self.acc, self.acc + room)
             self.bi[sl] = gi.to(torch.int32)
             self.bj[sl] = gj.to(torch.int32)
@@ -296,23 +325,22 @@ def _pair_corrected_fit(matches, li, lj, fi, fj, klist, sketchsize64,
     return core_accessory(jac, klist)
 
 
-def _pair_block_dists(planes, lengths, freqs, ii, jj, klist, sketchsize64,
-                      bbits, pad_bits):
+def _pair_block_dists(rows, lengths, freqs, ii, jj, klist, sketchsize64,
+                      bbits):
     """Distances for an explicit pair list: int64 [c] x [c] -> f32 [c, 2].
 
-    planes is plane-major [K, P, n, Wp]. The elementwise twin of the block
-    path (the same OR of plane diffs and popcount over the useful words);
-    the sketch rows are gathered one k at a time, so the transient is one
-    k-slice of the pairs' rows."""
-    w32 = planes.shape[3] - pad_bits // 32
+    ``rows(k, ids)`` gives plane k's useful words of genomes ``ids``,
+    [P, m, w32] (StreamingCondensed._pair_rows). The elementwise twin of
+    the block path (the same OR of plane diffs and popcount over the
+    useful words); the sketch rows are gathered one k at a time, so the
+    transient is one k-slice of the pairs' rows."""
     counts = []
-    for k in range(planes.shape[0]):
-        kp = planes[k, :, :, :w32]  # [P, n, w32]
-        pi, pj = kp[:, ii], kp[:, jj]  # [P, c, w32]
+    for k in range(len(klist)):
+        pi, pj = rows(k, ii), rows(k, jj)  # [P, c, w32]
         diff = pi[0] ^ pj[0]
-        for p in range(1, planes.shape[1]):
+        for p in range(1, pi.shape[0]):
             diff |= pi[p] ^ pj[p]
-        counts.append(32 * w32 - popcount32(diff).sum(dim=-1))
+        counts.append(32 * pi.shape[2] - popcount32(diff).sum(dim=-1))
     matches = torch.stack(counts, dim=1)  # [c, K]
     return _pair_corrected_fit(matches, lengths[ii], lengths[jj], freqs[ii],
                                freqs[jj], klist, sketchsize64, bbits)
@@ -366,21 +394,6 @@ def _resolve_shard_planes(shard_planes, mesh, n, klist, ss64, bbits,
     return acct["planes"] > 8e9 and n % n_dev == 0
 
 
-def _refuse_column_sharding(shard_planes, mesh, n, klist, ss64, bbits,
-                            chunk, knn):
-    """Raise when a mesh pass would take the column-sharded arms (planes
-    split over the genome axis): they are not ported. Nothing falls back
-    to the row-sharded or single-device route."""
-    if mesh is not None and _resolve_shard_planes(
-            shard_planes, mesh, n, klist, ss64, bbits, chunk, knn):
-        raise NotImplementedError(
-            f"shard_planes={shard_planes!r} resolves to column-sharded "
-            f"planes for n={n} over {mesh.size} devices; the column-sharded "
-            "arms (_ColShardedStream, _col_compact_pass) are the next item "
-            "of ROADMAP.md queue 1 and not ported yet; pass "
-            "shard_planes=False for the row-sharded mesh")
-
-
 def _mesh_devices(mesh):
     """The row shards' devices, device d = mesh entry d. The scale tier's
     mesh is one process's: every device must be this process's."""
@@ -412,6 +425,223 @@ def _fold_knn_rows(ki, kd, off, c, top_i, top_d):
     kd[off:off + c, 0], kd[off:off + c, 1] = top_d[:c], top_d[c:].flip(0)
 
 
+class _ColShardedStream:
+    """Column-sharded streaming passes (the reference's _ColShardedStream,
+    poppunk_tpu/scale.py:894): device d owns genome (column) block
+    [d * n_loc, (d + 1) * n_loc) of the PLANES, a contiguous [K, P, n_loc,
+    Wp] tensor on its device — on a virtual mesh separate tensors too, so
+    the memory they take is what it would be over several cards. The
+    planes are the one tensor whose replicated residency caps the
+    row-sharded mesh (streaming_hbm_accounting). Every device walks ALL
+    folded chunks and computes its column slice of each chunk's tile:
+
+      - the chunk's 2c rows (genomes s..s+c-1 and n-s-c..n-s-1) are
+        assembled from the shards that own them, each piece copied to each
+        distinct device (_rows; the reference's masked gather + psum —
+        integers, so exact);
+      - the tile d [2c, n_loc, 2] is kernel 1's plane-major route against
+        the device's shard plus _fold_block's epilogue (_tile_dists);
+      - its OWNED entries, col > row and col < n_real, are the chunk's
+        condensed pairs (each pair owned exactly once over chunks x
+        devices).
+
+    Pass 1 (stats: column maxima over owned pairs, the predeclared
+    subsample, the fused kNN: each shard's k best (value, global index)
+    merged into the single device's order, ties to the lower index) runs
+    here; every later pass reads the tiles through _stream_pairs, the
+    entries a tile does not own set to NaN. A wave computes one chunk's
+    tile on every shard before any is read back."""
+
+    def __init__(self, devices, planes, lengths, freqs, klist, sketchsize64,
+                 bbits, chunk, n_real):
+        n_dev = len(devices)
+        if isinstance(planes, tuple):  # column shards already placed
+            if len(planes) != n_dev:
+                raise ValueError(f"{len(planes)} column shards for a mesh "
+                                 f"of {n_dev} devices")
+            shards = [p.to(dev) for p, dev in zip(planes, devices)]
+        else:
+            n_loc = planes.shape[2] // n_dev
+            blocks = [planes[:, :, d * n_loc:(d + 1) * n_loc]
+                      for d in range(n_dev)]
+            if isinstance(planes, torch.Tensor):
+                shards = [torch.empty(b.shape, dtype=b.dtype,
+                                      device=dev).copy_(b)
+                          for b, dev in zip(blocks, devices)]
+            else:
+                shards = [planes_to_tensor(b, dev)
+                          for b, dev in zip(blocks, devices)]
+        self.planes = tuple(shards)
+        self.n_loc = self.planes[0].shape[2]
+        self.n = self.n_loc * n_dev
+        self.shape = (*self.planes[0].shape[:2], self.n,
+                      self.planes[0].shape[3])
+        self.c = int(chunk)
+        self.n_real = int(n_real)
+        self.klist = tuple(int(k) for k in klist)
+        self.ss64 = int(sketchsize64)
+        self.bbits = int(bbits)
+        self.pad_bits = int(plane_geometry(sketchsize64, bbits)[2])
+        lengths = torch.as_tensor(lengths)
+        freqs = torch.as_tensor(freqs, dtype=torch.float32)
+        # per device: its first column, the whole lengths / freqs (the
+        # chunk rows' come from them) and its columns'
+        self._ops = []
+        for d, p in enumerate(self.planes):
+            col0 = d * self.n_loc
+            ln, fr = lengths.to(p.device), freqs.to(p.device)
+            self._ops.append((col0, ln, fr, ln[col0:col0 + self.n_loc],
+                              fr[col0:col0 + self.n_loc]))
+
+    def _rows(self, ranges, device):
+        """The planes of genome ranges [(start, stop), ...] concatenated in
+        order, [K, P, m, Wp] on ``device``: each range split at the shard
+        boundaries, each piece sliced from its owner and copied there."""
+        pieces = []
+        for start, stop in ranges:
+            while start < stop:
+                e = start // self.n_loc
+                end = min(stop, (e + 1) * self.n_loc)
+                col0 = e * self.n_loc
+                pieces.append(self.planes[e][:, :, start - col0:end - col0]
+                              .to(device))
+                start = end
+        return torch.cat(pieces, dim=2)
+
+    def k_rows(self, k, ids):
+        """Plane k of genomes ``ids`` (an int64 tensor), [P, m, Wp] on
+        ids' device: index_select on each owning shard, placed by
+        position."""
+        owner = ids // self.n_loc
+        out = torch.empty((self.shape[1], ids.shape[0], self.shape[3]),
+                          dtype=self.planes[0].dtype, device=ids.device)
+        for e, shard in enumerate(self.planes):
+            sel = torch.nonzero(owner == e).squeeze(1)
+            if sel.shape[0]:
+                loc = (ids[sel] - e * self.n_loc).to(shard.device)
+                out.index_copy_(1, sel, shard[k].index_select(1, loc)
+                                .to(ids.device))
+        return out
+
+    def waves(self):
+        """(s, [(d, tile, row ids, column ids) for every shard d]) for
+        every folded chunk s: the tile f32 [2c, n_loc, 2], the ids int64
+        tensors on the shard's device."""
+        n, c = self.n, self.c
+        for s in range(0, n // 2, c):
+            ranges = [(s, s + c), (n - s - c, n - s)]
+            queries = {}
+            wave = []
+            for d, shard in enumerate(self.planes):
+                dev = shard.device
+                col0, ln, fr, l_loc, f_loc = self._ops[d]
+                if dev not in queries:
+                    r = torch.cat([torch.arange(a, b, device=dev)
+                                   for a, b in ranges])
+                    queries[dev] = (self._rows(ranges, dev), ln[r], fr[r], r)
+                pq, lq, fq, r = queries[dev]
+                tile = _tile_dists(pq, shard, lq, l_loc, fq, f_loc,
+                                   self.klist, self.ss64, self.bbits,
+                                   self.pad_bits)
+                wave.append((d, tile, r,
+                             col0 + torch.arange(self.n_loc, device=dev)))
+            del queries
+            yield s, wave
+
+    def _owned(self, rows, cols):
+        return ((cols[None, :] > rows[:, None])
+                & (cols < self.n_real)[None, :])
+
+    def pairs(self):
+        """(d, s, flat) for every shard d of every chunk s: the tile's
+        [2c * n_loc, 2] distances, NaN where the tile does not own the
+        entry — a NaN pair fails every pass's rule (it compares false, is
+        not finite and counts at no offset), as the reference's explicit
+        owned mask does."""
+        for s, wave in self.waves():
+            for d, tile, rows, cols in wave:
+                flat = tile.masked_fill(~self._owned(rows, cols)[..., None],
+                                        float("nan"))
+                yield d, s, flat.reshape(-1, 2)
+
+    def tile_pairs(self, pos, s, d):
+        """Global (i, j), i < j, of flat positions ``pos`` (int64 tensor)
+        in device d's tile of the chunk from row s: tile row a is genome
+        s + a for a < c, n - s - c + (a - c) after (the reference's
+        _col_decode)."""
+        a, lcol = pos // self.n_loc, pos % self.n_loc
+        c = self.c
+        return (torch.where(a < c, s + a, self.n - s - c + (a - c)),
+                d * self.n_loc + lcol)
+
+    def pass1(self, knn, dist_col, device, sub_flat=None):
+        """Pass 1 over the column shards: (knn_col, knn_dist) host [n, k]
+        in the single device's order, the column maxima over owned pairs,
+        and the values of the predeclared subsample's folded-flat
+        positions ``sub_flat`` (ascending), each gathered by the shard
+        that owns its column. The kNN lives on ``device``."""
+        n, c, n_loc = self.n, self.c, self.n_loc
+        ki = torch.zeros((n, knn), dtype=torch.int64, device=device)
+        kd = torch.zeros((n, knn), dtype=torch.float32, device=device)
+        cmax = [torch.full((2,), float("-inf"), device=p.device)
+                for p in self.planes]
+        sub = None
+        if sub_flat is not None:
+            # each sampled position decoded once on the host to (chunk,
+            # tile row, global column); its owner gathers it in the walk
+            g, loc = np.divmod(sub_flat, c * (n - 1))
+            r, q = np.divmod(loc, n - 1)
+            first = q < n - 1 - (g * c + r)
+            a_row = np.where(first, r, 2 * c - 1 - r)
+            col = np.where(first, q + g * c + r + 1, q + 1)
+            sub = []
+            for d, p in enumerate(self.planes):
+                mine = np.nonzero(col // n_loc == d)[0]
+                sub.append((mine, np.searchsorted(
+                    g[mine], np.arange(n // 2 // c + 1)),
+                    torch.as_tensor(a_row[mine], device=p.device),
+                    torch.as_tensor(col[mine] - d * n_loc, device=p.device),
+                    []))
+        k_loc = min(knn, n_loc)
+        for s, wave in self.waves():
+            cand_i, cand_d = [], []
+            for d, tile, rows, cols in wave:
+                owned = self._owned(rows, cols)[..., None]
+                finite = tile.masked_fill(~owned | torch.isinf(tile),
+                                          float("-inf"))
+                cmax[d] = torch.maximum(cmax[d], finite.amax(dim=(0, 1)))
+                del finite
+                if sub is not None:
+                    _, bounds, a_d, l_d, got = sub[d]
+                    b0, b1 = bounds[s // c], bounds[s // c + 1]
+                    if b1 > b0:
+                        got.append(tile[a_d[b0:b1], l_d[b0:b1]])
+                if knn:
+                    bad = ((cols[None, :] == rows[:, None])
+                           | (cols >= self.n_real)[None, :])
+                    li, ld = _seq_topk(
+                        tile[..., dist_col].masked_fill(bad, float("inf")),
+                        k_loc)
+                    cand_i.append((li + cols[0]).to(device))
+                    cand_d.append(ld.to(device))
+            if knn:
+                top_i, top_d = _seq_topk(torch.cat(cand_d, dim=1), knn,
+                                         ids=torch.cat(cand_i, dim=1))
+                for half, (lo, hi) in enumerate(((s, s + c),
+                                                 (n - s - c, n - s))):
+                    ki[lo:hi] = top_i[half * c:(half + 1) * c]
+                    kd[lo:hi] = top_d[half * c:(half + 1) * c]
+        sub_vals = None
+        if sub is not None:
+            sub_vals = np.empty((len(sub_flat), 2), np.float32)
+            for mine, _, _, _, got in sub:
+                if got:
+                    sub_vals[mine] = torch.cat([v.cpu() for v in got]).numpy()
+        return (ki.cpu().numpy(), kd.cpu().numpy(),
+                torch.stack([m.cpu() for m in cmax]).amax(dim=0).numpy(),
+                sub_vals)
+
+
 class StreamingCondensed:
     """The condensed distances of a population, never stored.
 
@@ -427,8 +657,11 @@ class StreamingCondensed:
     (None: ``_device.resolve``'s choice), or on the tensor's device; with
     ``mesh`` (parallel.mesh.Mesh) the folded rows are row-sharded over the
     mesh's devices and the planes replicated on each, and ``device`` is
-    the mesh's first. shard_planes asks for the column-sharded arms
-    ("auto": the reference's rule), which are not ported and raise.
+    the mesh's first. shard_planes (True, or "auto": the reference's rule,
+    _resolve_shard_planes) takes the column-sharded arms instead
+    (_ColShardedStream): the planes split over the genome axis, ``planes``
+    then the tuple of the column shards; a tuple of column shards (another
+    column-sharded cd's ``planes``) is taken as it is.
     """
 
     buf = None
@@ -436,16 +669,32 @@ class StreamingCondensed:
     def __init__(self, planes, lengths, freqs, klist, sketchsize64, bbits,
                  chunk=256, knn=5, dist_col=0, subsample=None, n_real=None,
                  defer=False, device=None, mesh=None, shard_planes=False):
-        n = planes.shape[2]  # PADDED count (even); see n_real
+        col = isinstance(planes, tuple)
+        # PADDED count (even); see n_real
+        n = sum(p.shape[2] for p in planes) if col else planes.shape[2]
         if n_real is None:
             n_real = n
         if not n_real <= n:
             raise ValueError(f"n_real ({n_real}) must be <= n ({n})")
         half = fold_rows(n)
-        _refuse_column_sharding(shard_planes, mesh, n, klist, sketchsize64,
-                                bbits, chunk, knn)
         self._mesh = mesh
-        if mesh is not None:
+        self._col = col or (mesh is not None and _resolve_shard_planes(
+            shard_planes, mesh, n, klist, sketchsize64, bbits, chunk, knn))
+        if self._col:
+            if mesh is None:
+                raise ValueError("column shards need the mesh they lie on")
+            devices = _mesh_devices(mesh)
+            n_dev = len(devices)
+            if n % n_dev:
+                raise ValueError(f"n ({n}) must be a multiple of the "
+                                 f"device count ({n_dev})")
+            # every device walks all folded rows
+            chunk = min(chunk, half)
+            if half % chunk:
+                raise ValueError(
+                    f"n//2 ({half}) must be a multiple of chunk ({chunk})")
+            device = devices[0]
+        elif mesh is not None:
             devices = _mesh_devices(mesh)
             n_dev = len(devices)
             if half % n_dev:
@@ -463,8 +712,15 @@ class StreamingCondensed:
                 raise ValueError(
                     f"n//2 ({half}) must be a multiple of chunk ({chunk})")
             self._half_loc = half
-        if isinstance(planes, torch.Tensor):
+        if self._col:
             # resolve keeps float32 products in full precision on a card
+            self.device = _device.resolve(device)
+            self._cs = _ColShardedStream(devices, planes, lengths, freqs,
+                                         klist, sketchsize64, bbits, chunk,
+                                         n_real)
+            self.planes = self._cs.planes
+            self._n_dev = n_dev
+        elif isinstance(planes, torch.Tensor):
             self.device = _device.resolve(planes.device if device is None
                                           else device)
             self.planes = planes.to(self.device)
@@ -474,14 +730,15 @@ class StreamingCondensed:
         self.lengths = torch.as_tensor(lengths, device=self.device)
         self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                      device=self.device)
-        # (first folded row, planes, lengths, freqs) per row shard; the
-        # operands are replicated with .to, one copy per distinct device
-        self._shards = [
-            (d * self._half_loc, self.planes.to(dev), self.lengths.to(dev),
-             self.freqs.to(dev))
-            for d, dev in enumerate(devices if mesh is not None
-                                    else [self.device])]
-        self._n_dev = len(self._shards)
+        if not self._col:
+            # (first folded row, planes, lengths, freqs) per row shard; the
+            # operands are replicated with .to, one copy per distinct device
+            self._shards = [
+                (d * self._half_loc, self.planes.to(dev),
+                 self.lengths.to(dev), self.freqs.to(dev))
+                for d, dev in enumerate(devices if mesh is not None
+                                        else [self.device])]
+            self._n_dev = len(self._shards)
         self.n = int(n_real)
         self._n_pad = n
         self._n_real = int(n_real)
@@ -490,7 +747,7 @@ class StreamingCondensed:
         self._klist = tuple(int(k) for k in klist)
         self._ss64 = int(sketchsize64)
         self._bbits = int(bbits)
-        self._pad_bits = int(plane_geometry(sketchsize64, bbits)[2])
+        self._w32, _, self._pad_bits = plane_geometry(sketchsize64, bbits)
         self._knn_k = int(min(knn, n_real - 1))
         self._dist_col = int(dist_col)
         self._prefill = None
@@ -550,10 +807,18 @@ class StreamingCondensed:
         stats body of its _ShardedStream: per-shard kNN in the folded
         layout and column maxima, max-combined on the host), optionally
         with the boundary-band edge fill (_stream_stats_fill_range; one
-        device). Each wave enqueues one step per shard before the next."""
+        device). Each wave enqueues one step per shard before the next. On
+        column shards, _ColShardedStream.pass1."""
         n = self._n_pad
         c = self.chunk
         knn = self._knn_k
+        if self._col:
+            ki, kd, self._cmax, self._sub_vals = self._cs.pass1(
+                knn, self._dist_col, self.device,
+                None if self._sub_spec is None else self._sub_flat)
+            self.knn_col = ki[:self._n_real]
+            self.knn_dist = kd[:self._n_real]
+            return
         nr = self._n_real if self._n_real < n else None
         fill = None
         if fill_spec is not None:
@@ -595,7 +860,7 @@ class StreamingCondensed:
                     _fold_knn_rows(ki, kd, off, c, top_i, top_d)
                 flat = folded.reshape(-1, 2)
                 if fill is not None:
-                    fill.add(geom.d0(flat), s)
+                    fill.add(geom.d0(flat), lambda pos: _fold_pairs(pos, s, n))
                 if self._sub_spec is not None:
                     g = s // c  # the global chunk
                     b0, b1 = self._sub_bounds[g], self._sub_bounds[g + 1]
@@ -635,6 +900,14 @@ class StreamingCondensed:
         """Column maxima over every pair (accumulated in pass 1)."""
         return self._cmax
 
+    def _pair_rows(self, k, ids):
+        """Plane k's useful words of genomes ``ids`` (int64 on
+        self.device), [P, m, w32]: gathered from the column shards that
+        own them, or sliced from the resident planes."""
+        if self._col:
+            return self._cs.k_rows(k, ids)[:, :, :self._w32]
+        return self.planes[k, :, :, :self._w32][:, ids]
+
     def subsample_pairs(self, size, seed=42, block=8192):
         """The reference's draw. If the (size, seed) spec was declared at
         construction the values were gathered during pass 1; otherwise the
@@ -658,10 +931,10 @@ class StreamingCondensed:
         else:
             i, j = fold_inverse(pos, self.n)
         out = [_pair_block_dists(
-            self.planes, self.lengths, self.freqs,
+            self._pair_rows, self.lengths, self.freqs,
             torch.as_tensor(i[s:s + block], device=self.device),
             torch.as_tensor(j[s:s + block], device=self.device),
-            self._klist, self._ss64, self._bbits, self._pad_bits).cpu()
+            self._klist, self._ss64, self._bbits).cpu()
             for s in range(0, len(pos), block)]
         if not out:
             return np.zeros((0, 2), np.float32)
@@ -705,6 +978,8 @@ class CondensedDevice:
     n_pairs, device, the padded width) with a buffer in place of the
     planes, so every sweep slices the buffer instead of recomputing
     distances; its readers walk the shards in row order."""
+
+    _col = False  # no column shards: the buffer is always folded rows
 
     def __init__(self, buf, n, knn_row, knn_col, knn_dist):
         self.buf = buf
@@ -938,22 +1213,28 @@ class _SweepGeometry:
 
 
 def _stream_pairs(cd):
-    """(s, the folded chunk from row s as flat [rows * (n - 1), 2]
-    distances) for every chunk: the recompute shared by every pass after
-    pass 1 (the reference's sweep, 2-D, QC and boundary groups). A
-    buffered cd slices _BUF_ROWS folded rows of its buffer at a time
-    instead.
+    """(d, s, the folded chunk from row s as flat [rows * (n - 1), 2]
+    distances) for every chunk, d its shard: the recompute shared by every
+    pass after pass 1 (the reference's sweep, 2-D, QC and boundary
+    groups). A buffered cd slices _BUF_ROWS folded rows of its buffer at a
+    time instead. On a column-sharded cd each part is device d's tile of
+    the chunk from row s, [2c * n_loc, 2], NaN where the tile does not own
+    the pair (_ColShardedStream.pairs); _chunk_pairs decodes positions in
+    either layout.
 
-    On a row-sharded cd the shards are walked in waves: step k of every
-    shard is enqueued (each on its device) before any of them is yielded,
-    then they are yielded in shard order, each on its shard's device. So
-    s ascends within a shard but not across a wave: a consumer that keeps
-    an order puts its parts back in row order (_in_row_order)."""
+    On a sharded cd the shards are walked in waves: step k of every shard
+    is enqueued (each on its device) before any of them is yielded, then
+    they are yielded in shard order, each on its shard's device. So the
+    parts do not come in (d, s) order: a consumer that keeps an order puts
+    them back in it (_host_parts)."""
     if cd.buf is not None:
         shards = cd.shards()
         for off in range(0, shards[0][1].shape[0], _BUF_ROWS):
-            for row0, buf in shards:
-                yield row0 + off, buf[off:off + _BUF_ROWS].reshape(-1, 2)
+            for d, (row0, buf) in enumerate(shards):
+                yield d, row0 + off, buf[off:off + _BUF_ROWS].reshape(-1, 2)
+        return
+    if cd._col:
+        yield from cd._cs.pairs()
         return
     n_pad = cd._n_pad
     nr = cd._n_real if cd._n_real < n_pad else None
@@ -962,21 +1243,35 @@ def _stream_pairs(cd):
             planes, lengths, freqs, row0 + off, cd.chunk, cd._klist,
             cd._ss64, cd._bbits, cd._pad_bits, 0, 0, nr)[0])
             for row0, planes, lengths, freqs in cd._shards]
-        for s, folded in wave:
-            yield s, folded.reshape(-1, 2)
+        for d, (s, folded) in enumerate(wave):
+            yield d, s, folded.reshape(-1, 2)
         del wave
 
 
-def _in_row_order(parts):
-    """Parts keyed by their chunk's first row -> the parts in ascending
-    row order (every part's positions lie in its chunk's own range)."""
-    return [p for _, p in sorted(parts, key=lambda kp: kp[0])]
+def _chunk_pairs(cd, d, s, pos):
+    """Global (i, j), i < j, int64 tensors, of the flat positions ``pos``
+    in the part _stream_pairs yielded as (d, s)."""
+    if cd._col:
+        return cd._cs.tile_pairs(pos, s, d)
+    return _fold_pairs(pos, s, cd._n_pad)
+
+
+def _host_parts(parts, dtypes):
+    """Host parts (tuples of arrays) keyed (d, s), concatenated in
+    ascending (shard, row) order: global row order on one device or row
+    shards, device-major then chunk on column shards (the order of the
+    reference's column fetches); empty arrays of ``dtypes`` when there are
+    none."""
+    if not parts:
+        return tuple(np.zeros(0, dt) for dt in dtypes)
+    ordered = [p for _, p in sorted(parts, key=lambda kp: kp[0])]
+    return tuple(np.concatenate(a) for a in zip(*ordered))
 
 
 def _stream_d0(cd, geom):
-    """(s, d0 of the folded chunk from row s) for every chunk."""
-    for s, flat in _stream_pairs(cd):
-        yield s, geom.d0(flat)
+    """(d, s, d0 of the part _stream_pairs yields as (d, s))."""
+    for d, s, flat in _stream_pairs(cd):
+        yield d, s, geom.d0(flat)
 
 
 def sweep_counts_streaming(cd, scale, offsets, slope, x0, y0, x1, y1):
@@ -996,10 +1291,8 @@ def sweep_counts_mesh(cd, scale, offsets, slope, x0, y0, x1, y1):
     own device; nothing is read back until the walk ends. One device: a
     single row."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
-    rows = cd._half_loc
     cums = {}
-    for s, d0 in _stream_d0(cd, geom):
-        d = s // rows
+    for d, _, d0 in _stream_d0(cd, geom):
         t = geom.t_at(d0.device)
         if d not in cums:
             cums[d] = torch.zeros(t.shape[0], dtype=torch.int64,
@@ -1018,44 +1311,22 @@ def sweep_first_offsets(cd, scale, offsets, slope, x0, y0, x1, y1,
     offset is below _n_act (default: the whole grid) — the native sparse
     scorer's input, plus each pair's d0 for re-thresholding at any offset
     (the local step). Fetches O(E), in folded order (on a row-sharded cd,
-    the shards' parts back in global row order)."""
+    the shards' parts back in global row order; on column shards grouped
+    by device, then chunk). int32 (i, j, offset): each chunk's pairs are
+    decoded on its device, so only int32 crosses to the host."""
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
-    n_pad = cd._n_pad
     n_act = geom.t.shape[0] if _n_act is None else int(_n_act)
     parts = []
-    for s, d0 in _stream_d0(cd, geom):
+    for d, s, d0 in _stream_d0(cd, geom):
         idx = _first_offsets(d0, geom.t_at(d0.device))
         pos = torch.nonzero(idx < n_act).squeeze(1)
         if pos.shape[0] == 0:
             continue
-        parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
-                          idx[pos].cpu().numpy().astype(np.int32),
-                          d0[pos].cpu().numpy())))
-    parts = _in_row_order(parts)
-    return _finalise_sweep([p[0] for p in parts], [p[1] for p in parts],
-                           [p[2] for p in parts], n_pad)
-
-
-def _finalise_sweep(pos_out, idx_out, d0_out, n):
-    """Folded flat positions -> (i, j, first_offset, d0) host arrays.
-
-    int32 outputs: n < 2^31 always, the native scorer consumes int32,
-    and at E ~ 1e7+ the fetch/RSS halves. Decode PER PART, consuming
-    each int64 position buffer as it goes: a whole-fetch decode holds
-    pos + i + j in int64 at once — ~2 GB of transient peak-RSS at the
-    40M-pair fetch cap, vs one dispatch's worth here."""
-    if not pos_out:
-        z = np.zeros(0, np.int32)
-        return z, z, z, np.zeros(0, np.float32)
-    i_parts, j_parts = [], []
-    while pos_out:
-        pos = pos_out.pop(0)
-        i, j = fold_inverse(pos, n)
-        i_parts.append(i.astype(np.int32))
-        j_parts.append(j.astype(np.int32))
-    return (np.concatenate(i_parts), np.concatenate(j_parts),
-            np.concatenate(idx_out).astype(np.int32),
-            np.concatenate(d0_out))
+        i, j = _chunk_pairs(cd, d, s, pos)
+        parts.append(((d, s), tuple(
+            x.cpu().numpy() for x in (i.to(torch.int32), j.to(torch.int32),
+                                      idx[pos].to(torch.int32), d0[pos]))))
+    return _host_parts(parts, (np.int32, np.int32, np.int32, np.float32))
 
 
 def offset_threshold(s_value, offsets, slope, x0, y0, x1, y1):
@@ -1085,8 +1356,8 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
                                 n_act, e_total, e_per_dev)
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     fill = _BandFill(cd._n_pad, geom.t, int(n_act), e_total, cd.device)
-    for s, d0 in _stream_d0(cd, geom):
-        fill.add(d0, s)
+    for d, s, d0 in _stream_d0(cd, geom):
+        fill.add(d0, lambda pos: _chunk_pairs(cd, d, s, pos))
     if fill.acc > fill.cap:
         raise SweepFillOverflow(
             f"sweep fill overflow: {fill.acc} pairs > buffer "
@@ -1097,11 +1368,12 @@ def sweep_fill_device(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
 
 def _sweep_fill_mesh(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
                      e_total, e_per_dev=None):
-    """Mesh arm of sweep_fill_device (row-sharded): each shard appends its
-    own pairs, decoded to global (i, j), into its own edge buffers on its
-    device; the shards' edges are then concatenated on the mesh's first
-    device in shard order = ascending global rows, the single-device
-    fill's order, and scored there.
+    """Mesh arm of sweep_fill_device: each shard appends its own pairs
+    (its rows, or on column shards its owned pairs), decoded to global
+    (i, j) on its device, into its own edge buffers there; the shards'
+    edges are then concatenated on the mesh's first device in shard order
+    (for row shards ascending global rows, the single-device fill's
+    order) and scored there.
 
     e_per_dev: exact per-shard pair counts (from sweep_counts_mesh) when
     available, which size each shard tight. Otherwise each shard takes
@@ -1113,7 +1385,6 @@ def _sweep_fill_mesh(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
 
     n_dev = cd._n_dev
     n_pad = cd._n_pad
-    rows = cd._half_loc
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     if e_per_dev is not None:
         cap = sparse_sweep.band_slots(int(np.max(e_per_dev)))
@@ -1121,12 +1392,11 @@ def _sweep_fill_mesh(cd, scale, offsets, slope, x0, y0, x1, y1, n_act,
         est = max(int(e_total), 1)
         cap = sparse_sweep.band_slots(min(est, 2 * est // n_dev + 1))
     fills = {}
-    for s, d0 in _stream_d0(cd, geom):
-        d = s // rows
+    for d, s, d0 in _stream_d0(cd, geom):
         if d not in fills:
             fills[d] = _BandFill(n_pad, geom.t_at(d0.device), int(n_act),
                                  e_total, d0.device, cap=cap)
-        fills[d].add(d0, s)
+        fills[d].add(d0, lambda pos: _chunk_pairs(cd, d, s, pos))
     fills = [fills[d] for d in sorted(fills)]
     acc = np.array([f.acc for f in fills], np.int64)
     if np.any(acc > cap):
@@ -1229,7 +1499,7 @@ def build_d0_square(cd, scale, slope, x0, y0, x1, y1, offsets):
     geom = _SweepGeometry(cd, scale, offsets, slope, (x0, y0, x1, y1))
     n = cd.n
     d0_flat = torch.empty(cd.n_pairs, dtype=torch.float32, device=cd.device)
-    for s, flat in _stream_pairs(cd):
+    for _, s, flat in _stream_pairs(cd):
         d0_flat[s * (n - 1):s * (n - 1) + flat.shape[0]] = geom.d0(flat)
     sq = torch.empty((n, n), dtype=torch.float32, device=cd.device)
     for s in range(0, n, _SQUARE_ROWS):
@@ -1312,11 +1582,12 @@ def components_device(d0_sq, threshold):
 
 def _resident_bytes(cd):
     """Bytes a cd holds on its device (the mesh's first, where the sweep's
-    edge list lives and is scored): its planes, and its buffer or the
-    buffer shards on that device, each storage once. This is the
-    device-count term of the reference's accounting: a shard on another
-    card holds nothing here, a virtual mesh's shards all do."""
-    tensors = [getattr(cd, "planes", None)]
+    edge list lives and is scored): its planes (the column shards on that
+    device), and its buffer or the buffer shards there, each storage once.
+    This is the device-count term of the reference's accounting: a shard
+    on another card holds nothing here, a virtual mesh's shards all do."""
+    planes = getattr(cd, "planes", None)
+    tensors = list(planes) if isinstance(planes, tuple) else [planes]
     if cd.buf is not None:
         tensors += [b for _, b in cd.shards()]
     seen, total = set(), 0
@@ -1816,13 +2087,13 @@ def sweep2d_counts_streaming(cd, scale, x_grid, y_grid):
     [len(y_grid), len(x_grid)]. Every cell is compared with _inside_2d
     (the first-x-offset shortcut of refine_fit_device_2d's host step can
     move a grazing pair by one cell); the transient is one grid row,
-    [len(x_grid), c * (n - 1)]. A row-sharded cd counts per shard on its
+    [len(x_grid), c * (n - 1)]. A sharded cd counts per shard on its
     device, summed on the host at the end."""
     on = _OnDevices(xg=np.asarray(x_grid, np.float32)[:, None],
                     yg=np.asarray(y_grid, np.float32),
                     scale=np.asarray(scale, np.float32))
     cums = {}
-    for _, flat in _stream_pairs(cd):
+    for _, _, flat in _stream_pairs(cd):
         g = on.at(flat.device)
         x, y = _scaled(flat, g["scale"])
         cum = cums.get(flat.device)
@@ -1839,16 +2110,14 @@ def sweep2d_fetch_streaming(cd, scale, x_caps, y_grid):
     """(i, j, x_scaled, y_scaled) for pairs inside the union of per-row
     cap boundaries (x_caps[r] = widest scoreable x_max of row r, <= 0
     disables the row) — the O(E) host working set of the 2-D sweep, in
-    folded order (a row-sharded cd's parts back in global row order), i
-    and j int32."""
+    sweep_first_offsets' order, i and j int32."""
     rows = [r for r, xm in enumerate(np.asarray(x_caps, np.float32))
             if xm > 0]
     on = _OnDevices(xc=np.asarray(x_caps, np.float32),
                     yg=np.asarray(y_grid, np.float32),
                     scale=np.asarray(scale, np.float32))
-    n_pad = cd._n_pad
     parts = []
-    for s, flat in _stream_pairs(cd):
+    for d, s, flat in _stream_pairs(cd):
         g = on.at(flat.device)
         x, y = _scaled(flat, g["scale"])
         inside = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -1857,14 +2126,11 @@ def sweep2d_fetch_streaming(cd, scale, x_caps, y_grid):
         pos = torch.nonzero(inside).squeeze(1)
         if pos.shape[0] == 0:
             continue
-        parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
-                          x[pos].cpu().numpy(), y[pos].cpu().numpy())))
-    if not parts:
-        z = np.zeros(0, np.int32)
-        return z, z, np.zeros(0, np.float32), np.zeros(0, np.float32)
-    pos, xs, ys = (np.concatenate(a) for a in zip(*_in_row_order(parts)))
-    i, j = fold_inverse(pos, n_pad)
-    return i.astype(np.int32), j.astype(np.int32), xs, ys
+        i, j = _chunk_pairs(cd, d, s, pos)
+        parts.append(((d, s), tuple(
+            v.cpu().numpy() for v in (i.to(torch.int32), j.to(torch.int32),
+                                      x[pos], y[pos]))))
+    return _host_parts(parts, (np.int32, np.int32, np.float32, np.float32))
 
 
 def refine_fit_device_2d(cd, scale, mean0, mean1, max_move=0.9,
@@ -2022,8 +2288,8 @@ def _operands(planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
               n_real, device, mesh=None, shard_planes=False):
     """A StreamingCondensed whose pass 1 never runs: the operands on the
     device (numpy planes moved there; a resident tensor taken as it is,
-    never copied) and the chunk geometry, for _stream_pairs; row-sharded
-    over ``mesh`` when given (column-sharding raises)."""
+    never copied) and the chunk geometry, for _stream_pairs; sharded over
+    ``mesh`` when given, by rows or, as shard_planes resolves, columns."""
     return StreamingCondensed(planes, lengths, freqs, klist, sketchsize64,
                               bbits, chunk=chunk, knn=0, n_real=n_real,
                               defer=True, device=device, mesh=mesh,
@@ -2031,29 +2297,48 @@ def _operands(planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
 
 
 def _mesh_compact_pass(cd, pass_fn, max_fetch, what):
-    """Flat folded positions where ``pass_fn(flat)`` (a [m] bool or uint8
-    flag tensor per chunk) is non-zero, with the flags there, in folded
-    order; raises RuntimeError once more than ``max_fetch`` are found.
-    A row-sharded cd compacts each shard's chunks on its device, each
-    wave enqueued before it is read back; the positions, offset by each
-    chunk's global first row (d * half_loc + off) * (n - 1), come back in
-    ascending global row order. One device is a one-shard mesh."""
-    n_pad = cd._n_pad
+    """(i, j, flags) of the pairs where ``pass_fn(flat)`` (a [m] bool or
+    uint8 flag tensor per part of _stream_pairs) is non-zero, i < j int64,
+    with the flags there; raises RuntimeError once more than ``max_fetch``
+    are found. Each part is compacted and decoded on its device, each
+    wave enqueued before it is read back, and the parts come back in
+    shard order (_host_parts): folded order on one device or row
+    shards, grouped by owning device, then chunk, on column shards."""
     parts = []
     total = 0
-    for s, flat in _stream_pairs(cd):
+    for d, s, flat in _stream_pairs(cd):
         flags = pass_fn(flat)
         pos = torch.nonzero(flags).squeeze(1)
         total += pos.shape[0]
         if total > max_fetch:
             raise RuntimeError(f"more than {max_fetch} pairs {what}")
         if pos.shape[0]:
-            parts.append((s, (pos.cpu().numpy() + s * (n_pad - 1),
-                              flags[pos].cpu().numpy())))
-    if not parts:
-        return np.zeros(0, np.int64), np.zeros(0, np.uint8)
-    pos, flags = zip(*_in_row_order(parts))
-    return np.concatenate(pos), np.concatenate(flags)
+            i, j = _chunk_pairs(cd, d, s, pos)
+            parts.append(((d, s), (i.cpu().numpy(), j.cpu().numpy(),
+                                   flags[pos].cpu().numpy())))
+    return _host_parts(parts, (np.int64, np.int64, np.uint8))
+
+
+def _compact_pass(ops, device, mesh, shard_planes, pass_fn, max_fetch,
+                  what):
+    """qc_bad_pairs_streaming's and fetch_within_boundary's compaction
+    over ``ops`` = (planes, lengths, freqs, klist, sketchsize64, bbits,
+    chunk, n_real): on ``device`` or the mesh's row shards, or, where
+    shard_planes resolves to it on ``mesh``, split over the genome axis
+    of the planes (the reference's _col_compact_pass,
+    poppunk_tpu/scale.py:3596) with its own chunk rule there (c halved
+    until it divides n // 2)."""
+    planes, lengths, freqs, klist, ss64, bbits, chunk, n_real = ops
+    col = mesh is not None and _resolve_shard_planes(
+        shard_planes, mesh, planes.shape[2], klist, ss64, bbits, chunk, 1)
+    if col:
+        half = fold_rows(planes.shape[2])
+        chunk = max(1, min(chunk, half))
+        while half % chunk:
+            chunk //= 2
+    cd = _operands(planes, lengths, freqs, klist, ss64, bbits, chunk,
+                   n_real, device, mesh=mesh, shard_planes=col)
+    return _mesh_compact_pass(cd, pass_fn, max_fetch, what)
 
 
 def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
@@ -2072,10 +2357,8 @@ def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
     pairs: clonal populations hold O(n_pairs) of them. planes: numpy, or
     an int32 tensor already on its device (``device`` None:
     ``_device.resolve``'s choice). With ``mesh``, rows shard over its
-    devices (_mesh_compact_pass); shard_planes asks for the column-sharded
-    arms, which are not ported and raise."""
-    cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
-                   chunk, n_real, device, mesh, shard_planes)
+    devices (_mesh_compact_pass), or where shard_planes resolves to it the
+    genome axis of the planes (_compact_pass)."""
     on = _OnDevices(max_pi=np.float32(max_pi_dist),
                     max_a=np.float32(max_a_dist))
 
@@ -2090,10 +2373,11 @@ def qc_bad_pairs_streaming(planes, lengths, freqs, klist, sketchsize64,
                 torch.uint8)
         return flags
 
-    pos, flags = _mesh_compact_pass(
-        cd, flag, max_fetch, "fail distance QC — the thresholds reject most "
-        "of the population; loosen --max-pi-dist/--max-a-dist")
-    i, j = fold_inverse(pos, cd._n_pad)
+    i, j, flags = _compact_pass(
+        (planes, lengths, freqs, klist, sketchsize64, bbits, chunk, n_real),
+        device, mesh, shard_planes, flag, max_fetch,
+        "fail distance QC — the thresholds reject most of the population; "
+        "loosen --max-pi-dist/--max-a-dist")
     order = np.lexsort((j, i))
     return i[order], j[order], flags[order]
 
@@ -2108,11 +2392,10 @@ def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
     PopPUNK/__main__.py:520-545 via models.py assign). Exactly the
     assign_threshold <= 0 rule on scaled distances: _inside_2d at slope
     2, x - bx <= 0 at slope 0, y - by <= 0 at slope 1. int32, in folded
-    order; raises RuntimeError past ``max_fetch``. planes: numpy, or an
-    int32 tensor already on its device, and ``mesh`` / shard_planes, as
-    qc_bad_pairs_streaming's."""
-    cd = _operands(planes, lengths, freqs, klist, sketchsize64, bbits,
-                   chunk, n_real, device, mesh, shard_planes)
+    order (grouped by owning device on column shards, as the reference's;
+    it does not sort); raises RuntimeError past ``max_fetch``. planes:
+    numpy, or an int32 tensor already on its device, and ``mesh`` /
+    shard_planes, as qc_bad_pairs_streaming's."""
     on = _OnDevices(scale=np.asarray(scale, np.float32),
                     bx=np.float32(bx), by=np.float32(by))
 
@@ -2126,10 +2409,11 @@ def fetch_within_boundary(planes, lengths, freqs, klist, sketchsize64,
             return x - bxd <= 0
         return y - byd <= 0
 
-    pos, _ = _mesh_compact_pass(
-        cd, inside, max_fetch, "fall inside the boundary — the model "
-        "boundary captures most of this population")
-    i, j = fold_inverse(pos, cd._n_pad)
+    i, j, _ = _compact_pass(
+        (planes, lengths, freqs, klist, sketchsize64, bbits, chunk, n_real),
+        device, mesh, shard_planes, inside, max_fetch,
+        "fall inside the boundary — the model boundary captures most of "
+        "this population")
     return i.astype(np.int32), j.astype(np.int32)
 
 
@@ -2291,6 +2575,9 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
                                            else (subsample, seed)),
                                 defer=bootstrap, mesh=mesh_s,
                                 shard_planes="auto")
+        if cd._col:
+            log("dists: column-sharded planes (replicated residency would "
+                "crowd per-device HBM)\n")
         log("dists: streaming (no O(n^2) tensor; buffer would be "
             f"{4.0 * n * n / 2**30:.1f} GiB)\n")
         if bootstrap:

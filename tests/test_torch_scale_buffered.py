@@ -142,7 +142,7 @@ def test_the_fill_is_the_streaming_pass(operands, tcd):
     np.testing.assert_array_equal(sc.knn_col, tcd.knn_col)
     np.testing.assert_array_equal(sc.knn_dist, tcd.knn_dist)
     np.testing.assert_array_equal(sc.max_scale(), tcd.max_scale())
-    flat = torch.cat([f for _, f in tsc._stream_pairs(sc)])
+    flat = torch.cat([f for _, _, f in tsc._stream_pairs(sc)])
     assert torch.equal(flat, tcd.buf.reshape(-1, 2))
 
 

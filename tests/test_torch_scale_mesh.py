@@ -436,32 +436,7 @@ def test_the_sharded_fill_refuses_ragged_shards(pop):
 
 
 # --------------------------------------------------------------------------
-# refusals
-
-
-def test_column_sharding_is_refused(pop, monkeypatch):
-    ops = operands(pop)
-    for call in (
-            lambda sp: tsc.StreamingCondensed(*ops, chunk=CHUNK, knn=5,
-                                              mesh=virtual(),
-                                              shard_planes=sp),
-            lambda sp: tsc.qc_bad_pairs_streaming(*ops, CHUNK, N, 0.05, 0.3,
-                                                  mesh=virtual(),
-                                                  shard_planes=sp),
-            lambda sp: tsc.fetch_within_boundary(*ops, CHUNK, N,
-                                                 np.ones(2), 0.4, 0.5,
-                                                 mesh=virtual(),
-                                                 shard_planes=sp)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call(True)
-        call("auto")  # 64 genomes: the row-sharded mesh
-    # "auto" past 8e9 bytes of replicated planes: column-sharded, refused
-    real = tsc.streaming_hbm_accounting
-    monkeypatch.setattr(tsc, "streaming_hbm_accounting",
-                        lambda *a, **k: dict(real(*a, **k), planes=9e9))
-    with pytest.raises(NotImplementedError, match="column-sharded"):
-        tsc.StreamingCondensed(*ops, chunk=CHUNK, knn=5, mesh=virtual(),
-                               shard_planes="auto")
+# the column-sharding rule
 
 
 @pytest.mark.parametrize("n,n_dev", [(65536, 4), (131072, 8), (200000, 8),

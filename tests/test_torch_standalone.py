@@ -11,7 +11,8 @@
   argument of the visualisation, embedding, tree and web entry points, the
   tools' CLI names and device choice, the scale tier's passes in torch and
   its CLI's devices, the synthetic population's draws in torch, the helper
-  scripts' CLI names).
+  scripts' CLI names, the batched Brandes in torch and pack_components'
+  size order).
 - The port's CLI parsers are copies: on the same argv they give the JAX
   package's namespace (the assign parser adds PopPUNK's --gpu-model).
 - ``ops/distances.pack_planes`` packs what the JAX package's packs, in
@@ -170,7 +171,11 @@ COPIES = {
                   "_unfold_block", "build_d0_square", "matmul_sweep_scores",
                   "components_device", "run_scale_pipeline",
                   "fill_condensed_sharded", "sweep_counts_mesh",
-                  "_sweep_fill_mesh", "_mesh_compact_pass"), None),
+                  "_sweep_fill_mesh", "_mesh_compact_pass",
+                  "_ColShardedStream"), None),
+    "ops/brandes_device.py": (("_INF", "_brandes_batched",
+                               "brandes_batched_device", "pack_components"),
+                              None),
     "synth.py": (("_bernoulli_words", "_keep_probs", "_masked_planes",
                   "SyntheticSketches", "synthetic_population_device"),
                  None),
