@@ -33,7 +33,9 @@ Phases, each printing one JSON line with its seconds:
   G  with KERNEL_CHOICE packed, phase E's population: the packed
      all-vs-all (equal to phase E's bit for bit), refine from phase E's
      BGMM fit with the device sweep, its 40 global scores held to the host
-     native sweep on the same edges, the refine network, and fused
+     native sweep on the same edges (its peak device memory held to two
+     float32 squares, one float64 row block and the edges' indices), the
+     refine network, and fused
      boundary-post assignment of the queries (distances equal phase E's)
   H  with KERNEL_CHOICE standard again, the DBSCAN, lineage and QC CLIs
      on phase D's population and database: --qc-db removing one reference
@@ -113,6 +115,11 @@ Phases, each printing one JSON line with its seconds:
      (column shards; seconds, launches, kernel time,
      peak device memory against streaming_hbm_accounting's column figure,
      256 genomes' kNN against a full-row recompute)
+  Q  the port's bench headline (poppunk_tpu_torch/bench.py: match counts,
+     corrections and k-mer fit at 2048 x 4096 x K 6 against the live g++
+     CPU baseline) in this process, its record printed on a line of its
+     own: the card, ceiling_frac in (0, 1.05], a 64 x 128 corner against
+     the plain counts and epilogue, the baseline's counts bit for bit
   P  the batched device Brandes (ops/brandes_device.py) at bench.py's
      bench_brandes_ab shapes (100 components of 1000 vertices padded to
      1024, degree ~40, 100 sources): exact products held to the native
@@ -120,7 +127,7 @@ Phases, each printing one JSON line with its seconds:
 ``python3 chip_smoke.py --mesh-only`` runs A, B, E, M1's and M2's
 pipelines, N and O1 alone (for a host with several cards: their mesh
 spans them). Then the kernel summary line ({"kernels": [...]}: the
-standard kernel's launches counted over phases D, E, H-O, the packed
+standard kernel's launches counted over phases D, E, H-O and Q, the packed
 kernel's over F, G and N1's packed runs, each phase run with the counts
 set to 0 just before it; N2's are its workers' own counts), the
 nvidia-smi line, and last
@@ -138,12 +145,14 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
-from datetime import datetime
 from types import SimpleNamespace
 
 import numpy as np
+
+from poppunk_tpu_torch.bench import (bound, card_chunk, card_mesh, event_ms,
+                                     random_components, time_cdist,
+                                     timed_at_sm_clock)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -153,15 +162,13 @@ ODD = (15, 5, 4)              # odd ss64: a 4-word chunk straddles two k slots
 BENCH = (156, 14, 6)          # bench.py:30-32
 KLIST = (13, 17, 21, 25, 29)
 DIST_TOL = dict(rtol=1e-5, atol=2e-5)  # tests/test_torch_distances.py
-# the operation bound of the match-count kernels: per (pair, word) P fused
-# XOR-OR logic ops (LOP3), at 64 a clock on each SM (32-bit bitwise ops,
-# compute capability 9.0); HBM3 at 3.35 TB/s for the bytes bound
-LOP3_PER_SM_CLOCK = 64
-HBM_BYTES_PER_S = 3.35e12
 # device against host sweep scores: both take ratios of exact integer
 # counts in float64 (the device's A @ A entries are exact in float32 below
 # 2^24), so they differ by rounding alone
 SWEEP_ATOL = 1e-9
+# the device sweep's peak beyond the buffers it names: the cuBLAS workspace
+# and the caching allocator's rounding (tests/test_torch_sweep_memory.py)
+SWEEP_MARGIN = 64 * 2**20
 # the card's Boruvka MST weights against the CPU's (both float32 torch ops)
 # and against the host Prim oracle in float64 (tests/test_hdbscan_shapes.py)
 BORUVKA_ATOL = 1e-6
@@ -235,109 +242,8 @@ def random_planes(rng, n, geometry):
     return planes
 
 
-def event_ms(torch, fn, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max())
-
-
-def timed_at_sm_clock(torch, fn, reps):
-    """(ms per call of ``fn`` by CUDA events over ``reps`` calls, the median
-    SM clock in MHz over the samples nvidia-smi took inside that window,
-    the number of those samples). nvidia-smi samples every 50 ms and stamps
-    each sample with its wall-clock time; the window opens once the first
-    sample was read (or after 10 s, should nvidia-smi hold its output back
-    until it exits), and samples outside it are dropped."""
-    proc = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm",
-         "--format=csv,noheader,nounits", "-lms", "50"],
-        stdout=subprocess.PIPE, text=True)
-    lines, first = [], threading.Event()
-
-    def read():
-        for line in proc.stdout:
-            lines.append(line)
-            first.set()
-
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
-    try:
-        first.wait(10)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ms = event_ms(torch, fn, reps)
-        t1 = time.time()
-    finally:
-        proc.terminate()
-        proc.wait()
-        reader.join()
-    mhz = []
-    for line in lines:
-        stamp, value = line.rsplit(",", 1)
-        t = datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
-        if t0 <= t.timestamp() <= t1:
-            mhz.append(int(value))
-    if len(mhz) < 3:
-        raise AssertionError(f"{len(mhz)} SM clock samples inside a "
-                             f"{(t1 - t0) * 1e3:.0f} ms window: {lines}")
-    return ms, float(np.median(mhz)), len(mhz)
-
-
-def unpack_signatures(torch, planes, w32, chunk=128):
-    """int32 planes [n, K, P, Wp] -> float32 [K, n, 32 * w32]: bin b's
-    P-bit signature sum_p bit(plane p, b) << p, exact in float32."""
-    n, K, P, _ = planes.shape
-    out = torch.empty((K, n, 32 * w32), dtype=torch.float32,
-                      device=planes.device)
-    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
-    weights = (1 << torch.arange(P, dtype=torch.int32,
-                                 device=planes.device))[:, None, None]
-    for start in range(0, n, chunk):
-        x = planes[start:start + chunk, :, :, :w32]  # [c, K, P, w32]
-        bits = (x[..., None] >> shifts) & 1  # [c, K, P, w32, 32]
-        sig = (bits * weights).sum(dim=2, dtype=torch.int32)  # [c, K, w32, 32]
-        out[:, start:start + chunk] = sig.reshape(
-            x.shape[0], K, 32 * w32).transpose(0, 1).float()
-    return out
-
-
-def bound(torch, nq, nr, K, P, w32, in_bytes, sm_mhz):
-    """(bound_ms, bound_by): the larger of the LOP3 count at the measured
-    SM clock and the bytes (each input once, the int32 output once) at
-    HBM rate."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ops_ms = nq * nr * K * w32 * P / (LOP3_PER_SM_CLOCK * sms
-                                      * sm_mhz * 1e6) * 1e3
-    bytes_ms = (in_bytes + nq * nr * K * 4) / HBM_BYTES_PER_S * 1e3
-    return ((ops_ms, "operations") if ops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
-
-
-def time_cdist(torch, q, r, counts, w32):
-    """torch.cdist(p=0) on the bins' signatures, unpacked once to float32
-    [K, n, 32 * w32]: the number of bins whose signatures differ, so
-    32 * w32 - cdist must equal the kernel's ``counts``. Returns its ms
-    (CUDA events, 2 calls after the checked one)."""
-    x1 = unpack_signatures(torch, q, w32)
-    x2 = unpack_signatures(torch, r, w32)
-    diff = torch.cdist(x1, x2, p=0)
-    if not torch.equal((32 * w32 - diff).to(torch.int32),
-                       counts.permute(2, 0, 1)):
-        raise AssertionError("32 * w32 - cdist(p=0) differs from the "
-                             "kernel's counts")
-    del diff
-    ms = event_ms(torch, lambda: torch.cdist(x1, x2, p=0), 2)
-    del x1, x2
-    return ms
 
 
 def phase_c(torch, device):
@@ -382,7 +288,7 @@ def phase_c(torch, device):
                         "packed_vs_standard_max_abs_err": err_ps})
         if geometry is BENCH:
             w32 = plane_geometry(geometry[0], geometry[1])[0]
-            library_ms = time_cdist(torch, q, r, got, w32)
+            library_ms = time_cdist(q, r, got, w32)
             for name, kernel, plain, args in (
                     ("match_counts", mc.match_counts, mc.match_counts_torch,
                      (q, r, pad_bits)),
@@ -391,12 +297,12 @@ def phase_c(torch, device):
                 kernel(*args)  # warm
                 # ~1 s of calls: some 20 clock samples fall inside
                 ms, sm_mhz, samples = timed_at_sm_clock(
-                    torch, lambda: kernel(*args), 60)
-                plain_ms = event_ms(torch, lambda: plain(*args), 2)
+                    lambda: kernel(*args), 60)
+                plain_ms = event_ms(lambda: plain(*args), 2)
                 in_bytes = sum(t.numel() * 4 for t in (
                     (q, r) if name == "match_counts" else (qp.bits, rp.bits)))
-                bound_ms, bound_by = bound(torch, nq, nr, geometry[2],
-                                           geometry[1], w32, in_bytes, sm_mhz)
+                bound_ms, bound_by = bound(nq, nr, geometry[2], geometry[1],
+                                           w32, in_bytes, sm_mhz)
                 kernels[name].update(
                     shape=[nq, nr, geometry[2]], ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms,
@@ -671,14 +577,15 @@ def phase_e(torch, device, workdir, n_ref=8192, n_query=1024, n_strains=64,
 class RecordSweeps:
     """Record the boundary sweeps models/refine.py runs: (kind, args,
     scores, seconds) per call, kind "device" (ops/device_sweep.py) or
-    "host" (network/incremental.py). The functions are wrapped, not
-    replaced; both return host arrays, so a call's seconds include its
-    device work."""
+    "host" (network/incremental.py), and in ``peaks`` each call's peak
+    device memory net of what was live before it (None on the host or the
+    CPU). The functions are wrapped, not replaced; both return host
+    arrays, so a call's seconds include its device work."""
 
     def __enter__(self):
         from poppunk_tpu_torch.models import refine
 
-        self.module, self.calls = refine, []
+        self.module, self.calls, self.peaks = refine, [], []
         self.saved = {}
         for kind, attr in (("device", "sweep_scores_device"),
                            ("host", "grow_network_scores")):
@@ -687,10 +594,19 @@ class RecordSweeps:
         return self
 
     def _recorder(self, kind, fn):
+        import torch
+
         def record(*args, **kwargs):
+            card = kind == "device" and torch.cuda.is_available()
+            if card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             scores = fn(*args, **kwargs)
             self.calls.append((kind, args, scores, time.perf_counter() - t))
+            self.peaks.append(torch.cuda.max_memory_allocated() - base
+                              if card else None)
             return scores
         return record
 
@@ -702,6 +618,12 @@ class RecordSweeps:
         """The calls that scored a whole offset grid (not the local
         search's one-offset scores)."""
         return [c for c in self.calls if c[1][4] == n_offsets]
+
+    def global_peak(self, n_offsets):
+        """The peak device bytes of the one whole-grid sweep."""
+        (peak,) = [p for c, p in zip(self.calls, self.peaks)
+                   if c[1][4] == n_offsets]
+        return peak
 
 
 def read_dists(prefix):
@@ -807,6 +729,7 @@ def phase_g(torch, device, workdir, e):
     from poppunk_tpu_torch.models import RefineFit
     from poppunk_tpu_torch.network.clusters import print_clusters
     from poppunk_tpu_torch.network.incremental import grow_network_scores
+    from poppunk_tpu_torch.ops import device_sweep
     from poppunk_tpu_torch.ops import match_counts as mc
     from poppunk_tpu_torch.ops.device_sweep import sweep_scores_device
     from poppunk_tpu_torch.ops.distances import (condensed_self_block,
@@ -843,6 +766,14 @@ def phase_g(torch, device, workdir, e):
     (kind, sweep_args, scores, sweep_s), = sweeps.global_sweeps(40)
     if device.type == "cuda" and kind != "device":
         raise AssertionError(f"refine's global sweep ran on the {kind}")
+    # the dense sweep holds A and its product, one float64 row block of
+    # the product while it is summed, and the edges' int64 indices
+    sweep_peak = sweeps.global_peak(40)
+    sweep_named = (2 * 4 * n * n + 8 * device_sweep._SQUARE_ROWS * n
+                   + 16 * len(sweep_args[1]))
+    if sweep_peak is not None and sweep_peak > sweep_named + SWEEP_MARGIN:
+        raise AssertionError(f"the device sweep peaked at {sweep_peak} "
+                             f"bytes against {sweep_named} named")
 
     # the same edges through the other scorer
     n_edges = len(sweep_args[1])
@@ -888,6 +819,8 @@ def phase_g(torch, device, workdir, e):
     emit({"phase": "G", "kernel_choice": mc.KERNEL_CHOICE,
           "references": n, "queries": len(qlist),
           "global_sweep": kind, "global_sweep_s": sweep_s,
+          "global_sweep_peak_bytes": sweep_peak,
+          "global_sweep_named_bytes": sweep_named,
           "local_sweeps": len(sweeps.calls) - 1,
           "local_sweeps_s": sum(c[3] for c in sweeps.calls) - sweep_s,
           "sweep_edges": n_edges,
@@ -1933,17 +1866,17 @@ def phase_l0(torch, device):
             for route, (q, r, pm) in routes.items():
                 mc.match_counts(q, r, pad_bits, plane_major=pm)  # warm
                 ms, sm_mhz, samples = timed_at_sm_clock(
-                    torch, lambda: mc.match_counts(q, r, pad_bits,
-                                                   plane_major=pm), 60)
+                    lambda: mc.match_counts(q, r, pad_bits,
+                                            plane_major=pm), 60)
                 in_bytes = (q.numel() + r.numel()) * 4
-                bound_ms, bound_by = bound(torch, nq, nr, geometry[2],
-                                           geometry[1], w32, in_bytes, sm_mhz)
+                bound_ms, bound_by = bound(nq, nr, geometry[2], geometry[1],
+                                           w32, in_bytes, sm_mhz)
                 timing[route] = dict(ms=ms, sm_clock_mhz=sm_mhz,
                                      sm_clock_samples=samples,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      bound_share=bound_ms / ms)
             timing["plane_major"]["plain_ms"] = event_ms(
-                torch, lambda: mc.match_counts_torch(
+                lambda: mc.match_counts_torch(
                     view, resident, pad_bits, plane_major=True), 1)
             del q_c, r_c
         del resident, view, block
@@ -2072,23 +2005,6 @@ def hold_steps_to_plain(torch, cd):
         raise AssertionError(f"the plane-major route disagrees with the "
                              f"plain version at n {n}, c {c}: {errs}")
     return errs, plain_s
-
-
-def card_chunk(device, n, chunk, n_kmers):
-    """The scale CLI's chunk for n genomes from --chunk ``chunk`` at
-    ``device``'s budget (cli/scale.py's _pad_geometry on one device,
-    the reference's per-step budget scaled by the card's memory); fails
-    if n would pad."""
-    from poppunk_tpu_torch.cli.scale import _pad_geometry
-    from poppunk_tpu_torch.ops.sparse_sweep import (HBM_TOTAL,
-                                                    device_hbm_total)
-
-    c, n_pad, _ = _pad_geometry(
-        n, chunk, 1, False, n_kmers,
-        budget=2.5e9 * device_hbm_total(device) / HBM_TOTAL)
-    if n_pad != n:
-        raise AssertionError(f"{n} genomes pad to {n_pad}")
-    return c
 
 
 def streaming_fit(torch, device, workdir, planes, lengths, freqs, names,
@@ -2793,7 +2709,7 @@ def time_products(torch, d0_sq, t):
         elif not torch.equal(got, want):
             raise AssertionError(f"the {name} product differs")
         del got
-        ms[name] = event_ms(torch, fn, 3)
+        ms[name] = event_ms(fn, 3)
     return ms
 
 
@@ -3103,18 +3019,6 @@ def sync_all(torch):
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
-
-
-def smoke_mesh(torch, device):
-    """A real mesh over every card when there are two or more (n_q 2 when
-    the count is even and above 2, pairwise_block's rule), else a virtual
-    mesh of 4 shards on ``device``, shape (2, 2). Returns (mesh, kind)."""
-    from poppunk_tpu_torch.parallel.mesh import get_mesh
-
-    n = torch.cuda.device_count() if device.type == "cuda" else 0
-    if n >= 2:
-        return get_mesh(n_q=2 if n % 2 == 0 and n > 2 else 1), "real"
-    return get_mesh(devices=[device] * 4, n_q=2), "virtual"
 
 
 def phase_n1(torch, device, e, mesh):
@@ -3648,18 +3552,6 @@ def phase_o2(torch, device, mesh, n=131072, n_strains=128, spot=256):
     return {"O2_pass1": launches}, tile_err
 
 
-def random_components(rng, n_comp, m, deg):
-    """n_comp G(m, deg / m) graphs (each pair an edge with probability
-    deg / m, drawn once in the upper triangle and symmetrised), as bool
-    [n_comp, m, m] dense adjacencies (bench.py's bench_brandes_ab
-    statistics, drawn with numpy from a seed)."""
-    adj = np.zeros((n_comp, m, m), bool)
-    for c in range(n_comp):
-        upper = np.triu(rng.random((m, m)) < deg / m, 1)
-        adj[c] = upper | upper.T
-    return adj
-
-
 def phase_p(torch, device, n_comp=100, m=1000, deg=40, n_sources=100,
             m_pad=1024):
     """P: the batched device Brandes (ops/brandes_device.py) at
@@ -3695,7 +3587,7 @@ def phase_p(torch, device, n_comp=100, m=1000, deg=40, n_sources=100,
     for exact in (True, False):
         brandes_batched_device(A, src, exact=exact)
         if device.type == "cuda":
-            ms[exact] = event_ms(torch, lambda: out.__setitem__(
+            ms[exact] = event_ms(lambda: out.__setitem__(
                 exact, brandes_batched_device(A, src, exact=exact)), 1)
         else:
             t = time.perf_counter()
@@ -3714,6 +3606,51 @@ def phase_p(torch, device, n_comp=100, m=1000, deg=40, n_sources=100,
     if not close:
         raise AssertionError(f"P: exact=True differs from the native engine "
                              f"(largest relative error {rel[True]})")
+
+
+# --------------------------------------------------------------------------
+# Q: the bench's headline
+# --------------------------------------------------------------------------
+
+def phase_q(torch, device):
+    """Q: the port's bench headline (poppunk_tpu_torch/bench.py, what
+    ``python -m poppunk_tpu_torch.bench`` prints first) in this process:
+    its record on a line of its own, then its checks: the card, a ceiling
+    fraction in (0, 1.05], a 64 x 128 corner of its (core, accessory)
+    against the plain match counts and the same epilogue within DIST_TOL,
+    and the g++ CPU baseline's counts at 64 x 128 equal to the plain
+    version's bit for bit. Returns ({"Q": launches}, None)."""
+    from poppunk_tpu_torch import bench
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.distances import (core_accessory,
+                                                 corrected_jaccards)
+
+    t0 = time.perf_counter()
+    record, ctx = bench.headline(device)
+    print(json.dumps(record), flush=True)
+    if record["backend"] != "cuda":
+        raise AssertionError(f"Q: the headline ran on {record['backend']}")
+    if not 0 < record["ceiling_frac"] <= 1.05:
+        raise AssertionError(f"Q: ceiling_frac {record['ceiling_frac']}")
+    (pq, lq, fq), (pr, lr, fr) = ctx.qry, ctx.ref
+    counts = mc.match_counts_torch(pq[:64], pr[:128], ctx.pad_bits)
+    want = core_accessory(corrected_jaccards(
+        counts, bench.KLIST, lq[:64], lr[:128], fq[:64], fr[:128],
+        bench.SS64, bench.BBITS, True, True), bench.KLIST)
+    got = ctx.dists[:64, :128].cpu().numpy()
+    np.testing.assert_allclose(got, want.cpu().numpy(), **DIST_TOL)
+    _, cpu_counts = bench.cpu_baseline(ctx.planes64, 64, 128)
+    if not np.array_equal(cpu_counts, counts.cpu().numpy()):
+        raise AssertionError("Q: the CPU baseline's counts differ from the "
+                             "plain version's")
+    emit({"phase": "Q", "value": record["value"],
+          "ceiling_frac": record["ceiling_frac"],
+          "vs_baseline": record["vs_baseline"],
+          "corner_max_abs_diff": float(np.abs(
+              got - want.cpu().numpy()).max()),
+          "baseline_counts_equal": True, "launches": record["launches"],
+          "seconds": elapsed(torch, t0)})
+    return {"Q": record["launches"]}, None
 
 
 # --------------------------------------------------------------------------
@@ -3770,7 +3707,7 @@ def mesh_only(torch, device):
               "m2_stages": m2["timings"], "m1_edges": m1["n_edges"],
               "m2_edges": m2["n_edges"], "seconds": elapsed(torch, t0)})
         m = SimpleNamespace(n=n, m1=m1, m2=m2)
-        mesh, kind = smoke_mesh(torch, device)
+        mesh, kind = card_mesh(device)
         emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
               "devices": [str(dev) for dev in mesh.flat()]})
         mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
@@ -3863,7 +3800,7 @@ def main():
         m = path("M", lambda: phase_m(torch, device, workdir, d), *std)
         kernels["match_counts"]["max_abs_err"] = max(
             kernels["match_counts"]["max_abs_err"], m.kernel_err)
-        mesh, kind = smoke_mesh(torch, device)
+        mesh, kind = card_mesh(device)
         emit({"phase": "N", "mesh": kind, "shape": mesh.shape,
               "devices": [str(dev) for dev in mesh.flat()]})
         n3_pairs = path("N", lambda: phase_n(torch, device, workdir, e, m,
@@ -3878,6 +3815,7 @@ def main():
         kernels["match_counts"]["max_abs_err"] = max(
             kernels["match_counts"]["max_abs_err"], o_err)
         del n3_pairs
+        path("Q", lambda: phase_q(torch, device), *std)
     phase_p(torch, device)
     # the card's host has jax installed: an import of it or of the JAX
     # package anywhere on the paths above would go unnoticed but for this

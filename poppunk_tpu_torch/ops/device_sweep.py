@@ -11,7 +11,9 @@ the network's score is
 from one [n, n] product (A * A@A summed gives 6 * triangles; no A^3). The
 reference rebuilds A per offset inside a scan; edges only ever switch on
 along the sweep, so here one A is carried and each offset scatters only
-its newly active edges. Peak memory is two [n, n] float32 buffers.
+its newly active edges. Peak memory is two [n, n] float32 buffers (A and
+its product) and one float64 row block of the product while it is summed
+(_SQUARE_ROWS rows: 0.54 GB at n = 32768).
 
 ``A @ A`` is ``torch.matmul`` with TF32 off (``_device.set_full_precision``):
 its entries and the degrees are exact in float32 (< 2^24 for n <= 32768).
@@ -34,6 +36,11 @@ DEVICE_SWEEP_MAX_N = 32768
 
 # float32 accumulations are exact only below 2^24
 F32_EXACT = float(2 ** 24)
+
+# rows of the [n, n] product summed at a time: torch widens a float32 tensor
+# to float64 with a full copy before it sums it, so the widened copy is one
+# block (8 * _SQUARE_ROWS * n bytes), never the whole square (8 n^2)
+_SQUARE_ROWS = 2048
 
 
 def sweep_scores_device(n_vertices, i_vec, j_vec, idx_vec, n_offsets,
@@ -60,9 +67,20 @@ def sweep_scores_device(n_vertices, i_vec, j_vec, idx_vec, n_offsets,
         new = slice(int(ends[t - 1]) if t else 0, int(ends[t]))
         A.index_put_((iv[new], jv[new]), one)  # duplicate-safe: set, not add
         A.index_put_((jv[new], iv[new]), one)
-        paths = (A @ A).mul_(A).sum(dtype=torch.float64)  # 6 * triangles
-        scores.append(network_score(A.sum(dim=1), paths, n))
+        scores.append(network_score(A.sum(dim=1), _paths(A), n))
     return torch.stack(scores).cpu().numpy()
+
+
+def _paths(A):
+    """sum(A * (A @ A)) = 6 * triangles, a float64 0-d tensor. Each block
+    of _SQUARE_ROWS rows is summed in float64: its entries are exact
+    integers, so the total is exact whatever the order, where a float32
+    sum of a dense row could pass 2^24."""
+    prod = (A @ A).mul_(A)
+    paths = torch.zeros((), dtype=torch.float64, device=A.device)
+    for s in range(0, A.shape[0], _SQUARE_ROWS):
+        paths += prod[s:s + _SQUARE_ROWS].sum(dtype=torch.float64)
+    return paths
 
 
 def network_score(deg, paths, n):

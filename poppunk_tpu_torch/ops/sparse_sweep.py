@@ -50,6 +50,11 @@ from .match_counts import popcount32
 # row transient to 4 * _TRI_BLOCK * ceil(n/32) * 4 bytes (537 MB at
 # n = 131072).
 _TRI_BLOCK = 8192
+# [_TRI_BLOCK, ceil(n/32)] int32 blocks live beside the four gathered ones
+# while a block's popcounts are summed (_delta_step's psum of the two OR'd
+# rows): the two ORs, their AND, and popcount32's working words (its sign
+# bits and up to four SWAR steps)
+_TRI_TRANSIENT_BLOCKS = 8
 
 
 def band_slots(e_total):
@@ -83,7 +88,10 @@ def _delta_step(bm, deg, i_sorted, j_sorted, start, stop):
         bnew.index_put_((jv, iv >> 5), _bits(iv), accumulate=True)
 
     def psum(x, y):
-        return popcount32(x & y).sum(dtype=torch.int64)
+        # a row's sum is at most 32 * w bits, so int32 holds it; only the
+        # [_TRI_BLOCK] row sums are widened to int64, never the block
+        return popcount32(x & y).sum(dim=1, dtype=torch.int32).sum(
+            dtype=torch.int64)
 
     zero = torch.zeros((), dtype=torch.int64, device=bm.device)
     s_all, s_on, s_nn = zero, zero, zero
@@ -200,16 +208,24 @@ def sweep_peak_bytes(n, e_cap):
 
     - fill: compaction transients + 12 B/slot edge buffers;
     - d0-sort: the edge buffers in and out plus the int64 sort order;
-    - scoring: edge buffers + two [n, n/32] bitmaps + gather blocks + a
-      200 MB allowance for the per-step transients.
+    - scoring: edge buffers + two [n, n/32] bitmaps + the four gathered
+      row blocks + the _TRI_TRANSIENT_BLOCKS int32 blocks of a block's
+      popcount sums + a 200 MB allowance. The row sums are int32, so no
+      block is widened to int64; the allowance covers what is not per
+      block: the delta's int32 bit words and scatter indices for one
+      _TRI_BLOCK of edges, the [_TRI_BLOCK] row sums, the degrees' int64
+      [n] (1 MB at n = 131072) and the per-step scalars.
 
     Slots are ``band_slots(e_cap)``, the buffers the fill allocates."""
     slots = band_slots(e_cap)
     w = (n + 31) // 32
     bitmaps = 2 * n * w * 4  # carried adjacency + per-step delta bitmap
-    tri_gather = 4 * _TRI_BLOCK * w * 4
+    block = _TRI_BLOCK * w * 4
+    tri_gather = 4 * block
+    tri_transient = _TRI_TRANSIENT_BLOCKS * block
     return max(FILL_TRANSIENT + 12 * slots, 32 * slots,
-               12 * slots + bitmaps + tri_gather + 200_000_000)
+               12 * slots + bitmaps + tri_gather + tri_transient
+               + 200_000_000)
 
 
 def hbm_feasible(n, e_cap, resident_bytes, hbm_total=HBM_TOTAL):

@@ -2444,6 +2444,23 @@ def adjusted_rand_index(labels_true, labels_pred):
                                         + (tp + fp) * (fp + tn))
 
 
+def backing_off(fn, max_move, what, log):
+    """(fn(max_move), the max_move it took): after each SweepSaturated the
+    search's max_move is quartered and fn called again, until a quarter
+    would fall below 1e-3 (then the error propagates). Only the
+    sweep-geometry error is retried; device failures (out of memory etc.)
+    propagate at once."""
+    while True:
+        try:
+            return fn(max_move), max_move
+        except SweepSaturated as e:
+            if max_move / 4 < 1e-3:
+                raise
+            max_move /= 4
+            log(f"refine: {what} saturated ({str(e)[:120]}), retrying "
+                f"max_move={max_move}\n")
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -2621,18 +2638,11 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
         # plan the fill band from the subsample fit (host arithmetic;
         # saturation shrinks max_move BEFORE any device pass runs), then
         # run the single fused pass
-        while True:
-            try:
-                fill_spec = plan_sweep_band(
-                    cd, model.scale, mean0, mean1, max_move=max_move,
-                    max_sweep_fetch=max_sweep_fetch, est_pairs=sub)
-                break
-            except SweepSaturated as e:
-                if max_move / 4 < 1e-3:
-                    raise
-                max_move /= 4
-                log(f"refine: band saturated ({str(e)[:120]}), "
-                    f"replanning max_move={max_move}\n")
+        fill_spec, max_move = backing_off(
+            lambda mm: plan_sweep_band(
+                cd, model.scale, mean0, mean1, max_move=mm,
+                max_sweep_fetch=max_sweep_fetch, est_pairs=sub),
+            max_move, "band", log)
         t0 = time.perf_counter()
         cd.run_pass1(fill_spec)
         sync()
@@ -2649,23 +2659,13 @@ def run_scale_pipeline(n=20480, klist=(13, 16, 19, 22, 25, 28),
     # can put every pair inside the widest boundary (refine_fit_device's
     # reference-faithful guard raises); back off until the sweep bites
     refine_phases = {}
-    while True:
-        try:
-            opt_x, opt_y, s_opt, sweep = refine_fit_device(
-                cd, model.scale, mean0, mean1, max_move=max_move,
-                score_idx=score_idx, seed=seed,
-                max_sweep_fetch=max_sweep_fetch,
-                timings_out=refine_phases, est_pairs=sub,
-                prefill=(cd.pop_prefill() if bootstrap else None))
-            break
-        except SweepSaturated as e:
-            # only the sweep-geometry errors are retryable; device
-            # failures (out of memory etc.) propagate
-            if max_move / 4 < 1e-3:
-                raise
-            max_move /= 4
-            log(f"refine: sweep saturated ({str(e)[:120]}), retrying "
-                f"max_move={max_move}\n")
+    (opt_x, opt_y, s_opt, sweep), max_move = backing_off(
+        lambda mm: refine_fit_device(
+            cd, model.scale, mean0, mean1, max_move=mm,
+            score_idx=score_idx, seed=seed, max_sweep_fetch=max_sweep_fetch,
+            timings_out=refine_phases, est_pairs=sub,
+            prefill=(cd.pop_prefill() if bootstrap else None)),
+        max_move, "sweep", log)
     sync()
     timings["refine"] = time.perf_counter() - t0
     if refine_phases:
