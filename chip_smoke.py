@@ -14,6 +14,19 @@ Phases, each printing one JSON line with its seconds:
      the SM clock nvidia-smi reads, against the operation bound at that
      clock and against torch.cdist(p=0) on the unpacked bin signatures
      (the one PyTorch call that computes the same counts, held to them)
+  C2 the distance epilogue kernel (csrc/dist_epilogue.cu) against its
+     plain version (ops/distances.dist_epilogue_torch) on the card, on
+     kernel 1's counts at C's shapes, at K 29 and at k 1, 2, 3 and 31,
+     with degenerate rows, in both output modes and with the random-match
+     correction with, without the reverse complement and off: Jaccards bit
+     for bit, distances within DIST_TOL, and the distances against the
+     float64 oracle on the kernel's own Jaccards (within DIST_TOL or the
+     pair's float32 rounding bound, where that is more); one pair's value
+     equal in a 1 x 1 and a 64 x 128 call; timed at BENCH beside the plain
+     version and the bound from the function's operations at the shapes.
+     The epilogue is held again at
+     its routes' own operands: E's spot rows, the step block of L2, L3 and
+     M (hold_steps_to_plain), O's column tiles, Q's corner
   D  the CLIs end to end on a synthetic population (6 strains x 8 genomes
      of 0.5 Mbp, one genome per strain held out as a query), on the card
      by default (no --gpu-* flag): create-db, fit-model bgmm, assign;
@@ -128,9 +141,11 @@ Phases, each printing one JSON line with its seconds:
 pipelines, N and O1 alone (for a host with several cards: their mesh
 spans them). Then the kernel summary line ({"kernels": [...]}: the
 standard kernel's launches counted over phases D, E, H-O and Q, the packed
-kernel's over F, G and N1's packed runs, each phase run with the counts
-set to 0 just before it; N2's are its workers' own counts), the
-nvidia-smi line, and last
+kernel's over F, G and N1's packed runs, the epilogue's over every one of
+those paths (each must launch it), each phase run with the counts set to
+0 just before it; N2's are its workers' own counts; the epilogue's
+max_abs_err the worst of C2 and its route holds), the nvidia-smi line,
+and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a host without CUDA.
 
@@ -138,6 +153,7 @@ The CPU rehearsal of phases D-I (the README's) sets
 POPPUNK_TPU_TORCH_DEVICE=cpu: the port runs on the card unless asked.
 """
 
+import contextlib
 import csv
 import json
 import os
@@ -318,6 +334,302 @@ def phase_c(torch, device):
                              f"the packed kernel with the standard one: "
                              f"{results}")
     return kernels
+
+
+# --------------------------------------------------------------------------
+# C2: the distance epilogue against plain
+# --------------------------------------------------------------------------
+
+# (nq, nr, geometry, klist): C's shapes, then K 29 (parse_kmers' widest
+# list, 3..31) and a list through every special case of torch's pow (k 1,
+# 2 and 3, then powf)
+C2_CASES = ((64, 128, SMALL, KLIST[:3]), (257, 1031, PRODUCTION, KLIST),
+            (65, 129, ODD, (1, 2, 3, 31)),
+            (64, 129, SMALL[:2] + (29,), tuple(range(3, 32))),
+            (2048, 4096, BENCH, (13, 16, 19, 22, 25, 28)))
+C2_FLAGS = ((True, True), (True, False), (False, False))
+# a pair of the BENCH case held to itself in a 1 x 1 and a 64 x 128 call
+C2_PAIR = (1000, 3000)
+# the query rows of each C2 case held to the float64 oracle on the host
+C2_ORACLE_ROWS = 512
+
+
+def strain_planes(rng, n, geometry, n_strains=16):
+    """Random planes [n, K, P, Wp] in ``n_strains`` strains: genome g keeps
+    each 32-bin word of its strain's planes with a probability of its own
+    (falling with k), and draws the rest afresh, so pairs of one strain
+    share a spread of bins and other pairs meet at chance."""
+    from poppunk_tpu_torch.ops.distances import plane_geometry
+
+    ss64, bbits, K = geometry
+    w32, wp, _ = plane_geometry(ss64, bbits)
+    base = rng.integers(0, 2**32, (n_strains, K, bbits, w32), dtype=np.uint32)
+    keep = (rng.random((n, 1, 1, 1)) ** 0.5
+            * np.linspace(1.0, 0.6, K)[None, :, None, None])
+    planes = np.zeros((n, K, bbits, wp), dtype=np.uint32)
+    for start in range(0, n, 512):
+        sl = slice(start, min(start + 512, n))
+        m = sl.stop - sl.start
+        kept = rng.random((m, K, 1, w32)) < keep[sl]
+        planes[sl, ..., :w32] = np.where(
+            kept, base[np.arange(start, sl.stop) % n_strains],
+            rng.integers(0, 2**32, (m, K, bbits, w32), dtype=np.uint32))
+    return planes
+
+
+def epilogue_operands(torch, device, rng, nq, nr, geometry, klist):
+    """Kernel 1's counts [nq, nr, K] on strain-structured planes, with the
+    degenerate query rows written over them (row 0 no bin matches, row 1
+    the chance count nbins / 2^bbits rounded up, row 2 every bin: identical
+    genomes), ~2 Mbp lengths with two short genomes (query row 3, column
+    3), Dirichlet base frequencies with a one-base genome on each side
+    (row / column 4) and an even one (row / column 5). Returns (counts,
+    len_q, len_r, freq_q, freq_r) on ``device``."""
+    from poppunk_tpu_torch.ops import match_counts as mc
+    from poppunk_tpu_torch.ops.distances import (plane_geometry,
+                                                 planes_to_tensor)
+
+    ss64, bbits = geometry[:2]
+    planes = strain_planes(rng, nq + nr, geometry)
+    pad_bits = plane_geometry(ss64, bbits)[2]
+    counts = mc.match_counts(planes_to_tensor(planes[:nq], device),
+                             planes_to_tensor(planes[nq:], device), pad_bits)
+    del planes
+    nbins = ss64 * 64
+    counts[0] = 0
+    counts[1] = int(np.ceil(nbins / 2**bbits))
+    counts[2] = nbins
+    lq = rng.integers(1_800_000, 2_400_000, nq).astype(np.int32)
+    lr = rng.integers(1_800_000, 2_400_000, nr).astype(np.int32)
+    lq[3], lr[3] = 20, 10
+    fq = rng.dirichlet(np.ones(4), nq).astype(np.float32)
+    fr = rng.dirichlet(np.ones(4), nr).astype(np.float32)
+    fq[4] = fr[4] = (1.0, 0.0, 0.0, 0.0)
+    fq[5] = fr[5] = 0.25
+    return (counts, *(torch.as_tensor(a, device=device)
+                      for a in (lq, lr, fq, fr)))
+
+
+def worst_pairs(got, want, ops, n=3):
+    """The pairs furthest apart, with their counts, lengths and
+    frequencies: what a failure prints."""
+    counts, lq, lr, fq, fr = ops
+    err = (got - want).abs().amax(dim=-1).flatten()
+    out = []
+    for flat in err.topk(min(n, err.numel())).indices.tolist():
+        q, r = divmod(flat, got.shape[1])
+        out.append({"pair": [q, r], "got": got[q, r].tolist(),
+                    "want": want[q, r].tolist(),
+                    "counts": counts[q, r].tolist(),
+                    "lengths": [int(lq[q]), int(lr[r])],
+                    "freq_q": fq[q].tolist(), "freq_r": fr[r].tolist()})
+    return out
+
+
+def hold_epilogue(torch, got, want, ops, jaccard, where):
+    """The kernel's output against the plain version's: Jaccards bit for
+    bit, distances within DIST_TOL. Returns max |got - want|; raises with
+    the worst pairs' inputs."""
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if jaccard:
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    else:
+        bad = int((~torch.isclose(got, want, **DIST_TOL)).sum())
+    if bad:
+        what = "Jaccards" if jaccard else "distances"
+        raise AssertionError(
+            f"{where}: the epilogue kernel's {what} differ from the plain "
+            f"version's at {bad} values (max |diff| {err}): "
+            f"{worst_pairs(got, want, ops)}")
+    return err
+
+
+def hold_to_the_oracle(jaccards, dists, klist, where):
+    """The kernel's (core, accessory) (numpy) against the float64 oracle
+    (ops/kmer_fit.py::fit_kmer_curve_np) on its own float32 Jaccards: each
+    value within DIST_TOL or, where that is more, within the float32 fit's
+    rounding bound (kmer_fit.fit_rounding_bound), which depends on no
+    library's summation order. Returns (max |diff|, values beyond
+    DIST_TOL, values whose bound is beyond it)."""
+    from poppunk_tpu_torch.ops.kmer_fit import (fit_kmer_curve_np,
+                                                fit_rounding_bound)
+
+    oracle = np.stack(fit_kmer_curve_np(jaccards, np.float32(klist)), -1)
+    tol = DIST_TOL["atol"] + DIST_TOL["rtol"] * np.abs(oracle)
+    bound = fit_rounding_bound(jaccards, klist)
+    err = np.abs(dists - oracle)
+    bad = err > np.maximum(tol, bound)
+    if bad.any():
+        q, r = np.argwhere(bad)[0][:2]
+        raise AssertionError(
+            f"{where}: {int(bad.sum())} distances beyond the float64 "
+            f"oracle's limit, first pair {[int(q), int(r)]}: kernel "
+            f"{dists[q, r].tolist()}, oracle {oracle[q, r].tolist()}, bound "
+            f"{bound[q, r].tolist()}, Jaccards {jaccards[q, r].tolist()}")
+    return (float(err.max()), int((err > tol).sum()),
+            int((bound > tol).sum()))
+
+
+# every hold of the epilogue kernel at a route's own operands: (where,
+# distances' max |diff|, Jaccards' max |diff|), folded into the kernel line
+EPILOGUE_HOLDS = []
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside compare a kernel with its plain version: the launch
+    counts are as they were before them."""
+    from poppunk_tpu_torch.ops import distances as dd
+    from poppunk_tpu_torch.ops import match_counts as mc
+
+    saved = mc.LAUNCHES, mc.PACKED_LAUNCHES, dd.EPILOGUE_LAUNCHES
+    try:
+        yield
+    finally:
+        mc.LAUNCHES, mc.PACKED_LAUNCHES, dd.EPILOGUE_LAUNCHES = saved
+
+
+def record_epilogue_hold(where, dist_err, jac_err=0.0):
+    EPILOGUE_HOLDS.append((where, dist_err, jac_err))
+    emit({"epilogue_hold": where, "max_abs_err": dist_err,
+          "jaccard_max_abs_err": jac_err})
+
+
+def hold_tile_epilogue(torch, where, q, planes, lq, lr, fq, fr, klist, ss64,
+                       bbits, pad_bits, counts, plain_counts):
+    """The epilogue kernel at a scale tile's own operands (the plane-major
+    query block ``q`` against ``planes``, whose kernel-1 and plain counts
+    are ``counts`` and ``plain_counts``): scale._tile_dists, the route
+    itself, against the plain epilogue on the plain counts within
+    DIST_TOL, and the kernel's Jaccards on the route's counts against the
+    plain version's bit for bit. The plain version runs 64 rows at a time,
+    as the CPU route does. Not counted in any path."""
+    from poppunk_tpu_torch import scale
+    from poppunk_tpu_torch.ops import distances as dd
+
+    ops = (plain_counts, lq, lr, fq, fr)
+    with uncounted():
+        got = scale._tile_dists(q, planes, lq, lr, fq, fr, klist, ss64,
+                                bbits, pad_bits)
+        want = torch.empty_like(got)
+        for a in range(0, got.shape[0], 64):
+            dd.dist_epilogue_torch(plain_counts[a:a + 64], klist,
+                                   lq[a:a + 64], lr, fq[a:a + 64], fr, ss64,
+                                   bbits, out=want[a:a + 64])
+        dist_err = hold_epilogue(torch, got, want, ops, False, where)
+        del got, want
+        jac = dd.dist_epilogue(counts, klist, lq, lr, fq, fr, ss64, bbits,
+                               jaccard=True)
+        want = torch.empty_like(jac)
+        for a in range(0, jac.shape[0], 64):
+            dd.dist_epilogue_torch(counts[a:a + 64], klist, lq[a:a + 64], lr,
+                                   fq[a:a + 64], fr, ss64, bbits,
+                                   jaccard=True, out=want[a:a + 64])
+        jac_err = hold_epilogue(torch, jac, want, (counts, *ops[1:]), True,
+                                where)
+    record_epilogue_hold(where, dist_err, jac_err)
+
+
+def phase_c2(torch, device):
+    """C2: the distance epilogue kernel (csrc/dist_epilogue.cu, wrapper
+    ops/distances.dist_epilogue) against its plain version
+    (dist_epilogue_torch) on the card, on kernel 1's counts at C's shapes,
+    K 29 and a k list through torch's pow special cases, with the
+    degenerate rows (epilogue_operands), in both output modes, with the
+    random-match correction with and without the reverse complement and
+    without it: Jaccards bit for bit, distances within DIST_TOL. The
+    distances of each case's first C2_ORACLE_ROWS query rows are held to
+    the float64 oracle on the kernel's own Jaccards (hold_to_the_oracle).
+    One BENCH pair equals itself, bit for bit, in a 1 x 1 and a 64 x 128
+    call. Timed at BENCH (2048 x 4096 x K 6, distances) by CUDA events
+    at the SM clock, beside the plain version and the bound
+    (bench.epilogue_bound: the bytes, or the function's float32 and
+    special-function operations at that clock). library_ms is None: no
+    single PyTorch call computes this function. These launches compare;
+    no path counts them. Returns the kernel's summary entry."""
+    from poppunk_tpu_torch import bench
+    from poppunk_tpu_torch.ops import distances as dd
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    results, worst, jac_worst, timing = [], 0.0, 0.0, {}
+    oracle = {"max_abs_err": 0.0, "beyond_dist_tol": 0, "undecided": 0,
+              "values": 0}
+    for nq, nr, geometry, klist in C2_CASES:
+        ss64, bbits = geometry[:2]
+        ops = epilogue_operands(torch, device, rng, nq, nr, geometry, klist)
+        errs = {}
+        for random_correct, use_rc in C2_FLAGS:
+            for jaccard in (True, False):
+                args = (ops[0], klist, *ops[1:], ss64, bbits, random_correct,
+                        use_rc, jaccard)
+                got = dd.dist_epilogue(*args)
+                want = dd.dist_epilogue_torch(*args)
+                where = (f"C2 {nq} x {nr} x K {len(klist)} random_correct "
+                         f"{random_correct} use_rc {use_rc}")
+                err = hold_epilogue(torch, got, want, ops, jaccard, where)
+                errs[f"{'jaccards' if jaccard else 'dists'}_"
+                     f"{int(random_correct)}{int(use_rc)}"] = err
+                rows = got[:C2_ORACLE_ROWS].cpu().numpy()
+                if jaccard:
+                    jac_worst = max(jac_worst, err)
+                    jac_rows = rows
+                else:
+                    worst = max(worst, err)
+                    o_err, beyond, undecided = hold_to_the_oracle(
+                        jac_rows, rows, klist, where)
+                    oracle["max_abs_err"] = max(oracle["max_abs_err"], o_err)
+                    oracle["beyond_dist_tol"] += beyond
+                    oracle["undecided"] += undecided
+                    oracle["values"] += rows.size
+                del got, want
+        results.append({"nq": nq, "nr": nr, "ss64": ss64, "bbits": bbits,
+                        "klist": list(klist), "max_abs_err": errs})
+        if geometry is BENCH:
+            q, r = C2_PAIR
+            tiles = {}
+            for jaccard in (False, True):
+                whole = dd.dist_epilogue(ops[0], klist, *ops[1:], ss64,
+                                         bbits, jaccard=jaccard)
+                for name, (q0, q1), (r0, r1) in (
+                        ("1x1", (q, q + 1), (r, r + 1)),
+                        ("64x128", (q - 20, q + 44), (r - 100, r + 28))):
+                    part = dd.dist_epilogue(
+                        ops[0][q0:q1, r0:r1].contiguous(), klist,
+                        ops[1][q0:q1], ops[2][r0:r1], ops[3][q0:q1],
+                        ops[4][r0:r1], ss64, bbits, jaccard=jaccard)
+                    tiles[f"{name}_{'jaccards' if jaccard else 'dists'}"] = \
+                        bool(torch.equal(
+                            part[q - q0, r - r0].view(torch.int32),
+                            whole[q, r].view(torch.int32)))
+            if not all(tiles.values()):
+                raise AssertionError(f"C2: pair {C2_PAIR}'s value depends on "
+                                     f"the tile: {tiles}")
+            args = (ops[0], klist, *ops[1:], ss64, bbits)
+            fn = lambda: dd.dist_epilogue(*args)  # noqa: E731
+            fn()
+            window = bench.clock_window(fn, event_ms(fn, 10))
+            plain_ms = event_ms(lambda: dd.dist_epilogue_torch(*args), 3)
+            jaccard_ms = event_ms(
+                lambda: dd.dist_epilogue(*args, jaccard=True), 20)
+            bound_ms, bound_by, reckoning = bench.epilogue_bound(
+                nq, nr, len(klist), window["sm_clock_mhz"])
+            timing = dict(shape=[nq, nr, len(klist)], ms=window["ms"],
+                          plain_ms=plain_ms, jaccard_ms=jaccard_ms,
+                          library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          bound_share=bound_ms / window["ms"],
+                          sm_clock_mhz=window["sm_clock_mhz"],
+                          sm_clock_samples=window["sm_clock_samples"],
+                          reckoning=reckoning, tile_bit_equal=tiles)
+        del ops
+    emit({"phase": "C2", "cases": results, "timing": timing,
+          "max_abs_err": worst, "jaccard_max_abs_err": jac_worst,
+          "oracle": oracle,
+          "seconds": elapsed(torch, t0)})
+    if jac_worst:
+        raise AssertionError(f"C2: Jaccards differ: {results}")
+    return dict(timing, max_abs_err=worst, jaccard_max_abs_err=jac_worst)
 
 
 # --------------------------------------------------------------------------
@@ -557,6 +869,8 @@ def phase_e(torch, device, workdir, n_ref=8192, n_query=1024, n_strains=64,
         plain, KLIST, as_t(lq[:spot_rows]), as_t(lr), as_t(fq[:spot_rows]),
         as_t(fr), ss64, bbits), KLIST).cpu().numpy()
     np.testing.assert_allclose(q_dists[:spot_rows], d_plain, **DIST_TOL)
+    record_epilogue_hold(f"E spot rows {spot_rows} x {n_ref}", float(
+        np.abs(q_dists[:spot_rows] - d_plain).max()))
 
     emit({"phase": "E", "references": n_ref, "queries": n_query,
           "strains": n_strains, "pairs_all_vs_all": int(X.shape[0]),
@@ -1980,7 +2294,8 @@ def hold_steps_to_plain(torch, cd):
     step's query block (rows [0, c) and their mirrors [n-c, n),
     concatenated as scale._fold_block builds it) and a row-slice view of c
     rows from the middle of the resident [K, P, n, Wp] tensor, each
-    against the whole tensor. These launches compare; no path counts them.
+    against the whole tensor; at the step block the epilogue kernel too
+    (hold_tile_epilogue). These launches compare; no path counts them.
     Returns {operand: max_abs_err} and the plain version's seconds."""
     from poppunk_tpu_torch.ops import match_counts as mc
 
@@ -2000,6 +2315,13 @@ def hold_steps_to_plain(torch, cd):
                                      plane_major=True)
         plain_s += elapsed(torch, t)
         errs[name] = max_abs_err(got, want)
+        if name == "step_block" and not errs[name]:
+            rows = torch.cat([torch.arange(c), torch.arange(n - c, n)]).to(
+                planes.device)
+            hold_tile_epilogue(
+                torch, f"step block at n {n}", q, planes, cd.lengths[rows],
+                cd.lengths, cd.freqs[rows], cd.freqs, cd._klist, cd._ss64,
+                cd._bbits, cd._pad_bits, got, want)
         del got, want
     if any(errs.values()):
         raise AssertionError(f"the plane-major route disagrees with the "
@@ -3303,14 +3625,16 @@ def hold_col_tile_to_plain(torch, cd):
     for bit against the plain version on the same device: the first
     chunk's query block as _ColShardedStream.waves assembles it (rows
     [0, c) and [n - c, n), gathered from the shards that own them)
-    against the last shard's resident [K, P, n_loc, Wp] planes. These
-    launches compare; no path counts them. Returns (max_abs_err, the
+    against the last shard's resident [K, P, n_loc, Wp] planes; then the
+    epilogue kernel at the same tile (hold_tile_epilogue). These launches
+    compare; no path counts them. Returns (kernel 1's max_abs_err, the
     plain version's seconds, the operands' shapes)."""
     from poppunk_tpu_torch.ops import match_counts as mc
 
     cs = cd._cs
     shard = cs.planes[-1]
-    q = cs._rows([(0, cs.c), (cs.n - cs.c, cs.n)], shard.device)
+    ranges = [(0, cs.c), (cs.n - cs.c, cs.n)]
+    q = cs._rows(ranges, shard.device)
     got = mc.match_counts(q, shard, cs.pad_bits, plane_major=True)
     t = time.perf_counter()
     want = mc.match_counts_torch(q, shard, cs.pad_bits, plane_major=True)
@@ -3321,6 +3645,12 @@ def hold_col_tile_to_plain(torch, cd):
         raise AssertionError(f"the plane-major route disagrees with the "
                              f"plain version at the column tile {shapes}: "
                              f"{err}")
+    _, ln, fr, l_loc, f_loc = cs._ops[-1]
+    rows = torch.cat([torch.arange(a, b, device=shard.device)
+                      for a, b in ranges])
+    hold_tile_epilogue(torch, f"column tile {shapes}", q, shard, ln[rows],
+                       l_loc, fr[rows], f_loc, cs.klist, cs.ss64, cs.bbits,
+                       cs.pad_bits, got, want)
     return err, plain_s, shapes
 
 
@@ -3639,6 +3969,8 @@ def phase_q(torch, device):
         bench.SS64, bench.BBITS, True, True), bench.KLIST)
     got = ctx.dists[:64, :128].cpu().numpy()
     np.testing.assert_allclose(got, want.cpu().numpy(), **DIST_TOL)
+    record_epilogue_hold("Q corner 64 x 128", float(np.abs(
+        got - want.cpu().numpy()).max()))
     _, cpu_counts = bench.cpu_baseline(ctx.planes64, 64, 128)
     if not np.array_equal(cpu_counts, counts.cpu().numpy()):
         raise AssertionError("Q: the CPU baseline's counts differ from the "
@@ -3737,6 +4069,7 @@ def main():
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from test_torch_h5py_standin import install_h5py
 
+    from poppunk_tpu_torch.ops import distances as dd
     from poppunk_tpu_torch.ops import match_counts as mc
 
     h5 = install_h5py()
@@ -3752,17 +4085,21 @@ def main():
             "count": torch.cuda.device_count()}})
         return 0
     kernels = phase_c(torch, device)
+    kernels["dist_epilogue"] = phase_c2(torch, device)
     l0_err, _ = phase_l0(torch, device)
     kernels["match_counts"]["max_abs_err"] = max(
         kernels["match_counts"]["max_abs_err"], l0_err)
 
     # each path runs with the launch counts set to 0 just before it; the
     # phase reads its kernel's count just after it (before any spot check
-    # of its own, whose comparison launches count in no path)
-    launches = {"match_counts": 0, "match_counts_packed": 0}
+    # of its own, whose comparison launches count in no path). The
+    # epilogue's count is read after the path as a whole: its holds at the
+    # route's operands restore the counts (uncounted)
+    launches = {"match_counts": 0, "match_counts_packed": 0,
+                "dist_epilogue": 0}
 
     def path(name, run, kernel, other):
-        mc.LAUNCHES = mc.PACKED_LAUNCHES = 0
+        mc.LAUNCHES = mc.PACKED_LAUNCHES = dd.EPILOGUE_LAUNCHES = 0
         stages, ctx = run()
         if not isinstance(stages, dict):
             stages = {name: stages}
@@ -3772,7 +4109,12 @@ def main():
         if getattr(mc, other):
             raise AssertionError(f"phase {name} launched the other kernel "
                                  f"({other} = {getattr(mc, other)})")
+        if dd.EPILOGUE_LAUNCHES < 1:
+            raise AssertionError(f"phase {name} computed distances without "
+                                 f"the epilogue kernel")
         launches[kernel] += sum(stages.values())
+        launches["dist_epilogue"] += dd.EPILOGUE_LAUNCHES
+        emit({"path": name, "dist_epilogue_launches": dd.EPILOGUE_LAUNCHES})
         return ctx
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -3823,17 +4165,26 @@ def main():
                     or m.startswith(("jax.", "poppunk_tpu.")))
     if loaded:
         raise AssertionError(f"the port loaded {loaded}")
+    epilogue = kernels["dist_epilogue"]
+    for _, dist_err, jac_err in EPILOGUE_HOLDS:
+        epilogue["max_abs_err"] = max(epilogue["max_abs_err"], dist_err)
+        epilogue["jaccard_max_abs_err"] = max(
+            epilogue["jaccard_max_abs_err"], jac_err)
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"poppunk_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
         **{key: kernels[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "sm_clock_mhz")}}
+            "library_ms", "sm_clock_mhz")},
+        **({"jaccard_max_abs_err": epilogue["jaccard_max_abs_err"],
+            "route_holds": len(EPILOGUE_HOLDS)} if name == "dist_epilogue"
+           else {})}
         for name, replaces in (
             ("match_counts", "poppunk_tpu/ops/pallas_jaccard.py:76"),
             ("match_counts_packed",
-             "poppunk_tpu/ops/pallas_jaccard.py:229"))]})
+             "poppunk_tpu/ops/pallas_jaccard.py:229"),
+            ("dist_epilogue", "poppunk_tpu/ops/distances.py:192"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -123,5 +123,9 @@ def load():
         lib.match_counts_packed_launch.restype = ci
         lib.match_counts_packed_launch.argtypes = (
             [vp, vp, vp] + [ci] * 7 + [ll] * 6 + [vp])
+        cf = ctypes.c_float
+        lib.dist_epilogue_launch.restype = ci
+        lib.dist_epilogue_launch.argtypes = (
+            [vp] * 6 + [ci] * 3 + [vp] + [cf] * 4 + [ci] * 3 + [vp])
         _lib = lib
     return _lib

@@ -7,7 +7,8 @@ bench), mode by mode. Each mode is a short program over the port's own
 modules at bench.py's sizes and seeds, and prints one JSON record:
 
   (default)          the headline: ``ops/match_counts`` -> the corrections
-                     -> the k-mer fit (``ops/distances._dist_chunk``) on
+                     and the k-mer fit (one ``dist_epilogue`` launch;
+                     ``ops/distances._dist_chunk``) on
                      2048 x 4096 pairs of random planes (bench.py's
                      draws), 1 warm-up and 3 timed calls inside a
                      synchronised host window; CUDA events and the SM
@@ -97,6 +98,12 @@ BASELINE_TILE = (512, 1024)
 # seconds of calls inside an SM clock window: some 20 nvidia-smi samples
 CLOCK_WINDOW_S = 1.0
 
+# the epilogue kernel's bound (CUDA C++ programming guide, arithmetic
+# instruction throughput, compute capability 9.0): 128 float32 add,
+# multiply, compare or select instructions an SM a clock, 16 special-
+# function (MUFU: rcp, lg2, ex2) results an SM a clock
+F32_PER_SM_CLOCK = 128
+SFU_PER_SM_CLOCK = 16
 
 def emit(record, json_out=None):
     """Print a record as one JSON line; append it to ``json_out`` too."""
@@ -234,6 +241,59 @@ def bound(nq, nr, K, P, w32, in_bytes, sm_mhz, sms=None):
     bytes_ms = (in_bytes + nq * nr * K * 4) / HBM_BYTES_PER_S * 1e3
     return ((ops_ms, "operations") if ops_ms >= bytes_ms
             else (bytes_ms, "bytes"))
+
+
+def epilogue_ops(K, random_correct=True, use_rc=True, jaccard=False):
+    """(float32 operations, special-function operations) a pair of the
+    distance epilogue needs, counted from the reference's formula
+    (poppunk_tpu/ops/distances.py:148-190, kmer_fit.py::_fit_math). Each
+    add, multiply, compare, min / max, select and int-to-float is one
+    float32 operation (the contract forbids FMA contraction); pow is
+    ex2(k lg2 x), log lg2(x) ln 2, exp ex2(x log2 e) and a division a
+    rcp(b): their cheapest forms, one float32 multiply and one (two for
+    pow) special-function operation each."""
+    f32, sfu = 6 * K, 0  # b-bit: cvt, * 1/nbins, - e, * 1/(1 - e), clamp
+    if random_correct:
+        # per pair: dot4 (and the flipped one); per k: pow (and pow + add),
+        # n1, n2, inter, union, the where, max(union, 1e-30), a divide,
+        # the clamp, (j - r) / (1 - r) and its clamp
+        f32 += 7 * (1 + use_rc) + K * (22 + 2 * use_rc)
+        sfu += K * (4 + 2 * use_rc)
+    if not jaccard:
+        # per k: the mask, the log and its where, w k, w k k, w y, w k y,
+        # w y y and the six sums; per pair: det, the unconstrained solution
+        # (two divides), the two clamped candidates (a divide each), three
+        # SSEs of 16, the selects, the feasibility test, two exps, (1, 1)
+        f32 += K * 15 + 94
+        sfu += K + 6
+    return f32, sfu
+
+
+def epilogue_bound(nq, nr, K, sm_mhz, sms=None, random_correct=True,
+                   use_rc=True, jaccard=False):
+    """(bound_ms, bound_by, reckoning) of the epilogue on nq x nr pairs of
+    K k-mer lengths: the largest of the bytes (the int32 counts, lengths
+    and float32 frequencies read once, the float32 output written once)
+    at HBM rate, the epilogue_ops instructions at F32_PER_SM_CLOCK issue
+    and the special-function ones at SFU_PER_SM_CLOCK, on ``sms`` SMs
+    (None: card 0's count) at ``sm_mhz``."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, sfu = epilogue_ops(K, random_correct, use_rc, jaccard)
+    pairs = nq * nr
+    moved = pairs * K * 4 + (nq + nr) * (4 + 16) + pairs * (K if jaccard
+                                                           else 2) * 4
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    clock = sms * sm_mhz * 1e6
+    issue_ms = pairs * (f32 + sfu) / (F32_PER_SM_CLOCK * clock) * 1e3
+    sfu_ms = pairs * sfu / (SFU_PER_SM_CLOCK * clock) * 1e3
+    reckoning = {"f32_per_pair": f32, "sfu_per_pair": sfu,
+                 "issue_ms": issue_ms, "sfu_ms": sfu_ms, "bytes": moved,
+                 "bytes_ms": bytes_ms}
+    ops_ms = max(issue_ms, sfu_ms)
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", reckoning
+    return bytes_ms, "bytes", reckoning
 
 
 def time_cdist(q, r, counts, w32):
@@ -999,7 +1059,8 @@ def fill_profile(device=None, n=20480, steps=16):
                  line), pass 1 as the two-round bootstrap runs it.
 
     Full-row pairs per second each; the fold's share against the kernel's
-    is the gap the epilogue fusion (ROADMAP queue 2 item 1) would close."""
+    is what the epilogue kernel (csrc/dist_epilogue.cu) and the fold add
+    to the counts."""
     from .scale import (_BandFill, _SweepGeometry, _fold_block, _fold_pairs)
 
     device = _device.resolve(device)

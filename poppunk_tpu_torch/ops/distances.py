@@ -5,8 +5,10 @@ Counterpart of poppunk_tpu/ops/distances.py, per query chunk:
     packed bit-plane sketches (int32 words on the distance device)
       -> bin match counts          ops/match_counts.py (CUDA kernel / twin;
                                    standard or packed-lane by KERNEL_CHOICE)
-      -> b-bit + random-match corrected Jaccard per k        torch ops
-      -> constrained log-linear fit across k (kmer_fit.py)   torch ops
+      -> b-bit + random-match corrected Jaccard per k   one dist_epilogue
+      -> constrained log-linear fit across k            launch: CUDA kernel
+                                                        (csrc/dist_epilogue.cu)
+                                                        or its torch twin
       -> (core, accessory) per pair, optionally classified (fused_assign)
 
 Row conventions are the reference's (PopPUNK/utils.py:199-226,
@@ -16,14 +18,20 @@ reference planes move to the device, and under the packed choice are
 packed, once per call.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _build, _device
 from .kmer_fit import _fit_math
 from . import match_counts as mc
 
 _LANES = 128
+
+EPILOGUE_LAUNCHES = 0  # dist_epilogue kernel launches in this process
+# csrc/dist_epilogue.cu: MAX_K, the k-mer lengths a thread's arrays hold
+EPILOGUE_MAX_K = 32
 
 
 def plane_geometry(sketchsize64, bbits):
@@ -153,20 +161,122 @@ def core_accessory(jaccards, klist):
     return torch.stack([core, acc], dim=-1)
 
 
+def dist_epilogue_torch(matches, klist, len_q, len_r, freq_q, freq_r,
+                        sketchsize64, bbits, random_correct=True, use_rc=True,
+                        jaccard=False, out=None):
+    """The plain version of the epilogue kernel: corrected_jaccards, then
+    core_accessory unless ``jaccard``; into ``out`` when given."""
+    d = corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
+                           sketchsize64, bbits, random_correct, use_rc)
+    if not jaccard:
+        d = core_accessory(d, klist)
+    return d if out is None else out.copy_(d)
+
+
+def _epilogue_operands(matches, klist, len_q, len_r, freq_q, freq_r, jaccard,
+                       out):
+    """Validate the epilogue's operands; return (nq, nr, K)."""
+    if matches.dim() != 3:
+        raise ValueError(f"matches must be [nq, nr, K], got "
+                         f"{tuple(matches.shape)}")
+    nq, nr, K = matches.shape
+    if K != len(klist):
+        raise ValueError(f"matches hold {K} k-mer lengths, klist {len(klist)}")
+    if not 1 <= K <= EPILOGUE_MAX_K:
+        raise ValueError(f"the epilogue takes 1 to {EPILOGUE_MAX_K} k-mer "
+                         f"lengths, got {K}")
+    if any(float(k) != int(k) or int(k) < 1 for k in klist):
+        raise ValueError(f"k-mer lengths must be positive integers: {klist}")
+    width = K if jaccard else 2
+    named = [("matches", matches, torch.int32, (nq, nr, K)),
+             ("len_q", len_q, torch.int32, (nq,)),
+             ("len_r", len_r, torch.int32, (nr,)),
+             ("freq_q", freq_q, torch.float32, (nq, 4)),
+             ("freq_r", freq_r, torch.float32, (nr, 4))]
+    if out is not None:
+        named.append(("out", out, torch.float32, (nq, nr, width)))
+    for name, t, dtype, shape in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devices = {t.device for _, t, _, _ in named}
+    if len(devices) != 1:
+        raise ValueError(f"the epilogue's operands lie on "
+                         f"{sorted(map(str, devices))}")
+    return nq, nr, K
+
+
+def dist_epilogue(matches, klist, len_q, len_r, freq_q, freq_r, sketchsize64,
+                  bbits, random_correct=True, use_rc=True, jaccard=False,
+                  out=None):
+    """int32 match counts [nq, nr, K] -> float32 (core, accessory) [nq, nr,
+    2], or the corrected Jaccards [nq, nr, K] with ``jaccard``, written into
+    ``out`` when given: csrc/dist_epilogue.cu on CUDA tensors, one launch;
+    dist_epilogue_torch on CPU tensors. Lengths are int32 [n], frequencies
+    float32 [n, 4], everything contiguous on one device; a CUDA input the
+    kernel cannot take raises.
+
+    The kernel's Jaccards equal the plain version's on the card bit for
+    bit, and its distances are within DIST_TOL of them (equal under torch
+    2.11, whose CUDA reduction order the fit's sums follow); the note atop
+    the source gives the contract. The scalar constants go to the kernel
+    as the plain version's Python values, computed in double and cast to
+    float32."""
+    global EPILOGUE_LAUNCHES
+    nq, nr, K = _epilogue_operands(matches, klist, len_q, len_r, freq_q,
+                                   freq_r, jaccard, out)
+    if matches.device.type == "cpu":
+        return dist_epilogue_torch(matches, klist, len_q, len_r, freq_q,
+                                   freq_r, sketchsize64, bbits,
+                                   random_correct, use_rc, jaccard, out)
+    if matches.device.type != "cuda":
+        raise ValueError(f"the epilogue runs on the CPU or a CUDA card, not "
+                         f"{matches.device}")
+    if out is None:
+        out = torch.empty((nq, nr, K if jaccard else 2), dtype=torch.float32,
+                          device=matches.device)
+    elif not jaccard and out.data_ptr() % 8:
+        raise ValueError("out must start on an 8-byte boundary: the kernel "
+                         "stores each pair's (core, accessory) as one float2")
+    if nq == 0 or nr == 0:
+        return out
+    nbins = sketchsize64 * 64
+    expected = 2.0 ** (-bbits)
+    kvals = (ctypes.c_float * K)(*(float(k) for k in klist))
+    lib = _build.load()
+    with torch.cuda.device(matches.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dist_epilogue_launch(
+            matches.data_ptr(), len_q.data_ptr(), len_r.data_ptr(),
+            freq_q.data_ptr(), freq_r.data_ptr(), out.data_ptr(), nq, nr, K,
+            ctypes.addressof(kvals), float(np.float32(nbins)),
+            float(np.float32(expected)), float(np.float32(1.0 - expected)),
+            float(np.float32(1.0 - 1e-6)), int(random_correct), int(use_rc),
+            int(jaccard), stream)
+    if err:
+        raise RuntimeError(f"dist_epilogue kernel launch failed: CUDA error "
+                           f"{err}")
+    EPILOGUE_LAUNCHES += 1
+    return out
+
+
 def _dist_chunk(qry, ref, klist, sketchsize64, bbits, random_correct,
                 use_rc, jaccard, post_spec=None):
     """One query chunk against the references; ``qry`` and ``ref`` are
-    (planes, lengths, freqs) tensors on the distance device. Returns
-    dists, or (dists, classes) with a post."""
+    (planes, lengths, freqs) tensors on the distance device: the
+    match-count kernel, then one epilogue launch (dist_epilogue), as the
+    reference's jitted chunk runs them. Returns dists, or (dists, classes)
+    with a post."""
     (planes_q, len_q, freq_q), (planes_r, len_r, freq_r) = qry, ref
     _, _, pad_bits = plane_geometry(sketchsize64, bbits)
     matches = mc.match_counts_device(planes_q, planes_r, pad_bits)
-    j = corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
-                           sketchsize64, bbits, random_correct, use_rc)
-    if jaccard:
-        return j
-    d = core_accessory(j, klist)
-    if post_spec is None:
+    d = dist_epilogue(matches, klist, len_q, len_r, freq_q, freq_r,
+                      sketchsize64, bbits, random_correct, use_rc, jaccard)
+    if jaccard or post_spec is None:
         return d
     from .fused_assign import apply_post
 
@@ -182,7 +292,8 @@ class _Operands:
         self.planes = planes_to_tensor(planes, device)
         if mc.KERNEL_CHOICE == "packed":
             self.planes = mc.pack(self.planes, pad_bits)
-        self.lengths = torch.as_tensor(lengths, device=device)
+        self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                       device=device)
         self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                      device=device)
 

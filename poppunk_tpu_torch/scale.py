@@ -86,8 +86,8 @@ import numpy as np
 import torch
 
 from . import _device
-from .ops.distances import (core_accessory, corrected_jaccards,
-                            plane_geometry, planes_to_tensor)
+from .ops.distances import (core_accessory, dist_epilogue, plane_geometry,
+                            planes_to_tensor)
 from .ops.match_counts import match_counts_device, popcount32
 
 
@@ -130,8 +130,9 @@ def fold_inverse(pos, n):
     return i, j
 
 
-# rows of a step's [2c, n, K] count block corrected and fitted at a time:
-# bounds the epilogue's float transients to a few [64, n, K] tensors
+# rows of a step's [2c, n, K] count block corrected and fitted at a time by
+# the plain epilogue (CPU tensors): bounds its float transients to a few
+# [64, n, K] tensors
 _EPILOGUE_ROWS = 64
 # folded rows of a resident buffer a sweep slices at a time (the
 # reference's chunk_rows default)
@@ -195,19 +196,21 @@ def _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
     """f32 [rows, cols, 2] distances of the plane-major query block pq
     [K, P, rows, Wp] against the resident planes [K, P, cols, Wp]: one
     launch of the kernel's plane-major route, then the corrections and the
-    k-mer fit _EPILOGUE_ROWS rows at a time. Each pair's arithmetic is the
-    same whatever the block's shape (ops/distances._dot4), so a column
-    shard's tile holds the single device's values bit for bit."""
+    k-mer fit (ops/distances.dist_epilogue): one epilogue launch for the
+    tile on a card, _EPILOGUE_ROWS rows at a time of the plain version on
+    the CPU. Each pair's arithmetic is the same whatever the block's shape
+    (the kernel's per-pair pass; ops/distances._dot4 in the plain
+    version), so a column shard's tile holds the single device's values
+    bit for bit."""
     matches = match_counts_device(pq, planes, pad_bits, plane_major=True)
     rows = pq.shape[2]
     d = torch.empty((rows, planes.shape[2], 2), dtype=torch.float32,
                     device=planes.device)
-    for a in range(0, rows, _EPILOGUE_ROWS):
-        b = min(a + _EPILOGUE_ROWS, rows)
-        j = corrected_jaccards(matches[a:b], klist, lq[a:b], lengths,
-                               fq[a:b], freqs, sketchsize64, bbits, True,
-                               True)
-        d[a:b] = core_accessory(j, klist)
+    step = rows if d.is_cuda else _EPILOGUE_ROWS
+    for a in range(0, rows, step):
+        b = min(a + step, rows)
+        dist_epilogue(matches[a:b], klist, lq[a:b], lengths, fq[a:b], freqs,
+                      sketchsize64, bbits, out=d[a:b])
     return d
 
 
@@ -303,7 +306,9 @@ def _pair_corrected_fit(matches, li, lj, fi, fj, klist, sketchsize64,
     """[c, K] match counts + per-pair lengths/freqs -> f32 [c, 2] dists:
     corrected_jaccards' arithmetic with each pair as its own 1 x 1 block
     (the b-bit correction, the random-match correction with the reverse
-    complement, clipping), then the k-mer fit."""
+    complement, clipping), then the k-mer fit. It stays torch ops on the
+    card too: its pairs are short explicit lists (a subsample's draws),
+    not the [rows, cols] tiles dist_epilogue's kernel walks."""
     nbins = sketchsize64 * 64
     expected = 2.0 ** (-bbits)
     obs = matches.to(torch.float32) / nbins
@@ -482,7 +487,7 @@ class _ColShardedStream:
         self.ss64 = int(sketchsize64)
         self.bbits = int(bbits)
         self.pad_bits = int(plane_geometry(sketchsize64, bbits)[2])
-        lengths = torch.as_tensor(lengths)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32)
         freqs = torch.as_tensor(freqs, dtype=torch.float32)
         # per device: its first column, the whole lengths / freqs (the
         # chunk rows' come from them) and its columns'
@@ -727,7 +732,8 @@ class StreamingCondensed:
         else:
             self.device = _device.resolve(device)
             self.planes = planes_to_tensor(planes, self.device)
-        self.lengths = torch.as_tensor(lengths, device=self.device)
+        self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                       device=self.device)
         self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                      device=self.device)
         if not self._col:
@@ -1077,7 +1083,8 @@ def _buffer_operands(planes, lengths, freqs, device):
     else:
         dev = _device.resolve(device)
         planes = planes_to_tensor(planes, dev)
-    return (dev, planes, torch.as_tensor(lengths, device=dev),
+    return (dev, planes,
+            torch.as_tensor(lengths, dtype=torch.int32, device=dev),
             torch.as_tensor(freqs, dtype=torch.float32, device=dev))
 
 
