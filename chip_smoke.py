@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line with its seconds:
   A  the card: nvidia-smi name and power limit, torch / CUDA / nvcc versions
-  B  build the CUDA kernels from poppunk_tpu_torch/csrc with nvcc
+  B  build the CUDA kernels from poppunk_tpu_torch/csrc with nvcc; each
+     epilogue instantiation's registers, stack and spills from ptxas (a
+     KMAX 8 one with a stack frame or spills fails the script)
   C  both match-count kernels (standard and packed-lane) against their
      plain PyTorch versions on the card, and the packed kernel against the
      standard one (all bit-exact), at the JAX tests' tile-edge shapes, at
@@ -16,14 +18,17 @@ Phases, each printing one JSON line with its seconds:
      (the one PyTorch call that computes the same counts, held to them)
   C2 the distance epilogue kernel (csrc/dist_epilogue.cu) against its
      plain version (ops/distances.dist_epilogue_torch) on the card, on
-     kernel 1's counts at C's shapes, at K 29 and at k 1, 2, 3 and 31,
-     with degenerate rows, in both output modes and with the random-match
+     kernel 1's counts at C's shapes, at K 29, at k 1, 2, 3 and 31 and at
+     K 8 and 9 (either side of its KMAX 8 instantiation), with degenerate
+     rows, in both output modes and with the random-match
      correction with, without the reverse complement and off: Jaccards bit
      for bit, distances within DIST_TOL, and the distances against the
      float64 oracle on the kernel's own Jaccards (within DIST_TOL or the
      pair's float32 rounding bound, where that is more); one pair's value
      equal in a 1 x 1 and a 64 x 128 call; timed at BENCH beside the plain
-     version and the bound from the function's operations at the shapes.
+     version and the bound from the function's operations at the shapes;
+     each instantiation's registers, stack and spills (phase B: none for
+     KMAX 8).
      The epilogue is held again at
      its routes' own operands: E's spot rows, the step block of L2, L3 and
      M (hold_steps_to_plain), O's column tiles, Q's corner
@@ -153,10 +158,12 @@ The CPU rehearsal of phases D-I (the README's) sets
 POPPUNK_TPU_TORCH_DEVICE=cpu: the port runs on the card unless asked.
 """
 
+import collections
 import contextlib
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -166,7 +173,8 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from poppunk_tpu_torch.bench import (bound, card_chunk, card_mesh, event_ms,
+from poppunk_tpu_torch.bench import (bound, card_chunk, card_mesh,
+                                     epilogue_operands, event_ms,
                                      random_components, time_cdist,
                                      timed_at_sm_clock)
 
@@ -228,19 +236,72 @@ def phase_a(torch):
     return smi
 
 
+def ptxas_entries(report):
+    """ptxas -v's report -> {entry function: {"registers", "stack",
+    "spill_stores", "spill_loads"}} (bytes but registers)."""
+    entries, entry, props = {}, None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            entries[entry] = {}
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props in entries:
+            entries[props].update(zip(("stack", "spill_stores",
+                                       "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in entries:
+            entries[entry]["registers"] = int(m.group(1))
+    return entries
+
+
+def epilogue_instantiations(report):
+    """The epilogue kernel's instantiations in ptxas's report, by their
+    template arguments: {"KMAX 8 random 1 rc 1 jaccard 0": {...}}."""
+    out = {}
+    for name, props in ptxas_entries(report).items():
+        m = re.search(r"dist_epilogue_kernelILi(\d+)ELb([01])ELb([01])"
+                      r"ELb([01])E", name)
+        if m:
+            out["KMAX {} random {} rc {} jaccard {}".format(
+                *m.groups())] = props
+    return dict(sorted(out.items()))
+
+
 def phase_b():
+    """Build the kernels; every KMAX 8 instantiation of the epilogue
+    kernel must keep its arrays in registers: no stack, no spills.
+    Returns the epilogue's instantiations (epilogue_instantiations)."""
     from poppunk_tpu_torch import _build
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
-    ptxas = [line.split(":", 1)[-1].strip()
-             for line in (_build.ptxas_report or "").splitlines()
+    report = _build.ptxas_report or ""
+    ptxas = [line.split(":", 1)[-1].strip() for line in report.splitlines()
              if "entry function" in line or "registers" in line
              or "spill" in line]
+    epilogue = epilogue_instantiations(report)
     emit({"phase": "B", "library": os.path.relpath(path, REPO),
           "nvcc_seconds": _build.build_seconds, "ptxas": ptxas,
+          "epilogue_instantiations": epilogue,
           "seconds": time.perf_counter() - t0})
+    # KMAX 8 and 32, each with the three flag settings in both modes
+    if report and len(epilogue) != 12:
+        raise AssertionError(f"B: 12 epilogue instantiations expected in "
+                             f"ptxas's report, found {sorted(epilogue)}")
+    on_stack = {name: props for name, props in epilogue.items()
+                if name.startswith("KMAX 8 ")
+                and (props.get("stack") or props.get("spill_stores")
+                     or props.get("spill_loads"))}
+    if on_stack:
+        raise AssertionError(f"B: KMAX 8 epilogue instantiations with a "
+                             f"stack frame or spills: {on_stack}")
+    return epilogue
 
 
 # --------------------------------------------------------------------------
@@ -341,73 +402,19 @@ def phase_c(torch, device):
 # --------------------------------------------------------------------------
 
 # (nq, nr, geometry, klist): C's shapes, then K 29 (parse_kmers' widest
-# list, 3..31) and a list through every special case of torch's pow (k 1,
-# 2 and 3, then powf)
+# list, 3..31), k 1, 2, 3 and 31 (the ends of the pow chain), K 8 and 9 on
+# either side of the kernel's KMAX 8 instantiation
 C2_CASES = ((64, 128, SMALL, KLIST[:3]), (257, 1031, PRODUCTION, KLIST),
             (65, 129, ODD, (1, 2, 3, 31)),
             (64, 129, SMALL[:2] + (29,), tuple(range(3, 32))),
+            (64, 129, SMALL[:2] + (8,), tuple(range(13, 29, 2))),
+            (64, 129, SMALL[:2] + (9,), tuple(range(13, 31, 2))),
             (2048, 4096, BENCH, (13, 16, 19, 22, 25, 28)))
 C2_FLAGS = ((True, True), (True, False), (False, False))
 # a pair of the BENCH case held to itself in a 1 x 1 and a 64 x 128 call
 C2_PAIR = (1000, 3000)
 # the query rows of each C2 case held to the float64 oracle on the host
 C2_ORACLE_ROWS = 512
-
-
-def strain_planes(rng, n, geometry, n_strains=16):
-    """Random planes [n, K, P, Wp] in ``n_strains`` strains: genome g keeps
-    each 32-bin word of its strain's planes with a probability of its own
-    (falling with k), and draws the rest afresh, so pairs of one strain
-    share a spread of bins and other pairs meet at chance."""
-    from poppunk_tpu_torch.ops.distances import plane_geometry
-
-    ss64, bbits, K = geometry
-    w32, wp, _ = plane_geometry(ss64, bbits)
-    base = rng.integers(0, 2**32, (n_strains, K, bbits, w32), dtype=np.uint32)
-    keep = (rng.random((n, 1, 1, 1)) ** 0.5
-            * np.linspace(1.0, 0.6, K)[None, :, None, None])
-    planes = np.zeros((n, K, bbits, wp), dtype=np.uint32)
-    for start in range(0, n, 512):
-        sl = slice(start, min(start + 512, n))
-        m = sl.stop - sl.start
-        kept = rng.random((m, K, 1, w32)) < keep[sl]
-        planes[sl, ..., :w32] = np.where(
-            kept, base[np.arange(start, sl.stop) % n_strains],
-            rng.integers(0, 2**32, (m, K, bbits, w32), dtype=np.uint32))
-    return planes
-
-
-def epilogue_operands(torch, device, rng, nq, nr, geometry, klist):
-    """Kernel 1's counts [nq, nr, K] on strain-structured planes, with the
-    degenerate query rows written over them (row 0 no bin matches, row 1
-    the chance count nbins / 2^bbits rounded up, row 2 every bin: identical
-    genomes), ~2 Mbp lengths with two short genomes (query row 3, column
-    3), Dirichlet base frequencies with a one-base genome on each side
-    (row / column 4) and an even one (row / column 5). Returns (counts,
-    len_q, len_r, freq_q, freq_r) on ``device``."""
-    from poppunk_tpu_torch.ops import match_counts as mc
-    from poppunk_tpu_torch.ops.distances import (plane_geometry,
-                                                 planes_to_tensor)
-
-    ss64, bbits = geometry[:2]
-    planes = strain_planes(rng, nq + nr, geometry)
-    pad_bits = plane_geometry(ss64, bbits)[2]
-    counts = mc.match_counts(planes_to_tensor(planes[:nq], device),
-                             planes_to_tensor(planes[nq:], device), pad_bits)
-    del planes
-    nbins = ss64 * 64
-    counts[0] = 0
-    counts[1] = int(np.ceil(nbins / 2**bbits))
-    counts[2] = nbins
-    lq = rng.integers(1_800_000, 2_400_000, nq).astype(np.int32)
-    lr = rng.integers(1_800_000, 2_400_000, nr).astype(np.int32)
-    lq[3], lr[3] = 20, 10
-    fq = rng.dirichlet(np.ones(4), nq).astype(np.float32)
-    fr = rng.dirichlet(np.ones(4), nr).astype(np.float32)
-    fq[4] = fr[4] = (1.0, 0.0, 0.0, 0.0)
-    fq[5] = fr[5] = 0.25
-    return (counts, *(torch.as_tensor(a, device=device)
-                      for a in (lq, lr, fq, fr)))
 
 
 def worst_pairs(got, want, ops, n=3):
@@ -530,13 +537,13 @@ def hold_tile_epilogue(torch, where, q, planes, lq, lr, fq, fr, klist, ss64,
     record_epilogue_hold(where, dist_err, jac_err)
 
 
-def phase_c2(torch, device):
+def phase_c2(torch, device, instantiations):
     """C2: the distance epilogue kernel (csrc/dist_epilogue.cu, wrapper
     ops/distances.dist_epilogue) against its plain version
     (dist_epilogue_torch) on the card, on kernel 1's counts at C's shapes,
-    K 29 and a k list through torch's pow special cases, with the
-    degenerate rows (epilogue_operands), in both output modes, with the
-    random-match correction with and without the reverse complement and
+    K 29, k 1, 2, 3 and 31, K 8 and 9, with the degenerate rows
+    (epilogue_operands), in both output modes, with the random-match
+    correction with and without the reverse complement and
     without it: Jaccards bit for bit, distances within DIST_TOL. The
     distances of each case's first C2_ORACLE_ROWS query rows are held to
     the float64 oracle on the kernel's own Jaccards (hold_to_the_oracle).
@@ -544,9 +551,12 @@ def phase_c2(torch, device):
     call. Timed at BENCH (2048 x 4096 x K 6, distances) by CUDA events
     at the SM clock, beside the plain version and the bound
     (bench.epilogue_bound: the bytes, or the function's float32 and
-    special-function operations at that clock). library_ms is None: no
-    single PyTorch call computes this function. These launches compare;
-    no path counts them. Returns the kernel's summary entry."""
+    special-function operations at that clock). library_ms is
+    None: no single PyTorch call computes this function. Each case names
+    the kernel's KMAX instantiation; ``instantiations`` (phase B's ptxas
+    report) goes in the record.
+    These launches compare; no path counts them. Returns the kernel's
+    summary entry."""
     from poppunk_tpu_torch import bench
     from poppunk_tpu_torch.ops import distances as dd
 
@@ -557,7 +567,7 @@ def phase_c2(torch, device):
               "values": 0}
     for nq, nr, geometry, klist in C2_CASES:
         ss64, bbits = geometry[:2]
-        ops = epilogue_operands(torch, device, rng, nq, nr, geometry, klist)
+        ops = epilogue_operands(device, rng, nq, nr, geometry, klist)
         errs = {}
         for random_correct, use_rc in C2_FLAGS:
             for jaccard in (True, False):
@@ -583,8 +593,10 @@ def phase_c2(torch, device):
                     oracle["undecided"] += undecided
                     oracle["values"] += rows.size
                 del got, want
+        kmax = min(m for m in dd.EPILOGUE_KMAX if m >= len(klist))
         results.append({"nq": nq, "nr": nr, "ss64": ss64, "bbits": bbits,
-                        "klist": list(klist), "max_abs_err": errs})
+                        "klist": list(klist), "kmax": kmax,
+                        "max_abs_err": errs})
         if geometry is BENCH:
             q, r = C2_PAIR
             tiles = {}
@@ -614,7 +626,10 @@ def phase_c2(torch, device):
                 lambda: dd.dist_epilogue(*args, jaccard=True), 20)
             bound_ms, bound_by, reckoning = bench.epilogue_bound(
                 nq, nr, len(klist), window["sm_clock_mhz"])
+            instantiation = f"KMAX {kmax} random 1 rc 1 jaccard 0"
             timing = dict(shape=[nq, nr, len(klist)], ms=window["ms"],
+                          instantiation=instantiation,
+                          ptxas=instantiations.get(instantiation),
                           plain_ms=plain_ms, jaccard_ms=jaccard_ms,
                           library_ms=None, bound_ms=bound_ms,
                           bound_by=bound_by,
@@ -625,7 +640,7 @@ def phase_c2(torch, device):
         del ops
     emit({"phase": "C2", "cases": results, "timing": timing,
           "max_abs_err": worst, "jaccard_max_abs_err": jac_worst,
-          "oracle": oracle,
+          "oracle": oracle, "instantiations": instantiations,
           "seconds": elapsed(torch, t0)})
     if jac_worst:
         raise AssertionError(f"C2: Jaccards differ: {results}")
@@ -4076,7 +4091,7 @@ def main():
 
     device = torch.device("cuda", 0)
     smi = phase_a(torch)
-    phase_b()
+    instantiations = phase_b()
     if sys.argv[1:] == ["--mesh-only"]:
         mesh_only(torch, device)
         print(smi, flush=True)
@@ -4085,7 +4100,7 @@ def main():
             "count": torch.cuda.device_count()}})
         return 0
     kernels = phase_c(torch, device)
-    kernels["dist_epilogue"] = phase_c2(torch, device)
+    kernels["dist_epilogue"] = phase_c2(torch, device, instantiations)
     l0_err, _ = phase_l0(torch, device)
     kernels["match_counts"]["max_abs_err"] = max(
         kernels["match_counts"]["max_abs_err"], l0_err)

@@ -36,7 +36,9 @@ LINK_FLAGS = ["-shared"]
 
 _lib = None
 build_seconds = None  # wall time of this process's build (None: cached)
-ptxas_report = None  # ptxas's per-kernel registers / spills of that build
+# ptxas's per-kernel registers, stack and spills of the library's build,
+# kept beside it (<library>.ptxas) and read back when it is cached
+ptxas_report = None
 
 
 def find_nvcc():
@@ -93,6 +95,9 @@ def build():
     global build_seconds, ptxas_report
     out = library_path()
     if os.path.isfile(out):
+        if ptxas_report is None and os.path.isfile(out + ".ptxas"):
+            with open(out + ".ptxas") as f:
+                ptxas_report = f.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
@@ -104,9 +109,12 @@ def build():
                      for src, obj in zip(_sources(), objects)])
         tmp = os.path.join(tmp_dir, os.path.basename(out))
         _run([[nvcc] + LINK_FLAGS + ["-o", tmp] + objects])
+        ptxas_report = "".join(errs)
+        with open(tmp + ".ptxas", "w") as f:
+            f.write(ptxas_report)
+        os.replace(tmp + ".ptxas", out + ".ptxas")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half
     build_seconds = time.perf_counter() - t0
-    ptxas_report = "".join(errs)
     return out
 
 

@@ -18,6 +18,8 @@ modules at bench.py's sizes and seeds, and prints one JSON record:
                      host, after the device timing
   --kernel-ab        both match-count kernels alone, against the bound and
                      torch.cdist(p=0) on the unpacked signatures
+  --epilogue         the distance epilogue kernel alone on kernel 1's
+                     counts, against its bound and its plain version
   --serve            the fused route (boundary post on the card, classes
                      to the host) against the two-pass route (distances
                      to the host, classified there)
@@ -73,7 +75,8 @@ import torch
 
 from . import _device
 from .ops import match_counts as mc
-from .ops.distances import (_dist_chunk, _Operands, plane_geometry,
+from .ops.distances import (_dist_chunk, _Operands, dist_epilogue,
+                            dist_epilogue_torch, plane_geometry,
                             planes_to_tensor)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -547,6 +550,110 @@ def kernel_ab(device=None, nq=2048, nr=4096):
         library_ms=library_ms, library_pairs_per_s=nq * nr / (
             library_ms / 1e3))
 
+
+
+def strain_planes(rng, n, geometry, n_strains=16):
+    """Random planes [n, K, P, Wp] in ``n_strains`` strains: genome g keeps
+    each 32-bin word of its strain's planes with a probability of its own
+    (falling with k), and draws the rest afresh, so pairs of one strain
+    share a spread of bins and other pairs meet at chance."""
+    ss64, bbits, K = geometry
+    w32, wp, _ = plane_geometry(ss64, bbits)
+    base = rng.integers(0, 2**32, (n_strains, K, bbits, w32), dtype=np.uint32)
+    keep = (rng.random((n, 1, 1, 1)) ** 0.5
+            * np.linspace(1.0, 0.6, K)[None, :, None, None])
+    planes = np.zeros((n, K, bbits, wp), dtype=np.uint32)
+    for start in range(0, n, 512):
+        sl = slice(start, min(start + 512, n))
+        m = sl.stop - sl.start
+        kept = rng.random((m, K, 1, w32)) < keep[sl]
+        planes[sl, ..., :w32] = np.where(
+            kept, base[np.arange(start, sl.stop) % n_strains],
+            rng.integers(0, 2**32, (m, K, bbits, w32), dtype=np.uint32))
+    return planes
+
+
+def epilogue_operands(device, rng, nq, nr, geometry, klist):
+    """Kernel 1's counts [nq, nr, K] on strain-structured planes, with the
+    degenerate query rows written over them (row 0 no bin matches, row 1
+    the chance count nbins / 2^bbits rounded up, row 2 every bin: identical
+    genomes), ~2 Mbp lengths with two short genomes (query row 3, column
+    3), Dirichlet base frequencies with a one-base genome on each side
+    (row / column 4) and an even one (row / column 5). Returns (counts,
+    len_q, len_r, freq_q, freq_r) on ``device``."""
+    ss64, bbits = geometry[:2]
+    planes = strain_planes(rng, nq + nr, geometry)
+    pad_bits = plane_geometry(ss64, bbits)[2]
+    counts = mc.match_counts(planes_to_tensor(planes[:nq], device),
+                             planes_to_tensor(planes[nq:], device), pad_bits)
+    del planes
+    nbins = ss64 * 64
+    counts[0] = 0
+    counts[1] = int(np.ceil(nbins / 2**bbits))
+    counts[2] = nbins
+    lq = rng.integers(1_800_000, 2_400_000, nq).astype(np.int32)
+    lr = rng.integers(1_800_000, 2_400_000, nr).astype(np.int32)
+    lq[3], lr[3] = 20, 10
+    fq = rng.dirichlet(np.ones(4), nq).astype(np.float32)
+    fr = rng.dirichlet(np.ones(4), nr).astype(np.float32)
+    fq[4] = fr[4] = (1.0, 0.0, 0.0, 0.0)
+    fq[5] = fr[5] = 0.25
+    return (counts, *(torch.as_tensor(a, device=device)
+                      for a in (lq, lr, fq, fr)))
+
+
+def epilogue(device=None, nq=2048, nr=4096):
+    """The distance epilogue alone (ops/distances.dist_epilogue: the
+    csrc/dist_epilogue.cu kernel on the card) on kernel 1's counts of
+    strain-structured planes at the headline's geometry
+    (epilogue_operands), held to its plain version (Jaccards bit for bit,
+    distances within DIST_TOL); the distances timed over ~1 s at the SM
+    clock against epilogue_bound, the Jaccards and the plain version
+    beside them, and the plain version on the host's CPU at 512 query
+    rows."""
+    device = _device.resolve(device)
+    geometry = (SS64, BBITS, len(KLIST))
+    ops = epilogue_operands(device, np.random.default_rng(11),
+                            nq, nr, geometry, KLIST)
+    args = (ops[0], KLIST, *ops[1:], SS64, BBITS)
+    for jaccard in (True, False):
+        got = dist_epilogue(*args, jaccard=jaccard)
+        want = dist_epilogue_torch(*args, jaccard=jaccard)
+        same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                if jaccard else bool(torch.isclose(
+                    got, want, rtol=1e-5, atol=2e-5).all()))
+        if not same:
+            raise AssertionError(f"the epilogue kernel's "
+                                 f"{'Jaccards' if jaccard else 'distances'}"
+                                 f" differ from the plain version's")
+    fn = lambda: dist_epilogue(*args)  # noqa: E731
+    rec = {"nq": nq, "nr": nr, "K": len(KLIST)}
+    if device.type == "cuda":
+        window = clock_window(fn, event_ms(fn, 10))
+        rec.update(ms=window["ms"], sm_clock_mhz=window["sm_clock_mhz"],
+                   sm_clock_samples=window["sm_clock_samples"],
+                   jaccard_ms=event_ms(
+                       lambda: dist_epilogue(*args, jaccard=True), 20),
+                   plain_ms=event_ms(lambda: dist_epilogue_torch(*args), 3))
+        rec["bound_ms"], rec["bound_by"], rec["reckoning"] = epilogue_bound(
+            nq, nr, len(KLIST), window["sm_clock_mhz"])
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        # the plain version is also the product path on CPU tensors: time
+        # it on the host's cores at a chunk's block of query rows
+        cpu = torch.device("cpu")
+        rows = min(nq, 512)
+        cpu_args = (ops[0][:rows].to(cpu), KLIST, ops[1][:rows].to(cpu),
+                    ops[2].to(cpu), ops[3][:rows].to(cpu), ops[4].to(cpu),
+                    SS64, BBITS)
+        dist_epilogue_torch(*cpu_args)
+        rec.update(cpu_plain_rows=rows, cpu_plain_ms=device_ms(
+            lambda: dist_epilogue_torch(*cpu_args), 3, cpu))
+    else:
+        rec["ms"] = device_ms(fn, 1, device)
+    return base_record(
+        f"distance epilogue alone ({nq} x {nr} x K {len(KLIST)}, "
+        f"sketch 9984, {BBITS} planes)", nq * nr / (rec["ms"] / 1e3),
+        "pairs/s", device, **rec)
 
 
 # --------------------------------------------------------------------------
@@ -1348,7 +1455,8 @@ def capture(out, only=None, extra_args=(), run=None):
 
 
 MODES = {
-    "kernel_ab": kernel_ab, "serve": serve, "serve_prod": serve_prod,
+    "kernel_ab": kernel_ab, "epilogue": epilogue, "serve": serve,
+    "serve_prod": serve_prod,
     "scale": scale_mode, "colshard": colshard, "validate": validate,
     "brandes_ab": brandes_ab, "fill_profile": fill_profile,
     "sketch": sketch, "refine_corners": refine_corners,
@@ -1361,7 +1469,8 @@ def get_options(argv=None):
         description="The port's bench on one CUDA card (the headline "
                     "without a mode); one JSON record per mode.")
     mode = parser.add_mutually_exclusive_group()
-    for flag in ("--kernel-ab", "--serve", "--serve-prod", "--brandes-ab",
+    for flag in ("--kernel-ab", "--epilogue", "--serve", "--serve-prod",
+                 "--brandes-ab",
                  "--sketch", "--refine-corners", "--capture"):
         mode.add_argument(flag, action="store_true")
     for flag, n in (("--scale", 20480), ("--colshard", 16384),
@@ -1369,7 +1478,7 @@ def get_options(argv=None):
         mode.add_argument(flag, type=int, nargs="?", const=n, metavar="N",
                           help=f"genomes (default {n})")
     parser.add_argument("--nq", type=int, help="queries (the headline, "
-                        "--kernel-ab, --serve, --serve-prod)")
+                        "--kernel-ab, --epilogue, --serve, --serve-prod)")
     parser.add_argument("--nr", type=int, help="references (likewise)")
     parser.add_argument("--device", choices=["cpu"],
                         help="run on the CPU (the kernels' plain versions; "
@@ -1399,7 +1508,7 @@ def main(argv=None):
         record = headline(device, **sizes)[0]
     else:
         value = getattr(args, name)
-        kwargs = dict(sizes) if name in ("kernel_ab", "serve",
+        kwargs = dict(sizes) if name in ("kernel_ab", "epilogue", "serve",
                                          "serve_prod") else {}
         if not isinstance(value, bool):
             kwargs["n"] = value

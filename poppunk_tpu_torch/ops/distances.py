@@ -30,8 +30,10 @@ from . import match_counts as mc
 _LANES = 128
 
 EPILOGUE_LAUNCHES = 0  # dist_epilogue kernel launches in this process
-# csrc/dist_epilogue.cu: MAX_K, the k-mer lengths a thread's arrays hold
+# csrc/dist_epilogue.cu: MAX_K, the most k-mer lengths it takes, and its
+# instantiations' KMAX, the first at least K taken at launch
 EPILOGUE_MAX_K = 32
+EPILOGUE_KMAX = (8, 32)
 
 
 def plane_geometry(sketchsize64, bbits):
@@ -115,12 +117,36 @@ def _random_match_dots(freq_q, freq_r, use_rc=True):
                  else None)
 
 
+def pow_f64(x, k):
+    """float32 ``x ** k`` for a non-negative integer ``k``, rounded once:
+    ``x`` widened to float64, squared and multiplied over the bits of ``k``
+    from the lowest (the running square times the result where a bit is
+    set), then cast to float32. csrc/dist_epilogue.cu runs the same chain
+    of float64 multiplies, so the two stay bit-equal; the result is within
+    half a float32 ulp plus ~1e-15 relative of the exact power (float32
+    ``pow`` is not correctly rounded, and x * x * x rounds twice)."""
+    if float(k) != int(k) or int(k) < 0:
+        raise ValueError(f"pow_f64 takes a non-negative integer exponent, "
+                         f"not {k}")
+    k = int(k)
+    if k == 0:
+        return torch.ones_like(x)
+    base, out = x.to(torch.float64), None
+    while True:
+        if k & 1:
+            out = base if out is None else out * base
+        k >>= 1
+        if not k:
+            return out.to(torch.float32)
+        base = base * base
+
+
 def _random_jaccard_dots(k, len_q, len_r, dots):
     """_random_jaccard from the precomputed _random_match_dots."""
     dot, dot_rc = dots
-    p = dot ** k  # [nq, nr]
+    p = pow_f64(dot, k)  # [nq, nr]
     if dot_rc is not None:
-        p = p + dot_rc ** k
+        p = p + pow_f64(dot_rc, k)
     n1 = (len_q.to(torch.float32) - k + 1).clamp(min=1.0)[:, None]
     n2 = (len_r.to(torch.float32) - k + 1).clamp(min=1.0)[None, :]
     inter = n1 * n2 * p
@@ -219,6 +245,11 @@ def dist_epilogue(matches, klist, len_q, len_r, freq_q, freq_r, sketchsize64,
     dist_epilogue_torch on CPU tensors. Lengths are int32 [n], frequencies
     float32 [n, 4], everything contiguous on one device; a CUDA input the
     kernel cannot take raises.
+
+    The kernel: one thread per pair, a block 256 references of one query
+    row. Its instantiation for the largest K, EPILOGUE_KMAX 8 or 32, is
+    taken from K, so the log j and the fit's partial sums stay in
+    registers. dot^k is pow_f64's float64 chain.
 
     The kernel's Jaccards equal the plain version's on the card bit for
     bit, and its distances are within DIST_TOL of them (equal under torch

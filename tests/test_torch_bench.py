@@ -110,6 +110,7 @@ def test_bound_at_the_h100_clock():
 MODE_CASES = {
     "kernel_ab": (dict(nq=32, nr=64), {"kernels", "vs_standard",
                                        "library_ms"}),
+    "epilogue": (dict(nq=16, nr=32), {"ms", "nq", "nr", "K"}),
     "serve": (dict(nq=16, nr=64), {"fused_pairs_per_s",
                                    "two_pass_pairs_per_s",
                                    "class_agreement"}),

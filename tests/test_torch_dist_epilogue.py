@@ -27,11 +27,15 @@ bench's, its unrelated pairs' counts drawn at chance.
 """
 
 import json
+import sys
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from poppunk_tpu.ops import distances as jd
 from poppunk_tpu.ops import kmer_fit as jk
@@ -50,9 +54,12 @@ JACCARD_TOL = dict(rtol=1e-6, atol=1e-9)
 CORRECTED_TOL = dict(rtol=1e-6, atol=1e-7)
 U32 = 2.0 ** -24
 SS64, BBITS = 32, 14
-# K 1, 5, 6 and 29 (cli/common.py::parse_kmers' widest list, 3..31)
+# K 1, 5, 6 and 29 (cli/common.py::parse_kmers' widest list, 3..31); 8 and
+# 9 on either side of the kernel's KMAX 8 instantiation, 32 its KMAX 32
+# edge (k 32-34 past the squares a pair holds: the pow chain goes on)
 KLISTS = {1: (17,), 5: (13, 17, 21, 25, 29), 6: (13, 16, 19, 22, 25, 28),
-          29: tuple(range(3, 32))}
+          8: tuple(range(13, 29, 2)), 9: tuple(range(13, 31, 2)),
+          29: tuple(range(3, 32)), 32: tuple(range(3, 35))}
 FLAGS = [(True, True), (True, False), (False, False)]
 
 
@@ -195,6 +202,65 @@ def test_the_wrapper_refuses_a_mismatched_out():
     with pytest.raises(ValueError, match="out"):
         td.dist_epilogue(counts, KLISTS[6], lq, lr, fq, fr, SS64, BBITS,
                          jaccard=True, out=torch.empty((6, 7, 2)))
+
+
+# --------------------------------------------------------------------------
+# the float64 pow chain of the random-match term (pow_f64, the kernel's too)
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_pow_f64_equals_torch_pow_at_k_0_1_2(k):
+    """x ** 0 is 1, x ** 1 is x, and x * x is exact in float64, so rounded
+    once it is torch's float32 x * x: bit for bit, at the edges too."""
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(np.concatenate([
+        rng.random(4096), [0.0, 1.0, 1e-30, 0.5, 3.0, 1e20]]).astype(
+            np.float32))
+    got = td.pow_f64(x, k)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32),
+                       torch.pow(x, k).view(torch.int32))
+
+
+def _within_half_ulp_of_the_exact_power(x, k, got):
+    """|got - x^k| <= half a float32 ulp + 1e-15 x^k, x^k exact (Fraction)."""
+    exact = Fraction(float(x)) ** k
+    ulp = Fraction(float(np.spacing(np.float32(float(exact)))))
+    return abs(Fraction(float(got)) - exact) <= ulp / 2 + Fraction(
+        1e-15) * exact
+
+
+@settings(max_examples=300, deadline=None)
+@given(x=st.floats(0.0, 1.0, width=32), k=st.integers(3, 31))
+@example(x=0.0, k=3)
+@example(x=1.0, k=31)
+@example(x=float(np.nextafter(np.float32(1), np.float32(0))), k=31)
+def test_pow_f64_is_within_half_an_ulp_of_the_exact_power(x, k):
+    got = td.pow_f64(torch.tensor([x], dtype=torch.float32), k)[0]
+    assert _within_half_ulp_of_the_exact_power(x, k, got)
+
+
+@pytest.mark.parametrize("k", range(3, 32))
+def test_pow_f64_at_every_k_of_parse_kmers(k):
+    """256 draws in the range base-composition dots take, [0.15, 0.45], and
+    256 in (0, 1): each within half an ulp (+ 1e-15 relative) of the exact
+    power; no further from it than torch's float32 pow."""
+    rng = np.random.default_rng(100 + k)
+    x = np.concatenate([rng.uniform(0.15, 0.45, 256),
+                        rng.random(256)]).astype(np.float32)
+    got = td.pow_f64(torch.as_tensor(x), k).numpy()
+    torch_pow = torch.pow(torch.as_tensor(x), float(k)).numpy()
+    for xi, g, t in zip(x, got, torch_pow):
+        assert _within_half_ulp_of_the_exact_power(xi, k, g), (xi, g)
+        exact = Fraction(float(xi)) ** k
+        assert abs(Fraction(float(g)) - exact) <= abs(
+            Fraction(float(t)) - exact)
+
+
+def test_pow_f64_refuses_a_fractional_or_negative_exponent():
+    x = torch.rand(4)
+    for k in (2.5, -1):
+        with pytest.raises(ValueError, match="integer"):
+            td.pow_f64(x, k)
 
 
 def plane_major_operands(seed, n, K, ss64=8, bbits=4):
@@ -544,6 +610,49 @@ def test_kernel_values_do_not_depend_on_the_tile(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [6, 29])
+def test_kernel_gives_each_pair_its_1x1_value(cuda_device, K):
+    """Contract (c) pair by pair: at 13 x 260 (a block of 256 references
+    and one of 4) every pair equals its value in a 1 x 1 call, bit for
+    bit, in both modes."""
+    klist = KLISTS[K]
+    counts, lq, lr, fq, fr = as_tensors(epilogue_inputs(500 + K, 13, 260, K),
+                                        cuda_device)
+    for jaccard in (False, True):
+        whole = td.dist_epilogue(counts, klist, lq, lr, fq, fr, SS64, BBITS,
+                                 jaccard=jaccard)
+        one = torch.empty_like(whole)
+        for q in range(13):
+            for r in range(260):
+                one[q, r] = td.dist_epilogue(
+                    counts[q:q + 1, r:r + 1].contiguous(), klist,
+                    lq[q:q + 1], lr[r:r + 1], fq[q:q + 1], fr[r:r + 1],
+                    SS64, BBITS, jaccard=jaccard)[0, 0]
+        assert torch.equal(whole.view(torch.int32), one.view(torch.int32)), \
+            jaccard
+
+
+@pytest.mark.cuda
+def test_kernel_walks_past_the_grid_limit(cuda_device):
+    """More query rows than a grid holds in y (65,535): 524,289 query rows
+    against 3 references; the blocks go on to the rows past it. Jaccards
+    bit for bit against the plain version."""
+    klist = KLISTS[6]
+    nq, nr = 65535 * 8 + 9, 3
+    rng = np.random.default_rng(16)
+    counts = torch.as_tensor(rng.integers(0, SS64 * 64 + 1, (nq, nr, 6),
+                                          dtype=np.int32), device=cuda_device)
+    lq, lr = (torch.full((n,), 2_000_000, dtype=torch.int32,
+                         device=cuda_device) for n in (nq, nr))
+    fq, fr = (torch.full((n, 4), 0.25, device=cuda_device) for n in (nq, nr))
+    got = td.dist_epilogue(counts, klist, lq, lr, fq, fr, SS64, BBITS,
+                           jaccard=True)
+    want = td.dist_epilogue_torch(counts, klist, lq, lr, fq, fr, SS64, BBITS,
+                                  jaccard=True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_one_epilogue_launch_per_chunk_and_tile(cuda_device):
     klist, ss64, bbits = KLISTS[6], 8, 4
     planes, lengths, freqs, pad_bits = plane_major_operands(14, 96, 6)
@@ -569,6 +678,80 @@ def test_kernel_rejects_int64_lengths(cuda_device):
     with pytest.raises(TypeError, match="int32"):
         td.dist_epilogue(counts, KLISTS[6], lq.long(), lr, fq, fr, SS64,
                          BBITS)
+
+
+# --------------------------------------------------------------------------
+# the build's ptxas report and phase B's reading of it
+
+PTXAS = ("ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+         "ptxas info    : Function properties for {name}\n"
+         "    {stack} bytes stack frame, {spill} bytes spill stores, "
+         "{spill} bytes spill loads\n"
+         "ptxas info    : Used {regs} registers, used 1 barriers, "
+         "352 bytes cmem[0]\n")
+
+
+def _entry(kmax, jaccard, stack=0, spill=0, regs=64):
+    name = (f"_ZN12_GLOBAL__N_120dist_epilogue_kernelILi{kmax}ELb1ELb1ELb"
+            f"{jaccard}EEEvNS_8OperandsENS_6ParamsE")
+    return PTXAS.format(name=name, stack=stack, spill=spill, regs=regs)
+
+
+def test_the_build_keeps_its_ptxas_report_beside_the_library(tmp_path,
+                                                             monkeypatch):
+    """A stand-in nvcc writes each object and a ptxas line per source on
+    stderr; the report is the build's, and a later process that finds the
+    library built reads the same report from beside it."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import os, sys\n"
+        "args = sys.argv[1:]\n"
+        "open(args[args.index('-o') + 1], 'w').write('')\n"
+        "if '-c' in args:\n"
+        "    sys.stderr.write('ptxas info : Compiling entry function '\n"
+        "                     + repr(os.path.basename(args[-1])) + '\\n')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "ptxas_report", None)
+    monkeypatch.setattr(_build, "build_seconds", None)
+    path = _build.build()
+    report = _build.ptxas_report
+    assert "'dist_epilogue.cu'" in report and "'match_counts.cu'" in report
+    assert _build.build_seconds is not None
+    monkeypatch.setattr(_build, "ptxas_report", None)
+    monkeypatch.setattr(_build, "build_seconds", None)
+    assert _build.build() == path
+    assert _build.ptxas_report == report and _build.build_seconds is None
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_phase_b_reads_each_epilogue_instantiation():
+    """chip_smoke.py's reading of ptxas: each instantiation's registers,
+    stack and spills by its template arguments; other kernels left out."""
+    cs = _chip_smoke()
+    report = (_entry(8, 0) + _entry(32, 1, stack=64, spill=8, regs=255)
+              + PTXAS.format(name="_Z19match_counts_kernelv", stack=0,
+                             spill=0, regs=202))
+    assert cs.epilogue_instantiations(report) == {
+        "KMAX 32 random 1 rc 1 jaccard 1": {
+            "registers": 255, "stack": 64, "spill_stores": 8,
+            "spill_loads": 8},
+        "KMAX 8 random 1 rc 1 jaccard 0": {
+            "registers": 64, "stack": 0, "spill_stores": 0,
+            "spill_loads": 0}}
 
 
 # --------------------------------------------------------------------------
