@@ -1,0 +1,7 @@
+"""Share of its roofline that match_counts_kernel reaches over the traced create-db passes: the least time of the n(n-1)/2 pairs each pass needs, over the kernel's summed device time (%)."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.match_counts_createdb(run)
