@@ -11,6 +11,9 @@ Counterpart of poppunk_tpu/ops/distances.py, per query chunk:
                                                         or its torch twin
       -> (core, accessory) per pair, optionally classified (fused_assign)
 
+The engine's host work runs in ``profiling`` spans named ``dists.*``
+(profiling.py lists them); they record only while recording is on.
+
 Row conventions are the reference's (PopPUNK/utils.py:199-226,
 PopPUNK/assign.py:690): self mode returns condensed i<j rows, query mode
 row ``q * n_ref + r``. Host arrays come in and go out as numpy; the
@@ -23,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build, _device
+from .. import _build, _device, profiling
 from .kmer_fit import _fit_math
 from . import match_counts as mc
 
@@ -74,17 +77,18 @@ def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
     freqs = np.zeros((n, 4), dtype=np.float32)
     lengths[n_real:] = 2_000_000
     freqs[n_real:] = 0.25
-    for i, sk in enumerate(sketches):
-        if sk.sketchsize64 != ss64 or sk.bbits != bbits:
-            raise ValueError("Inconsistent sketch geometry")
-        lengths[i] = sk.length
-        freqs[i] = sk.base_freq
-        for ki, k in enumerate(klist):
-            u = sk.usigs[int(k)].reshape(ss64, bbits).T  # [P, ss64] uint64
-            planes[i, ki, :, 0:w32:2] = u & np.uint64(0xFFFFFFFF)
-            planes[i, ki, :, 1:w32:2] = u >> np.uint64(32)
-    if plane_major:
-        planes = np.ascontiguousarray(planes.transpose(1, 2, 0, 3))
+    with profiling.span("dists.pack_planes", sketches=n_real):
+        for i, sk in enumerate(sketches):
+            if sk.sketchsize64 != ss64 or sk.bbits != bbits:
+                raise ValueError("Inconsistent sketch geometry")
+            lengths[i] = sk.length
+            freqs[i] = sk.base_freq
+            for ki, k in enumerate(klist):
+                u = sk.usigs[int(k)].reshape(ss64, bbits).T  # [P, ss64]
+                planes[i, ki, :, 0:w32:2] = u & np.uint64(0xFFFFFFFF)
+                planes[i, ki, :, 1:w32:2] = u >> np.uint64(32)
+        if plane_major:
+            planes = np.ascontiguousarray(planes.transpose(1, 2, 0, 3))
     return planes, lengths, freqs
 
 
@@ -304,14 +308,17 @@ def _dist_chunk(qry, ref, klist, sketchsize64, bbits, random_correct,
     with a post."""
     (planes_q, len_q, freq_q), (planes_r, len_r, freq_r) = qry, ref
     _, _, pad_bits = plane_geometry(sketchsize64, bbits)
-    matches = mc.match_counts_device(planes_q, planes_r, pad_bits)
-    d = dist_epilogue(matches, klist, len_q, len_r, freq_q, freq_r,
-                      sketchsize64, bbits, random_correct, use_rc, jaccard)
-    if jaccard or post_spec is None:
-        return d
-    from .fused_assign import apply_post
+    with profiling.span("dists.enqueue",
+                        pairs=len_q.shape[0] * len_r.shape[0]):
+        matches = mc.match_counts_device(planes_q, planes_r, pad_bits)
+        d = dist_epilogue(matches, klist, len_q, len_r, freq_q, freq_r,
+                          sketchsize64, bbits, random_correct, use_rc,
+                          jaccard)
+        if jaccard or post_spec is None:
+            return d
+        from .fused_assign import apply_post
 
-    return d, apply_post(d, post_spec)
+        return d, apply_post(d, post_spec)
 
 
 class _Operands:
@@ -320,13 +327,17 @@ class _Operands:
     ``rows`` hands out views of the packed tensor."""
 
     def __init__(self, planes, lengths, freqs, device, pad_bits):
-        self.planes = planes_to_tensor(planes, device)
-        if mc.KERNEL_CHOICE == "packed":
-            self.planes = mc.pack(self.planes, pad_bits)
-        self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                       device=device)
-        self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
-                                     device=device)
+        moved = (0 if device.type == "cpu" else
+                 sum(a.nbytes for a in (planes, lengths, freqs)
+                     if not torch.is_tensor(a) or a.device.type == "cpu"))
+        with profiling.span("dists.upload", bytes=moved):
+            self.planes = planes_to_tensor(planes, device)
+            if mc.KERNEL_CHOICE == "packed":
+                self.planes = mc.pack(self.planes, pad_bits)
+            self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                           device=device)
+            self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
+                                         device=device)
 
     def rows(self, start, stop):
         planes = (self.planes.rows(start, stop)
@@ -336,9 +347,25 @@ class _Operands:
 
 
 def _to_host(out, post_spec):
-    if post_spec is None:
-        return out.cpu().numpy()
-    return out[0].cpu().numpy(), out[1].cpu().numpy()
+    """A chunk's result (one tensor, or two with a post) as numpy. While
+    spans record, the wait for the chunk's work and the copy are apart:
+    dists.fetch_wait takes the host memory, as ``.cpu()`` does before it
+    copies, and synchronises the device's current stream; otherwise the
+    copy alone waits, as it must."""
+    parts = (out,) if post_spec is None else out
+    if profiling.recording():
+        with profiling.span("dists.fetch_wait"):
+            host = [torch.empty_like(t, device="cpu") for t in parts]
+            if parts[0].device.type == "cuda":
+                torch.cuda.current_stream(parts[0].device).synchronize()
+        with profiling.span("dists.fetch_copy",
+                            bytes=sum(t.nbytes for t in parts)):
+            for h, t in zip(host, parts):
+                h.copy_(t)
+    else:
+        host = [t.cpu() for t in parts]
+    return host[0].numpy() if post_spec is None else tuple(
+        h.numpy() for h in host)
 
 
 # Below this many pairs the sharding overhead outweighs the parallelism;
@@ -404,10 +431,21 @@ def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
                         klist, sketchsize64, bbits, random_correct, use_rc,
                         jaccard, post_spec)
         out.append(_to_host(o, post_spec))
-    if post_spec is not None:
-        return (np.concatenate([o[0] for o in out], axis=0),
-                np.concatenate([o[1] for o in out], axis=0))
-    return np.concatenate(out, axis=0)
+    return _concat(out if post_spec is None
+                   else ([o[0] for o in out], [o[1] for o in out]))
+
+
+def _concat(parts):
+    """np.concatenate of a list of arrays, or each of a tuple of lists,
+    on axis 0, in a dists.concat span counting the output's bytes."""
+    with profiling.span("dists.concat") as sp:
+        if isinstance(parts, tuple):
+            out = tuple(np.concatenate(p, axis=0) for p in parts)
+            sp.add(bytes=sum(a.nbytes for a in out))
+        else:
+            out = np.concatenate(parts, axis=0)
+            sp.add(bytes=out.nbytes)
+    return out
 
 
 def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
@@ -427,39 +465,40 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
     refs = None  # on the mesh at the first chunk it takes
     n = planes.shape[0]
     out, out_extra = [], []
-    for start in range(0, n, chunk):
-        stop = min(start + chunk, n)
-        mesh = _auto_mesh(device, n * (stop - start))
-        if mesh is not None:
-            from ..parallel.dists import (ShardedReferences,
-                                          sharded_pairwise_block)
+    with profiling.span("dists.condensed_self_block"):
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            mesh = _auto_mesh(device, n * (stop - start))
+            if mesh is not None:
+                from ..parallel.dists import (ShardedReferences,
+                                              sharded_pairwise_block)
 
-            if refs is None:
-                refs = ShardedReferences(mesh, planes, lengths, freqs,
-                                         pad_bits)
-            o = sharded_pairwise_block(
-                mesh, planes[start:stop], planes, lengths[start:stop],
-                lengths, freqs[start:stop], freqs, klist, sketchsize64,
-                bbits, random_correct, use_rc, jaccard, q_chunk=chunk,
-                post_spec=post_spec, refs=refs)
-            # columns from the chunk's first genome on, as the single route
-            o = (tuple(a[:, start:] for a in o) if post_spec is not None
-                 else o[:, start:])
-        else:
-            if ops is None:
-                ops = _Operands(planes, lengths, freqs, device, pad_bits)
-            o = _to_host(_dist_chunk(
-                ops.rows(start, stop), ops.rows(start, n), klist,
-                sketchsize64, bbits, random_correct, use_rc, jaccard,
-                post_spec), post_spec)
-        block, extra = o if post_spec is not None else (o, None)
-        for local in range(stop - start):
-            out.append(block[local, local + 1:])
-            if extra is not None:
-                out_extra.append(extra[local, local + 1:])
-    if post_spec is not None:
-        return np.concatenate(out, axis=0), np.concatenate(out_extra, axis=0)
-    return np.concatenate(out, axis=0)
+                if refs is None:
+                    refs = ShardedReferences(mesh, planes, lengths, freqs,
+                                             pad_bits)
+                o = sharded_pairwise_block(
+                    mesh, planes[start:stop], planes, lengths[start:stop],
+                    lengths, freqs[start:stop], freqs, klist, sketchsize64,
+                    bbits, random_correct, use_rc, jaccard, q_chunk=chunk,
+                    post_spec=post_spec, refs=refs)
+                # columns from the chunk's first genome on, as the single
+                # route
+                o = (tuple(a[:, start:] for a in o) if post_spec is not None
+                     else o[:, start:])
+            else:
+                if ops is None:
+                    ops = _Operands(planes, lengths, freqs, device, pad_bits)
+                o = _to_host(_dist_chunk(
+                    ops.rows(start, stop), ops.rows(start, n), klist,
+                    sketchsize64, bbits, random_correct, use_rc, jaccard,
+                    post_spec), post_spec)
+            block, extra = o if post_spec is not None else (o, None)
+            with profiling.span("dists.slice"):
+                for local in range(stop - start):
+                    out.append(block[local, local + 1:])
+                    if extra is not None:
+                        out_extra.append(extra[local, local + 1:])
+        return _concat(out if post_spec is None else (out, out_extra))
 
 
 def warmup_query_programs(sketches_r, klist, post_spec=None, chunk=512,
