@@ -448,23 +448,104 @@ def _concat(parts):
     return out
 
 
+def _condensed_output(parts, n):
+    """The condensed host arrays a chunk's result parts ([rows, cols, ...]
+    tensors or arrays) are placed into: n(n-1)/2 rows each, the parts'
+    trailing shape and dtype, allocated in a dists.concat span counting
+    their bytes."""
+    pairs = n * (n - 1) // 2
+    with profiling.span("dists.concat") as sp:
+        outs = [np.empty((pairs,) + tuple(p.shape[2:]),
+                         torch.empty(0, dtype=p.dtype).numpy().dtype
+                         if torch.is_tensor(p) else p.dtype)
+                for p in parts]
+        sp.add(bytes=sum(o.nbytes for o in outs))
+    return outs
+
+
+def _place(outs, blocks, start, stop, n):
+    """Write a chunk's condensed rows into place: block row ``local`` is
+    genome start + local against genomes start..n-1, and its pairs with
+    the later genomes are condensed row start + local, which follows the
+    previous row in ``outs``."""
+    at = start * n - start * (start + 1) // 2
+    with profiling.span("dists.slice"):
+        for local in range(stop - start):
+            m = n - 1 - start - local
+            for out, block in zip(outs, blocks):
+                out[at:at + m] = block[local, local + 1:]
+            at += m
+
+
+def _staging(nbytes, count):
+    """``count`` page-locked host buffers of ``nbytes`` each."""
+    return [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(count)]
+
+
+def _staged_copy(buffer, parts):
+    """Enqueue the copy of a chunk's result ``parts`` into ``buffer``,
+    back to back (the distances first: float32, so a post's classes of up
+    to 4 bytes each start on their own boundary), and record an event
+    after it. Returns the parts' host views and the event."""
+    views, at = [], 0
+    for t in parts:
+        view = buffer[at:at + t.nbytes].view(t.dtype).view(t.shape)
+        view.copy_(t, non_blocking=True)
+        views.append(view.numpy())
+        at += t.nbytes
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(parts[0].device))
+    return views, event
+
+
+def _land(outs, fetched, n):
+    """Wait for a chunk's copy alone (its event, not the stream), then
+    place its rows; on the CPU there is nothing to wait for."""
+    views, event, start, stop = fetched
+    with profiling.span("dists.fetch_wait") as sp:
+        if event is None:
+            sp.add(ready=1)
+        else:
+            if profiling.recording():
+                sp.add(ready=int(event.query()))
+            event.synchronize()
+    _place(outs, views, start, stop, n)
+
+
 def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
                          random_correct=True, use_rc=True, jaccard=False,
                          chunk=512, post_spec=None, device=None):
     """Condensed i<j all-vs-all rows without the n x n square: each query
     chunk is compared only with the genomes from its own first row on,
-    and sliced to its upper-triangle rows at once. It runs on ``device``
-    (None: ``_device.resolve``'s choice); a chunk of n x chunk pairs or
-    more is sharded over the default mesh by pairwise_block's rule
-    (_auto_mesh), a smaller one never. The sharded chunks run against
+    and its upper-triangle rows are written straight into their span of
+    the condensed output, allocated once, at the first chunk. It runs on
+    ``device`` (None: ``_device.resolve``'s choice); a chunk of n x chunk
+    pairs or more is sharded over the default mesh by pairwise_block's
+    rule (_auto_mesh), a smaller one never. The sharded chunks run against
     every genome, whose shards are placed on the mesh once for the pass
-    (re-placing them per chunk would move n planes per chunk)."""
+    (re-placing them per chunk would move n planes per chunk), and their
+    host rows are placed at once.
+
+    On a card each chunk's result is copied, without waiting, into one of
+    two reused page-locked buffers, taken at the first chunk computed
+    there, which is the largest (a later chunk has fewer columns, or is
+    the ragged last), and an event is recorded after the copy; the host
+    then waits for the previous such chunk's event and places its rows
+    while the card computes and copies this chunk. The chunk two before,
+    which used the same buffer, was placed before this chunk's copy was
+    enqueued. The caching allocator may hand a result's memory to the
+    next chunk at once: its kernels queue behind the copy on the same
+    stream. On the CPU a chunk's rows are placed as they are."""
     device = _device.resolve(device)
     pad_bits = plane_geometry(sketchsize64, bbits)[2]
     ops = None  # on the device at the first chunk the mesh does not take
     refs = None  # on the mesh at the first chunk it takes
     n = planes.shape[0]
-    out, out_extra = [], []
+    if n < 1:
+        raise ValueError("condensed_self_block needs at least one genome")
+    outs = buffers = pending = None
+    staged = 0
     with profiling.span("dists.condensed_self_block"):
         for start in range(0, n, chunk):
             stop = min(start + chunk, n)
@@ -483,22 +564,38 @@ def condensed_self_block(planes, lengths, freqs, klist, sketchsize64, bbits,
                     post_spec=post_spec, refs=refs)
                 # columns from the chunk's first genome on, as the single
                 # route
-                o = (tuple(a[:, start:] for a in o) if post_spec is not None
-                     else o[:, start:])
-            else:
-                if ops is None:
-                    ops = _Operands(planes, lengths, freqs, device, pad_bits)
-                o = _to_host(_dist_chunk(
-                    ops.rows(start, stop), ops.rows(start, n), klist,
-                    sketchsize64, bbits, random_correct, use_rc, jaccard,
-                    post_spec), post_spec)
-            block, extra = o if post_spec is not None else (o, None)
-            with profiling.span("dists.slice"):
-                for local in range(stop - start):
-                    out.append(block[local, local + 1:])
-                    if extra is not None:
-                        out_extra.append(extra[local, local + 1:])
-        return _concat(out if post_spec is None else (out, out_extra))
+                blocks = [a[:, start:] for a in
+                          (o if post_spec is not None else (o,))]
+                if outs is None:
+                    outs = _condensed_output(blocks, n)
+                _place(outs, blocks, start, stop, n)
+                continue
+            if ops is None:
+                ops = _Operands(planes, lengths, freqs, device, pad_bits)
+            o = _dist_chunk(ops.rows(start, stop), ops.rows(start, n), klist,
+                            sketchsize64, bbits, random_correct, use_rc,
+                            jaccard, post_spec)
+            parts = (o,) if post_spec is None else o
+            if outs is None:
+                outs = _condensed_output(parts, n)
+            nbytes = sum(t.nbytes for t in parts)
+            if device.type != "cuda":
+                with profiling.span("dists.fetch_copy", bytes=nbytes):
+                    views = [t.numpy() for t in parts]
+                _land(outs, (views, None, start, stop), n)
+                continue
+            if buffers is None:
+                buffers = _staging(nbytes, min(2, -(-(n - start) // chunk)))
+            with profiling.span("dists.fetch_copy", bytes=nbytes):
+                views, event = _staged_copy(buffers[staged % 2], parts)
+            del o, parts  # the next chunk may take their device memory
+            staged += 1
+            if pending is not None:
+                _land(outs, pending, n)
+            pending = (views, event, start, stop)
+        if pending is not None:
+            _land(outs, pending, n)
+    return outs[0] if post_spec is None else tuple(outs)
 
 
 def warmup_query_programs(sketches_r, klist, post_spec=None, chunk=512,

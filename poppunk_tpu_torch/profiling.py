@@ -22,7 +22,7 @@ the queued CUDA work on entry and exit, so it is charged its device time.
 With ``enable()`` a report prints at exit, one line per span name: calls,
 total seconds, self seconds (the total less its child spans'), the self
 time's share of the top-level spans' total (the shares sum to 100%),
-faults and bytes.
+faults, bytes, and the sums of the other counts (``ready=19``).
 
 The spans:
 
@@ -37,12 +37,23 @@ The spans:
                                        (0 on the CPU)
     dists.enqueue                      a chunk's match-count and epilogue
                                        launches (host time); pairs
-    dists.fetch_wait                   a chunk's host buffer taken, then
-                                       the host waiting for its work
-    dists.fetch_copy                   the chunk's copy to host memory;
-                                       bytes
-    dists.slice                        a chunk's condensed row views
-    dists.concat                       the output's concatenation; bytes
+    dists.fetch_copy                   a chunk's result toward the host;
+                                       bytes. In condensed_self_block the
+                                       enqueue of its copy into a
+                                       page-locked staging buffer on a
+                                       card, nothing on the CPU; elsewhere
+                                       the copy
+    dists.fetch_wait                   in condensed_self_block the wait for
+                                       that copy's event alone (ready 1
+                                       when it had completed before the
+                                       wait, always on the CPU); elsewhere
+                                       the host buffer taken, then a
+                                       stream synchronise
+    dists.slice                        a chunk's condensed rows written
+                                       into place in the output
+    dists.concat                       condensed_self_block's output
+                                       allocated; pairwise_block's chunks
+                                       concatenated; bytes out
 """
 
 import atexit
@@ -198,17 +209,23 @@ def self_seconds(recorded):
 
 
 def summary(recorded):
-    """{name: [calls, total_s, self_s, faults, bytes]} in the order of each
-    name's first start, and the top-level spans' total seconds."""
+    """{name: [calls, total_s, self_s, faults, bytes, {other count: sum}]}
+    in the order of each name's first start, and the top-level spans'
+    total seconds."""
     own = self_seconds(recorded)
     rows = {}
     for s in sorted(recorded, key=lambda s: s.start):
-        row = rows.setdefault(s.name, [0, 0.0, 0.0, 0, 0])
+        row = rows.setdefault(s.name, [0, 0.0, 0.0, 0, 0, {}])
         row[0] += 1
         row[1] += s.end - s.start
         row[2] += own[s.index]
-        row[3] += s.counts.get("faults", 0)
-        row[4] += s.counts.get("bytes", 0)
+        for key, value in s.counts.items():
+            if key == "faults":
+                row[3] += value
+            elif key == "bytes":
+                row[4] += value
+            else:
+                row[5][key] = row[5].get(key, 0) + value
     top = sum(s.end - s.start for s in recorded if s.parent not in own)
     return rows, top
 
@@ -223,12 +240,13 @@ def report(stream=None):
     stream.write("\n== poppunk_tpu_torch spans ==\n")
     stream.write(f"  {'span'.ljust(width)}  {'calls':>6}  {'total s':>9}  "
                  f"{'self s':>9}  {'self %':>6}  {'faults':>9}  "
-                 f"{'bytes':>14}\n")
-    for name, (calls, total, own, faults, nbytes) in rows.items():
+                 f"{'bytes':>14}  other counts\n")
+    for name, (calls, total, own, faults, nbytes, other) in rows.items():
         share = 100.0 * own / top if top else 0.0
+        counts = " ".join(f"{k}={v}" for k, v in other.items())
         stream.write(f"  {name.ljust(width)}  {calls:6d}  {total:9.3f}  "
                      f"{own:9.3f}  {share:6.1f}  {faults:9d}  "
-                     f"{nbytes:14d}\n")
+                     f"{nbytes:14d}  {counts}".rstrip() + "\n")
     stream.write(f"  {'TOTAL'.ljust(width)}  {'':6}  {top:9.3f}\n")
     if dropped():
         stream.write(f"  ({dropped()} earlier spans dropped)\n")

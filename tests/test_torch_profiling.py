@@ -86,7 +86,10 @@ def test_environment_turns_recording_on_and_reports_at_exit():
             "assert profiling.recording()\n"
             "with profiling.stage('distances'):\n"
             "    with profiling.span('dists.upload', bytes=7):\n"
-            "        pass\n")
+            "        pass\n"
+            "    for ready in (1, 0, 1):\n"
+            "        with profiling.span('dists.fetch_wait', ready=ready):\n"
+            "            pass\n")
     env = {**os.environ, "POPPUNK_TPU_PROFILE": "1",
            "PYTHONPATH": ROOT}
     done = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -96,6 +99,9 @@ def test_environment_turns_recording_on_and_reports_at_exit():
     rows = {line.split()[0]: line.split() for line in
             done.stderr.splitlines() if line.startswith("  dists.")}
     assert rows["dists.upload"][1] == "1" and rows["dists.upload"][-1] == "7"
+    # the other counts follow the bytes, summed over the calls
+    assert rows["dists.fetch_wait"][1] == "3"
+    assert rows["dists.fetch_wait"][-2:] == ["0", "ready=2"]
 
 
 def test_nested_spans_carry_parent_clock_and_counts(recording):
@@ -192,6 +198,8 @@ def test_condensed_self_block_spans(jaccard, recording, monkeypatch):
         for start, stop in _chunks(n, chunk)]
     assert counted("dists.upload", "bytes") == [0]  # nothing leaves the CPU
     assert counted("dists.concat", "bytes") == [n * (n - 1) // 2 * width * 4]
+    # the CPU's results are ready at once
+    assert counted("dists.fetch_wait", "ready") == [1] * calls
     monkeypatch.setattr(profiling, "_ENABLED", False)
     off = _condensed(pop, chunk, jaccard)
     assert on.tobytes() == off.tobytes()
