@@ -54,6 +54,28 @@ The spans:
     dists.concat                       condensed_self_block's output
                                        allocated; pairwise_block's chunks
                                        concatenated; bytes out
+    scale.pass1                        the streaming tier's pass 1
+                                       (scale.StreamingCondensed), parent
+                                       of the scale spans below; chunks
+                                       (folded chunks walked), pairs_needed
+                                       (n_real (n_real - 1) / 2)
+    scale.upload                       planes, lengths and frequencies to
+                                       the device in StreamingCondensed;
+                                       bytes moved from the host (0 on the
+                                       CPU)
+    scale.tile                         one tile's match-count and epilogue
+                                       launches (scale._tile_dists); pairs
+                                       (rows x columns computed)
+    scale.knn                          a chunk's kNN: the key build and
+                                       top-k, and the rows written into the
+                                       folded kNN arrays
+    scale.fill                         a chunk's refine-band fill
+                                       (scale._BandFill.add), the wait of
+                                       its nonzero included; pairs (the
+                                       chunk's in-band pairs)
+    scale.fetch                        pass 1's kNN, maxima, subsample and
+                                       band histogram to the host; bytes (0
+                                       on the CPU)
 """
 
 import atexit

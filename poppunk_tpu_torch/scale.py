@@ -85,7 +85,7 @@ import time
 import numpy as np
 import torch
 
-from . import _device
+from . import _device, profiling
 from .ops.distances import (core_accessory, dist_epilogue, plane_geometry,
                             planes_to_tensor)
 from .ops.match_counts import match_counts_device, popcount32
@@ -182,12 +182,14 @@ def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
     if not knn:
         return folded, None, None
 
-    row_ids = torch.cat([i_vec, n - s - c + torch.arange(c, device=dev)])
-    col = d[..., dist_col].contiguous()
-    col[torch.arange(2 * c, device=dev), row_ids] = float("inf")  # self
-    if n_real is not None and n_real < n:
-        col[:, n_real:] = float("inf")  # pads never neighbours
-    top_i, top_d = _seq_topk(col, knn)
+    with profiling.span("scale.knn"):
+        row_ids = torch.cat([i_vec,
+                             n - s - c + torch.arange(c, device=dev)])
+        col = d[..., dist_col].contiguous()
+        col[torch.arange(2 * c, device=dev), row_ids] = float("inf")  # self
+        if n_real is not None and n_real < n:
+            col[:, n_real:] = float("inf")  # pads never neighbours
+        top_i, top_d = _seq_topk(col, knn)
     return folded, top_i, top_d
 
 
@@ -202,15 +204,17 @@ def _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
     (the kernel's per-pair pass; ops/distances._dot4 in the plain
     version), so a column shard's tile holds the single device's values
     bit for bit."""
-    matches = match_counts_device(pq, planes, pad_bits, plane_major=True)
-    rows = pq.shape[2]
-    d = torch.empty((rows, planes.shape[2], 2), dtype=torch.float32,
-                    device=planes.device)
-    step = rows if d.is_cuda else _EPILOGUE_ROWS
-    for a in range(0, rows, step):
-        b = min(a + step, rows)
-        dist_epilogue(matches[a:b], klist, lq[a:b], lengths, fq[a:b], freqs,
-                      sketchsize64, bbits, out=d[a:b])
+    rows, cols = pq.shape[2], planes.shape[2]
+    with profiling.span("scale.tile", pairs=rows * cols):
+        matches = match_counts_device(pq, planes, pad_bits,
+                                      plane_major=True)
+        d = torch.empty((rows, cols, 2), dtype=torch.float32,
+                        device=planes.device)
+        step = rows if d.is_cuda else _EPILOGUE_ROWS
+        for a in range(0, rows, step):
+            b = min(a + step, rows)
+            dist_epilogue(matches[a:b], klist, lq[a:b], lengths, fq[a:b],
+                          freqs, sketchsize64, bbits, out=d[a:b])
     return d
 
 
@@ -287,18 +291,20 @@ class _BandFill:
     def add(self, d0, pairs):
         """Count one chunk's d0 and append its in-band pairs; ``pairs``
         maps the chunk's flat positions to global (i, j) tensors."""
-        self.cum += _cum_counts(d0, self.t)
-        pos = torch.nonzero(d0 <= self.t_band).squeeze(1)  # ascending
-        k = pos.shape[0]
-        room = max(0, min(k, self.cap - self.acc))
-        if room:
-            pos = pos[:room]
-            gi, gj = pairs(pos)
-            sl = slice(self.acc, self.acc + room)
-            self.bi[sl] = gi.to(torch.int32)
-            self.bj[sl] = gj.to(torch.int32)
-            self.bd[sl] = d0[pos]
-        self.acc += k
+        with profiling.span("scale.fill") as sp:
+            self.cum += _cum_counts(d0, self.t)
+            pos = torch.nonzero(d0 <= self.t_band).squeeze(1)  # ascending
+            k = pos.shape[0]
+            sp.add(pairs=k)
+            room = max(0, min(k, self.cap - self.acc))
+            if room:
+                pos = pos[:room]
+                gi, gj = pairs(pos)
+                sl = slice(self.acc, self.acc + room)
+                self.bi[sl] = gi.to(torch.int32)
+                self.bj[sl] = gj.to(torch.int32)
+                self.bd[sl] = d0[pos]
+            self.acc += k
 
 
 def _pair_corrected_fit(matches, li, lj, fi, fj, klist, sketchsize64,
@@ -636,15 +642,29 @@ class _ColShardedStream:
                                                  (n - s - c, n - s))):
                     ki[lo:hi] = top_i[half * c:(half + 1) * c]
                     kd[lo:hi] = top_d[half * c:(half + 1) * c]
-        sub_vals = None
-        if sub is not None:
-            sub_vals = np.empty((len(sub_flat), 2), np.float32)
-            for mine, _, _, _, got in sub:
-                if got:
-                    sub_vals[mine] = torch.cat([v.cpu() for v in got]).numpy()
-        return (ki.cpu().numpy(), kd.cpu().numpy(),
-                torch.stack([m.cpu() for m in cmax]).amax(dim=0).numpy(),
-                sub_vals)
+        with profiling.span("scale.fetch") as sp:
+            sub_vals = None
+            if sub is not None:
+                sub_vals = np.empty((len(sub_flat), 2), np.float32)
+                for mine, _, _, _, got in sub:
+                    if got:
+                        sub_vals[mine] = torch.cat(
+                            [v.cpu() for v in got]).numpy()
+            out = (ki.cpu().numpy(), kd.cpu().numpy(),
+                   torch.stack([m.cpu() for m in cmax]).amax(dim=0).numpy(),
+                   sub_vals)
+            sp.add(bytes=_host_bytes(device, *out))
+        return out
+
+
+def _host_bytes(device, *arrays):
+    """Bytes of the host side of a copy between the host and ``device``:
+    of ``arrays``, the numpy arrays and CPU tensors (None and device
+    tensors skipped); 0 when ``device`` is not a card."""
+    if torch.device(device).type != "cuda":
+        return 0
+    return sum(a.nbytes for a in arrays if a is not None and (
+        not torch.is_tensor(a) or a.device.type == "cpu"))
 
 
 class StreamingCondensed:
@@ -720,22 +740,28 @@ class StreamingCondensed:
         if self._col:
             # resolve keeps float32 products in full precision on a card
             self.device = _device.resolve(device)
-            self._cs = _ColShardedStream(devices, planes, lengths, freqs,
-                                         klist, sketchsize64, bbits, chunk,
-                                         n_real)
-            self.planes = self._cs.planes
-            self._n_dev = n_dev
         elif isinstance(planes, torch.Tensor):
             self.device = _device.resolve(planes.device if device is None
                                           else device)
-            self.planes = planes.to(self.device)
         else:
             self.device = _device.resolve(device)
-            self.planes = planes_to_tensor(planes, self.device)
-        self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                       device=self.device)
-        self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
-                                     device=self.device)
+        with profiling.span("scale.upload", bytes=_host_bytes(
+                self.device, *(planes if col else (planes,)), lengths,
+                freqs)):
+            if self._col:
+                self._cs = _ColShardedStream(devices, planes, lengths,
+                                             freqs, klist, sketchsize64,
+                                             bbits, chunk, n_real)
+                self.planes = self._cs.planes
+                self._n_dev = n_dev
+            elif isinstance(planes, torch.Tensor):
+                self.planes = planes.to(self.device)
+            else:
+                self.planes = planes_to_tensor(planes, self.device)
+            self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                           device=self.device)
+            self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
+                                         device=self.device)
         if not self._col:
             # (first folded row, planes, lengths, freqs) per row shard; the
             # operands are replicated with .to, one copy per distinct device
@@ -815,6 +841,12 @@ class StreamingCondensed:
         with the boundary-band edge fill (_stream_stats_fill_range; one
         device). Each wave enqueues one step per shard before the next. On
         column shards, _ColShardedStream.pass1."""
+        with profiling.span("scale.pass1",
+                            chunks=self._n_pad // 2 // self.chunk,
+                            pairs_needed=self.n_pairs):
+            self._walk(fill_spec)
+
+    def _walk(self, fill_spec):
         n = self._n_pad
         c = self.chunk
         knn = self._knn_k
@@ -863,7 +895,8 @@ class StreamingCondensed:
                 cmax.copy_(torch.maximum(cmax, finite.amax(dim=(0, 1))))
                 del finite
                 if knn:
-                    _fold_knn_rows(ki, kd, off, c, top_i, top_d)
+                    with profiling.span("scale.knn"):
+                        _fold_knn_rows(ki, kd, off, c, top_i, top_d)
                 flat = folded.reshape(-1, 2)
                 if fill is not None:
                     fill.add(geom.d0(flat), lambda pos: _fold_pairs(pos, s, n))
@@ -874,33 +907,39 @@ class StreamingCondensed:
                         loc = sub_flat[b0:b1] - g * c * (n - 1)
                         sub_parts.append((g, flat[loc]))
             del wave
-        if self._sub_spec is not None:
-            # back in global chunk order (folded-flat order), whatever
-            # the shard each chunk came from
-            self._sub_vals = torch.cat(
-                [v.cpu() for _, v in sorted(sub_parts,
-                                            key=lambda p: p[0])]).numpy()
+        edges = None
         if fill is not None:
             if fill.acc > fill.cap:
                 sys.stderr.write(
                     f"bootstrap fill overflow: {fill.acc} pairs > buffer "
                     f"{fill.cap} (estimated {fill_spec['e_total']}); refine "
                     "will refill exactly\n")
-                self._prefill = None
             else:
                 from .ops.sparse_sweep import SweepEdges
 
-                self._prefill = (
-                    SweepEdges(fill.bi, fill.bj, fill.bd, fill.acc, n,
-                               n_real=self._n_real),
-                    fill.cum.cpu().numpy(), dict(fill_spec))
-        knn_col, knn_dist = _unfold_knn(
-            torch.cat([st[0].cpu() for st in state]).numpy(),
-            torch.cat([st[1].cpu() for st in state]).numpy(), n)
+                edges = SweepEdges(fill.bi, fill.bj, fill.bd, fill.acc, n,
+                                   n_real=self._n_real)
+        with profiling.span("scale.fetch") as sp:
+            if self._sub_spec is not None:
+                # back in global chunk order (folded-flat order), whatever
+                # the shard each chunk came from
+                self._sub_vals = torch.cat(
+                    [v.cpu() for _, v in sorted(sub_parts,
+                                                key=lambda p: p[0])]).numpy()
+            cum = None
+            if edges is not None:
+                cum = fill.cum.cpu().numpy()
+                self._prefill = (edges, cum, dict(fill_spec))
+            ki = torch.cat([st[0].cpu() for st in state]).numpy()
+            kd = torch.cat([st[1].cpu() for st in state]).numpy()
+            self._cmax = torch.stack([st[2].cpu() for st in state]).amax(
+                dim=0).numpy()
+            sp.add(bytes=_host_bytes(
+                self.device, ki, kd, self._cmax, cum,
+                self._sub_vals if self._sub_spec is not None else None))
+        knn_col, knn_dist = _unfold_knn(ki, kd, n)
         self.knn_col = knn_col[:self._n_real]
         self.knn_dist = knn_dist[:self._n_real]
-        self._cmax = torch.stack([st[2].cpu() for st in state]).amax(
-            dim=0).numpy()
 
     def max_scale(self):
         """Column maxima over every pair (accumulated in pass 1)."""
