@@ -29,9 +29,9 @@ Phases, each printing one JSON line with its seconds:
      version and the bound from the function's operations at the shapes;
      each instantiation's registers, stack and spills (phase B: none for
      KMAX 8).
-     The epilogue is held again at
-     its routes' own operands: E's spot rows, the step block of L2, L3 and
-     M (hold_steps_to_plain), O's column tiles, Q's corner
+     The epilogue is held again at its routes' own operands: E's spot
+     rows, an owned tile of L2, L3 and M and its transposed counts
+     (hold_steps_to_plain), O's column tiles, Q's corner
   D  the CLIs end to end on a synthetic population (6 strains x 8 genomes
      of 0.5 Mbp, one genome per strain held out as a query), on the card
      by default (no --gpu-* flag): create-db, fit-model bgmm, assign;
@@ -502,22 +502,21 @@ def record_epilogue_hold(where, dist_err, jac_err=0.0):
           "jaccard_max_abs_err": jac_err})
 
 
-def hold_tile_epilogue(torch, where, q, planes, lq, lr, fq, fr, klist, ss64,
-                       bbits, pad_bits, counts, plain_counts):
-    """The epilogue kernel at a scale tile's own operands (the plane-major
-    query block ``q`` against ``planes``, whose kernel-1 and plain counts
-    are ``counts`` and ``plain_counts``): scale._tile_dists, the route
-    itself, against the plain epilogue on the plain counts within
-    DIST_TOL, and the kernel's Jaccards on the route's counts against the
-    plain version's bit for bit. The plain version runs 64 rows at a time,
-    as the CPU route does. Not counted in any path."""
-    from poppunk_tpu_torch import scale
+def hold_tile_epilogue(torch, where, route, lq, lr, fq, fr, klist, ss64,
+                       bbits, counts, plain_counts):
+    """The epilogue kernel at a scale tile's own operands (the tile's
+    kernel-1 and plain counts ``counts`` and ``plain_counts``, its query
+    genomes' lengths and frequencies lq and fq, its columns' lr and fr):
+    ``route()``, the tile's distances as the route itself computes them,
+    against the plain epilogue on the plain counts within DIST_TOL, and
+    the kernel's Jaccards on the route's counts against the plain
+    version's bit for bit. The plain version runs 64 rows at a time, as
+    the CPU route does. Not counted in any path."""
     from poppunk_tpu_torch.ops import distances as dd
 
     ops = (plain_counts, lq, lr, fq, fr)
     with uncounted():
-        got = scale._tile_dists(q, planes, lq, lr, fq, fr, klist, ss64,
-                                bbits, pad_bits)
+        got = route()
         want = torch.empty_like(got)
         for a in range(0, got.shape[0], 64):
             dd.dist_epilogue_torch(plain_counts[a:a + 64], klist,
@@ -2148,8 +2147,9 @@ def phase_l0(torch, device):
     """The standard kernel's plane-major route against the plain version
     (bit for bit) and against the contiguous route, at phase C's shapes:
     the queries a row-slice view of a resident [K, P, n, Wp] reference
-    tensor, and the scale tier's own query block (two row ranges
-    concatenated). Timed at BENCH, route against route in one window, with
+    tensor, against the whole tensor and, as the scale tier's owned tiles
+    read it, against a column view that starts at the queries' first row.
+    Timed at BENCH, route against route in one window, with
     CUDA events beside the SM clock and the bound. These launches compare;
     no path counts them. L2 and L3 hold the route to the plain version
     again at the streaming pass's own operands (hold_steps_to_plain)."""
@@ -2168,17 +2168,14 @@ def phase_l0(torch, device):
         resident = planes_to_tensor(
             random_planes(rng, nr, geometry).transpose(1, 2, 0, 3), device)
         view = resident[:, :, 1:1 + nq]
-        half = nq // 2
-        block = torch.cat([resident[:, :, 1:1 + half],
-                           resident[:, :, nr - (nq - half):]], dim=2)
         errs = {}
-        for name, q in (("view", view), ("block", block)):
-            got = mc.match_counts(q, resident, pad_bits, plane_major=True)
-            plain = mc.match_counts_torch(q, resident, pad_bits,
+        for name, r in (("view", resident), ("owned", resident[:, :, 1:])):
+            got = mc.match_counts(view, r, pad_bits, plane_major=True)
+            plain = mc.match_counts_torch(view, r, pad_bits,
                                           plane_major=True)
             contiguous = mc.match_counts(
-                q.permute(2, 0, 1, 3).contiguous(),
-                resident.permute(2, 0, 1, 3).contiguous(), pad_bits)
+                view.permute(2, 0, 1, 3).contiguous(),
+                r.permute(2, 0, 1, 3).contiguous(), pad_bits)
             torch.cuda.synchronize()
             errs[name] = max(max_abs_err(got, plain),
                              max_abs_err(got, contiguous))
@@ -2208,7 +2205,7 @@ def phase_l0(torch, device):
                 lambda: mc.match_counts_torch(
                     view, resident, pad_bits, plane_major=True), 1)
             del q_c, r_c
-        del resident, view, block
+        del resident, view
     emit({"phase": "L0", "cases": results, "timing": timing,
           "seconds": elapsed(torch, t0)})
     if worst:
@@ -2304,39 +2301,53 @@ class RecordLaunchTimes:
 
 
 def hold_steps_to_plain(torch, cd):
-    """The plane-major route at the operands the streaming pass gives it,
-    bit for bit against the plain version on the same device: the first
-    step's query block (rows [0, c) and their mirrors [n-c, n),
-    concatenated as scale._fold_block builds it) and a row-slice view of c
-    rows from the middle of the resident [K, P, n, Wp] tensor, each
-    against the whole tensor; at the step block the epilogue kernel too
-    (hold_tile_epilogue). These launches compare; no path counts them.
-    Returns {operand: max_abs_err} and the plain version's seconds."""
+    """The plane-major route at the operands the streaming pass gives it
+    (scale._fold_block), bit for bit against the plain version on the same
+    device: the owned tiles of the first step (rows [0, c) against every
+    genome, the mirror rows [n-c, n) against the columns [n-c, n)) and of
+    a middle step s (rows [s, s+c) against the columns [s, n), the mirror
+    rows [n-s-c, n-s) against [n-s-c, n)), each a row-slice view of the
+    resident [K, P, n, Wp] tensor against a column view of it at the
+    tile's row offset. At the middle step's low tile the epilogue kernel
+    too (hold_tile_epilogue), as the tile computes it (scale._tile_dists)
+    and as the kNN computes it again on the transposed counts, the column
+    genomes as the queries (scale._merge_knn). These launches compare; no
+    path counts them. Returns {operand: max_abs_err} and the plain
+    version's seconds."""
+    from poppunk_tpu_torch import scale
     from poppunk_tpu_torch.ops import match_counts as mc
 
     planes, c = cd.planes, cd.chunk
     n = planes.shape[2]
-    mid = n // 2 - c // 2
-    operands = {
-        "step_block": torch.cat([planes[:, :, :c], planes[:, :, n - c:]],
-                                dim=2),
-        "row_view": planes[:, :, mid:mid + c],
-    }
+    mid = scale.fold_rows(n) // c // 2 * c  # a middle step's first row
+    tiles = {f"{side}_step_{s}": r0 for s in (0, mid)
+             for side, r0 in (("low", s), ("mirror", n - s - c))}
     errs, plain_s = {}, 0.0
-    for name, q in operands.items():
-        got = mc.match_counts(q, planes, cd._pad_bits, plane_major=True)
+    for name, r0 in tiles.items():
+        rows, cols = slice(r0, r0 + c), slice(r0, None)
+        q, k = planes[:, :, rows], planes[:, :, cols]
+        got = mc.match_counts(q, k, cd._pad_bits, plane_major=True)
         t = time.perf_counter()
-        want = mc.match_counts_torch(q, planes, cd._pad_bits,
-                                     plane_major=True)
+        want = mc.match_counts_torch(q, k, cd._pad_bits, plane_major=True)
         plain_s += elapsed(torch, t)
         errs[name] = max_abs_err(got, want)
-        if name == "step_block" and not errs[name]:
-            rows = torch.cat([torch.arange(c), torch.arange(n - c, n)]).to(
-                planes.device)
+        if name == f"low_step_{mid}" and not errs[name]:
+            ln, fr = cd.lengths, cd.freqs
+            ops = (cd._klist, cd._ss64, cd._bbits)
             hold_tile_epilogue(
-                torch, f"step block at n {n}", q, planes, cd.lengths[rows],
-                cd.lengths, cd.freqs[rows], cd.freqs, cd._klist, cd._ss64,
-                cd._bbits, cd._pad_bits, got, want)
+                torch, f"owned tile {name} at n {n}",
+                lambda: scale._tile_dists(q, k, ln[rows], ln[cols], fr[rows],
+                                          fr[cols], *ops, cd._pad_bits),
+                ln[rows], ln[cols], fr[rows], fr[cols], *ops, got, want)
+            got_t = got.transpose(0, 1).contiguous()
+            hold_tile_epilogue(
+                torch, f"transposed tile {name} at n {n}",
+                lambda: scale._epilogue(got_t, cd._klist, ln[cols], ln[rows],
+                                        fr[cols], fr[rows], cd._ss64,
+                                        cd._bbits),
+                ln[cols], ln[rows], fr[cols], fr[rows], *ops, got_t,
+                want.transpose(0, 1).contiguous())
+            del got_t
         del got, want
     if any(errs.values()):
         raise AssertionError(f"the plane-major route disagrees with the "
@@ -2623,7 +2634,12 @@ def phase_l3(torch, device, workdir, n=65536, n_strains=128):
           "make_data_seconds": make_s, "stages": fit.stages,
           "plane_major_vs_plain": {"max_abs_err": step_errs,
                                    "plain_seconds": step_plain_s},
+          # n^2 a pass, as when every row was counted in full: comparable
+          # across runs, but twice the pairs the owned-tile walk computes,
+          # (n/2)(n + c) a pass (the next key)
           "pass1_full_row_pairs_per_s": n * n / fit.stages["pass1"],
+          "pass1_computed_pairs_per_s":
+              n // 2 * (n + fit.chunk) / fit.stages["pass1"],
           "pass1_kernel": {"launches": fit.pass1_launches,
                            "event_seconds": fit.pass1_kernel_s,
                            "rest_seconds":
@@ -3119,8 +3135,8 @@ def m1_rebuild(torch, device, n, out):
     three exact routes (time_products), the boundary's pairs are counted
     once more by the streaming recompute from the planes (for M2), and the
     kernel is held to its plain version at the streaming pass's operands
-    (hold_steps_to_plain: the first step's two-range block and a row view
-    of the resident planes)."""
+    (hold_steps_to_plain: the first and a middle step's owned tiles, row
+    views of the resident planes against column views of them)."""
     from poppunk_tpu_torch import scale, synth
 
     t0 = time.perf_counter()
@@ -3644,6 +3660,7 @@ def hold_col_tile_to_plain(torch, cd):
     epilogue kernel at the same tile (hold_tile_epilogue). These launches
     compare; no path counts them. Returns (kernel 1's max_abs_err, the
     plain version's seconds, the operands' shapes)."""
+    from poppunk_tpu_torch import scale
     from poppunk_tpu_torch.ops import match_counts as mc
 
     cs = cd._cs
@@ -3663,9 +3680,11 @@ def hold_col_tile_to_plain(torch, cd):
     _, ln, fr, l_loc, f_loc = cs._ops[-1]
     rows = torch.cat([torch.arange(a, b, device=shard.device)
                       for a, b in ranges])
-    hold_tile_epilogue(torch, f"column tile {shapes}", q, shard, ln[rows],
-                       l_loc, fr[rows], f_loc, cs.klist, cs.ss64, cs.bbits,
-                       cs.pad_bits, got, want)
+    ops = (ln[rows], l_loc, fr[rows], f_loc, cs.klist, cs.ss64, cs.bbits)
+    hold_tile_epilogue(torch, f"column tile {shapes}",
+                       lambda: scale._tile_dists(q, shard, *ops,
+                                                 cs.pad_bits),
+                       *ops, got, want)
     return err, plain_s, shapes
 
 

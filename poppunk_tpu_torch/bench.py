@@ -1156,19 +1156,22 @@ def fill_profile(device=None, n=20480, steps=16):
     the host clock around a synchronised run (CUDA event time of the
     kernel launches beside it):
 
-      kernel     the plane-major kernel alone on each step's 2c rows
-                 against the resident planes;
+      kernel     the plane-major kernel alone on each step's two owned
+                 tiles: its c low rows against the planes from row s on,
+                 its c mirror rows against those from row n-s-c on, both
+                 views of the resident planes;
       fold       scale._fold_block without the kNN: + the epilogue
                  (_tile_dists) and the fold (fill_condensed_device's step);
-      fold+knn   the full stats step: + the fused kNN (StreamingCondensed
+      fold+knn   the full stats step: + the running kNN (StreamingCondensed
                  pass 1's step);
       stats+fill + the bootstrap's band fill (_BandFill.add at bench.py's
                  line), pass 1 as the two-round bootstrap runs it.
 
-    Full-row pairs per second each; the fold's share against the kernel's
-    is what the epilogue kernel (csrc/dist_epilogue.cu) and the fold add
-    to the counts."""
-    from .scale import (_BandFill, _SweepGeometry, _fold_block, _fold_pairs)
+    Computed pairs per second each, c (n + c) a step; the fold's share
+    against the kernel's is what the epilogue kernel
+    (csrc/dist_epilogue.cu) and the fold add to the counts."""
+    from .scale import (_BandFill, _SweepGeometry, _fold_block, _fold_pairs,
+                        _knn_keys)
 
     device = _device.resolve(device)
     _, _, pad_bits = plane_geometry(SS64, BBITS)
@@ -1181,22 +1184,21 @@ def fill_profile(device=None, n=20480, steps=16):
     def kernel():
         acc = torch.zeros((), dtype=torch.int64, device=device)
         for s in starts:
-            rows = torch.cat([planes[:, :, s:s + c],
-                              planes[:, :, n - s - c:n - s]], dim=2)
-            acc += mc.match_counts(rows, planes, pad_bits,
-                                   plane_major=True).sum()
+            for r0 in (s, n - s - c):
+                acc += mc.match_counts(planes[:, :, r0:r0 + c],
+                                       planes[:, :, r0:], pad_bits,
+                                       plane_major=True).sum()
         return acc
 
     def fold(knn):
         def run():
             acc = torch.zeros((), dtype=torch.float32, device=device)
+            keys = _knn_keys(n, knn, device) if knn else None
             for s in starts:
-                folded, ti, td = _fold_block(planes, lengths, freqs, s, c,
-                                             KLIST, SS64, BBITS, pad_bits,
-                                             knn, 0)
-                acc += folded.sum()
-                if knn:
-                    acc += td.sum() + ti.sum()
+                acc += _fold_block(planes, lengths, freqs, s, c, KLIST, SS64,
+                                   BBITS, pad_bits, keys, 0).sum()
+            if knn:
+                acc += keys[:, 0].min().to(torch.float32)
             return acc
         return run
 
@@ -1206,14 +1208,15 @@ def fill_profile(device=None, n=20480, steps=16):
 
     def stats_fill():
         fill = _BandFill(n, geom.t, 40, steps * c * (n - 1), device)
+        keys = _knn_keys(n, 5, device)
         for s in starts:
-            folded, ti, td = _fold_block(planes, lengths, freqs, s, c, KLIST,
-                                         SS64, BBITS, pad_bits, 5, 0)
+            folded = _fold_block(planes, lengths, freqs, s, c, KLIST, SS64,
+                                 BBITS, pad_bits, keys, 0)
             fill.add(geom.d0(folded.reshape(-1, 2)),
                      lambda pos: _fold_pairs(pos, s, n))
         return fill.acc
 
-    pairs = 2 * c * steps * n
+    pairs = c * (n + c) * steps
     detail = {}
     for name, fn in (("kernel", kernel), ("fold", fold(0)),
                      ("fold+knn", fold(5)), ("stats+fill", stats_fill)):
@@ -1231,11 +1234,11 @@ def fill_profile(device=None, n=20480, steps=16):
     if device.type == "cuda":
         detail["kernel"]["event_ms"] = event_ms(kernel, 1)
     return base_record(
-        f"fill profile n={n} c={c} over {steps} chunks (full-row pairs/s "
+        f"fill profile n={n} c={c} over {steps} chunks (computed pairs/s "
         "of the stats step)", detail["fold+knn"]["pairs_per_s"], "pairs/s",
         device, vs_baseline=(detail["fold+knn"]["pairs_per_s"]
                              / detail["kernel"]["pairs_per_s"]),
-        n=n, chunk=c, steps=steps, full_row_pairs=pairs, detail=detail)
+        n=n, chunk=c, steps=steps, computed_pairs=pairs, detail=detail)
 
 
 # --------------------------------------------------------------------------

@@ -66,9 +66,11 @@ The spans:
     scale.tile                         one tile's match-count and epilogue
                                        launches (scale._tile_dists); pairs
                                        (rows x columns computed)
-    scale.knn                          a chunk's kNN: the key build and
-                                       top-k, and the rows written into the
-                                       folded kNN arrays
+    scale.knn                          an owned tile's kNN
+                                       (scale._merge_knn): the epilogue on
+                                       the transposed counts, the key
+                                       build, the top-k and the merge into
+                                       the running kNN
     scale.fill                         a chunk's refine-band fill
                                        (scale._BandFill.add), the wait of
                                        its nonzero included; pairs (the

@@ -9,15 +9,17 @@ and every pass recomputes distances chunk by chunk from them through the
 match-count kernel's plane-major route.
 
 Layout — the "folded" condensed buffer. Each step computes two row blocks,
-rows [s, s+c) and their mirrors [n-s-c, n-s), and folds row i with row
+rows [s, s+c) and their mirrors [n-s-c, n-s), each against the genomes
+from its first row on (the pairs it owns), and folds row i with row
 i' = n-1-i into one fixed-width line of n-1 pairs:
 
     fold row r = i:   positions [0, n-1-i)   <- pairs (i, j), j = q+i+1
                       positions [n-1-i, n-1) <- pairs (i', j), j = q+1
 
 so the folded chunk [c, n-1, 2] holds each unordered pair exactly once;
-fold_index / fold_inverse map (i < j) <-> flat positions. The mirror rows
-complete every full row for the fused kNN.
+fold_index / fold_inverse map (i < j) <-> flat positions. The fused kNN is
+a running top-k over every genome, merged chunk by chunk from both sides
+of each pair (_merge_knn).
 
 Passes:
   - pass 1 (StreamingCondensed): fused kNN, column maxima and the
@@ -141,102 +143,191 @@ _BUF_ROWS = 1024
 _SQUARE_ROWS = 2048
 
 
+# the kNN key of an empty slot: above every candidate's (_keys), so the
+# merges never pick it while a candidate is left
+_ABSENT = torch.iinfo(torch.int64).max
+
+
+def _knn_keys(n, k, device):
+    """An empty running kNN: int64 [n, k] keys (_keys), every slot
+    _ABSENT, for _fold_block to merge into."""
+    return torch.full((n, k), _ABSENT, dtype=torch.int64, device=device)
+
+
 def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
-                pad_bits, knn, dist_col, n_real=None):
+                pad_bits, knn_keys=None, dist_col=0, n_real=None):
     """One step: distances for folded rows [s, s+c).
 
-    planes is PLANE-MAJOR [K, P, n, Wp] int32, resident; the 2c query rows
-    (genomes s..s+c-1 and their mirrors n-s-c..n-s-1) are copied into one
-    [K, P, 2c, Wp] block and counted against the whole tensor in one
-    kernel launch. Returns (folded [c, n-1, 2], top_idx, top_d), the kNN
-    arrays [2c, knn] ordered [low rows asc | mirror rows asc by genome id];
-    knn == 0 skips the kNN (the sweeps' passes).
+    planes is PLANE-MAJOR [K, P, n, Wp] int32, resident. Folded row s+a
+    holds the pairs of genome s+a with every later genome, then those of
+    its mirror n-1-s-a with every later genome: the chunk owns the pairs
+    whose lower genome is one of its 2c rows. Two launches count them,
+    their queries and columns row slices of the resident planes read in
+    place: the low rows [s, s+c) against the columns [s, n), the mirror
+    rows [n-s-c, n-s) against [n-s-c, n), c (n + c) pairs in all. Returns
+    the folded [c, n-1, 2].
+
+    knn_keys, int64 [n, k] kNN keys (_keys; _ABSENT in an empty slot),
+    takes the chunk's kNN candidates in place (_merge_knn); None, or k 0,
+    skips the kNN (the sweeps' passes).
 
     n_real < n marks genomes >= n_real as PADDING: their folded entries
     become +inf (past every sweep threshold, masked out of the column
     maxima) and they never enter any real row's kNN."""
     n = planes.shape[2]
     dev = planes.device
-    lo, hi = slice(s, s + c), slice(n - s - c, n - s)
-    pq = torch.cat([planes[:, :, lo], planes[:, :, hi]], dim=2)
-    lq = torch.cat([lengths[lo], lengths[hi]])
-    fq = torch.cat([freqs[lo], freqs[hi]])
-    d = _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
-                    bbits, pad_bits)
-
-    i_vec = s + torch.arange(c, device=dev)  # global ids of the low block
+    m0 = n - s - c  # the first mirror row
+    tiles = []
+    for r0 in (s, m0):
+        # genomes [r0, r0 + c) against the columns [r0, n): each row's pairs
+        # with the genomes after it, plus the first c columns' diagonal and
+        # lower triangle, computed and not owned
+        rows, cols = slice(r0, r0 + c), slice(r0, None)
+        d, matches = _tile_dists(planes[:, :, rows], planes[:, :, cols],
+                                 lengths[rows], lengths[cols], freqs[rows],
+                                 freqs[cols], klist, sketchsize64, bbits,
+                                 pad_bits, counts=True)
+        if knn_keys is not None and knn_keys.shape[1]:
+            _merge_knn(knn_keys, d, matches, r0, lengths, freqs, klist,
+                       sketchsize64, bbits, dist_col, n_real)
+        del matches
+        tiles.append(d)
+    lo, hi = tiles
+    a = torch.arange(c, device=dev)
     q = torch.arange(n - 1, device=dev)
-    idx_lo = (q[None, :] + i_vec[:, None] + 1) % n  # [c, n-1]
-    lo_part = torch.gather(d[:c], 1, idx_lo[..., None].expand(-1, -1, 2))
-    hi_rev = d[c:].flip(0)  # row r of hi_rev = genome n-1-(s+r)
-    in_first = q[None, :] < (n - 1 - i_vec)[:, None]
-    folded = torch.where(in_first[..., None], lo_part, hi_rev[:, 1:, :])
+    # position q of folded row s+a: pair (s+a, q+s+a+1), lo's column q+a+1,
+    # in the first segment; then pair (n-1-s-a, q+1), the mirror's, hi's
+    # row c-1-a at column q+1-m0
+    in_first = q[None, :] < (n - 1 - s - a)[:, None]
+    lo_col = (q[None, :] + a[:, None] + 1).clamp(max=n - s - 1)
+    lo_part = torch.gather(lo, 1, lo_col[..., None].expand(-1, -1, 2))
+    hi_part = hi[(c - 1 - a)[:, None], (q + 1 - m0).clamp(min=0)[None, :]]
+    folded = torch.where(in_first[..., None], lo_part, hi_part)
     if n_real is not None and n_real < n:
-        # position q of folded row i holds pair (i, q+i+1) in the first
-        # segment, (n-1-i, q+1) in the second; the larger member alone
-        # decides pad membership
+        # the larger member alone decides pad membership
         pad_pair = torch.where(in_first,
-                               q[None, :] + i_vec[:, None] + 1 >= n_real,
+                               q[None, :] + (s + 1) + a[:, None] >= n_real,
                                q[None, :] + 1 >= n_real)
         folded = folded.masked_fill(pad_pair[..., None], float("inf"))
-    if not knn:
-        return folded, None, None
+    return folded
 
+
+def _merge_knn(knn_keys, d, matches, r0, lengths, freqs, klist,
+               sketchsize64, bbits, dist_col, n_real):
+    """Merge one owned tile's kNN candidates into the running keys: each
+    row genome's distances to the genomes after it (its row of d), and
+    each column genome's to the tile's rows before it. A genome's distance
+    to a neighbour is the one its own row computes, the genome as the
+    query; the counts are symmetric but the epilogue's random-match dot is
+    not, bit for bit, so the column side runs the epilogue again on the
+    transposed counts with the column genomes as the queries. Over all
+    tiles every (genome, neighbour) pair comes once, self and pads as
+    +inf, so the merged top-k, ties to the lowest index, is the top-k of
+    each whole row."""
     with profiling.span("scale.knn"):
-        row_ids = torch.cat([i_vec,
-                             n - s - c + torch.arange(c, device=dev)])
-        col = d[..., dist_col].contiguous()
-        col[torch.arange(2 * c, device=dev), row_ids] = float("inf")  # self
+        n, k = knn_keys.shape
+        c, w = d.shape[:2]
+        dev = d.device
+        dt = _epilogue(matches.transpose(0, 1).contiguous(), klist,
+                       lengths[r0:], lengths[r0:r0 + c], freqs[r0:],
+                       freqs[r0:r0 + c], sketchsize64, bbits)
+        row = d[..., dist_col].contiguous()  # [c, w]
+        row[:, :c].diagonal().fill_(float("inf"))  # self
+        col = dt[..., dist_col]  # [w, c]: (column genome, row genome)
         if n_real is not None and n_real < n:
-            col[:, n_real:] = float("inf")  # pads never neighbours
-        top_i, top_d = _seq_topk(col, knn)
-    return folded, top_i, top_d
+            pad = max(0, n_real - r0)  # pads are never neighbours
+            row[:, pad:] = float("inf")
+            col[:, pad:] = float("inf")
+        ids = torch.arange(r0, n, device=dev)
+        before = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
+        row_keys = _keys(row, ids)
+        row_keys[:, :c].masked_fill_(before, _ABSENT)  # the column side's
+        col_keys = _keys(col, ids[:c])
+        col_keys[:c].masked_fill_(~before, _ABSENT)  # the row side's
+        own = _knn_keys(w, min(k, w), dev)
+        own[:c] = _smallest(row_keys, own.shape[1])
+        knn_keys[r0:] = _smallest(torch.cat(
+            [knn_keys[r0:], _smallest(col_keys, min(k, c)), own], dim=1), k)
 
 
 def _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
-                bbits, pad_bits):
+                bbits, pad_bits, counts=False):
     """f32 [rows, cols, 2] distances of the plane-major query block pq
-    [K, P, rows, Wp] against the resident planes [K, P, cols, Wp]: one
-    launch of the kernel's plane-major route, then the corrections and the
-    k-mer fit (ops/distances.dist_epilogue): one epilogue launch for the
-    tile on a card, _EPILOGUE_ROWS rows at a time of the plain version on
-    the CPU. Each pair's arithmetic is the same whatever the block's shape
-    (the kernel's per-pair pass; ops/distances._dot4 in the plain
-    version), so a column shard's tile holds the single device's values
-    bit for bit."""
+    [K, P, rows, Wp] against the planes [K, P, cols, Wp]: one launch of
+    the kernel's plane-major route, then the corrections and the k-mer fit
+    (_epilogue). Each pair's arithmetic is the same whatever the block's
+    shape (the kernel's per-pair pass; ops/distances._dot4 in the plain
+    version), so a column shard's tile, or an owned tile, holds the single
+    device's values bit for bit. ``counts``: (distances, the int32
+    [rows, cols, K] counts)."""
     rows, cols = pq.shape[2], planes.shape[2]
     with profiling.span("scale.tile", pairs=rows * cols):
         matches = match_counts_device(pq, planes, pad_bits,
                                       plane_major=True)
-        d = torch.empty((rows, cols, 2), dtype=torch.float32,
-                        device=planes.device)
-        step = rows if d.is_cuda else _EPILOGUE_ROWS
-        for a in range(0, rows, step):
-            b = min(a + step, rows)
-            dist_epilogue(matches[a:b], klist, lq[a:b], lengths, fq[a:b],
-                          freqs, sketchsize64, bbits, out=d[a:b])
+        d = _epilogue(matches, klist, lq, lengths, fq, freqs, sketchsize64,
+                      bbits)
+    return (d, matches) if counts else d
+
+
+def _epilogue(matches, klist, lq, lr, fq, fr, sketchsize64, bbits):
+    """f32 [rows, cols, 2] (core, accessory) of int32 counts [rows, cols,
+    K] (ops/distances.dist_epilogue): one launch on a card, _EPILOGUE_ROWS
+    rows at a time of the plain version on the CPU."""
+    rows, cols = matches.shape[:2]
+    d = torch.empty((rows, cols, 2), dtype=torch.float32,
+                    device=matches.device)
+    step = rows if d.is_cuda else _EPILOGUE_ROWS
+    for a in range(0, rows, step):
+        b = min(a + step, rows)
+        dist_epilogue(matches[a:b], klist, lq[a:b], lr, fq[a:b], fr,
+                      sketchsize64, bbits, out=d[a:b])
     return d
+
+
+def _keys(col, ids=None):
+    """int64 keys (value bits << 32 | column) of f32 [rows, m] ``col``,
+    ordered as (value, column) ascending. The float bits map to integers
+    of the same order (negative values flipped; the map is its own
+    inverse). ``ids`` (int64, broadcast to col's shape) replaces the
+    column index by each candidate's global genome."""
+    bits = col.view(torch.int32)
+    key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+    key <<= 32
+    key |= (torch.arange(col.shape[1], device=col.device) if ids is None
+            else ids)
+    return key
+
+
+def _smallest(keys, k):
+    """The k smallest keys of each row, ascending."""
+    return torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+
+
+def _decode(top):
+    """(index int64, value f32) of kNN keys (_keys)."""
+    hi = (top >> 32).to(torch.int32)
+    return top & 0xFFFFFFFF, (hi ^ ((hi >> 31) & 0x7FFFFFFF)).view(
+        torch.float32)
 
 
 def _seq_topk(col, knn, ids=None):
     """k smallest entries per row of ``col`` ordered by (value, index)
     ascending — ties resolve to the LOWEST index, as the reference's
     argmin passes and lax.top_k do. One torch.topk over int64 keys
-    (value bits << 32 | column): the keys are unique, so the order is
-    total whatever torch.topk does with ties. The float bits map to
-    integers of the same order (negative values flipped; the map is its
-    own inverse). ``ids`` (int64, col's shape) replaces the column index:
-    the kNN merge of column shards passes each candidate's global genome.
-    Returns (idx int64 [rows, k], dist f32 [rows, k])."""
-    bits = col.view(torch.int32)
-    key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
-    key <<= 32
-    key |= (torch.arange(col.shape[1], device=col.device) if ids is None
-            else ids)
-    top = torch.topk(key, knn, dim=1, largest=False, sorted=True).values
-    hi = (top >> 32).to(torch.int32)
-    return top & 0xFFFFFFFF, (hi ^ ((hi >> 31) & 0x7FFFFFFF)).view(
-        torch.float32)
+    (_keys): the keys are unique, so the order is total whatever
+    torch.topk does with ties. The kNN merge of column shards passes
+    ``ids``, each candidate's global genome. Returns (idx int64 [rows, k],
+    dist f32 [rows, k])."""
+    return _decode(_smallest(_keys(col, ids), knn))
+
+
+def _knn_arrays(keys, device):
+    """Host (knn_col int64, knn_dist f32) [n, k] of the row shards'
+    running kNN keys [n, k], merged on ``device``."""
+    top = (keys[0] if len(keys) == 1 else _smallest(
+        torch.cat([x.to(device) for x in keys], dim=1), keys[0].shape[1]))
+    idx, dist = _decode(top)
+    return idx.cpu().numpy(), dist.cpu().numpy()
 
 
 def _fold_pairs(pos, s, n):
@@ -414,28 +505,6 @@ def _mesh_devices(mesh):
     return mesh.flat()
 
 
-def _unfold_knn(ki, kd, n):
-    """Per-genome [n, k] kNN arrays from the folded per-shard layout
-    [half, 2, k] (row s: genome s in [:, 0], its mirror n-1-s in [:, 1]);
-    host numpy."""
-    half = n // 2
-    knn_col = np.empty((n, ki.shape[2]), np.int64)
-    knn_dist = np.empty((n, ki.shape[2]), np.float32)
-    knn_col[:half] = ki[:, 0]
-    knn_col[half:] = ki[::-1, 1]
-    knn_dist[:half] = kd[:, 0]
-    knn_dist[half:] = kd[::-1, 1]
-    return knn_col, knn_dist
-
-
-def _fold_knn_rows(ki, kd, off, c, top_i, top_d):
-    """Write one step's kNN ([2c, k], low rows then mirrors ascending) into
-    a shard's folded [half_loc, 2, k] arrays at local row ``off``: the
-    mirror of folded row s is genome n-1-s, hence the reversal."""
-    ki[off:off + c, 0], ki[off:off + c, 1] = top_i[:c], top_i[c:].flip(0)
-    kd[off:off + c, 0], kd[off:off + c, 1] = top_d[:c], top_d[c:].flip(0)
-
-
 class _ColShardedStream:
     """Column-sharded streaming passes (the reference's _ColShardedStream,
     poppunk_tpu/scale.py:894): device d owns genome (column) block
@@ -451,7 +520,7 @@ class _ColShardedStream:
         distinct device (_rows; the reference's masked gather + psum —
         integers, so exact);
       - the tile d [2c, n_loc, 2] is kernel 1's plane-major route against
-        the device's shard plus _fold_block's epilogue (_tile_dists);
+        the device's shard plus the epilogue (_tile_dists);
       - its OWNED entries, col > row and col < n_real, are the chunk's
         condensed pairs (each pair owned exactly once over chunks x
         devices).
@@ -836,8 +905,8 @@ class StreamingCondensed:
     def _pass1(self, fill_spec=None):
         """Pass 1: fused kNN, column maxima and the predeclared-subsample
         gather (the reference's _stream_stats_range, and on a mesh the
-        stats body of its _ShardedStream: per-shard kNN in the folded
-        layout and column maxima, max-combined on the host), optionally
+        stats body of its _ShardedStream: a running kNN over every genome
+        and column maxima per shard, merged at the fetch), optionally
         with the boundary-band edge fill (_stream_stats_fill_range; one
         device). Each wave enqueues one step per shard before the next. On
         column shards, _ColShardedStream.pass1."""
@@ -872,10 +941,8 @@ class StreamingCondensed:
         for row0, planes, _, _ in self._shards:
             dev = planes.device
             state.append((
-                torch.zeros((self._half_loc, 2, knn), dtype=torch.int64,
-                            device=dev),
-                torch.zeros((self._half_loc, 2, knn), dtype=torch.float32,
-                            device=dev),
+                # the shard's running kNN over every genome
+                _knn_keys(n, knn, dev),
                 torch.full((2,), float("-inf"), device=dev),
                 # the sampled positions on the shard's device, uploaded
                 # once: no copy from the host inside the walk
@@ -885,18 +952,16 @@ class StreamingCondensed:
         for off in range(0, self._half_loc, c):
             wave = [_fold_block(planes, lengths, freqs, row0 + off, c,
                                 self._klist, self._ss64, self._bbits,
-                                self._pad_bits, knn, self._dist_col, nr)
-                    for row0, planes, lengths, freqs in self._shards]
-            for d, (folded, top_i, top_d) in enumerate(wave):
-                ki, kd, cmax, sub_flat = state[d]
+                                self._pad_bits, st[0], self._dist_col, nr)
+                    for (row0, planes, lengths, freqs), st in zip(
+                        self._shards, state)]
+            for d, folded in enumerate(wave):
+                _, cmax, sub_flat = state[d]
                 s = self._shards[d][0] + off
                 finite = folded.masked_fill(torch.isinf(folded),
                                             float("-inf"))
                 cmax.copy_(torch.maximum(cmax, finite.amax(dim=(0, 1))))
                 del finite
-                if knn:
-                    with profiling.span("scale.knn"):
-                        _fold_knn_rows(ki, kd, off, c, top_i, top_d)
                 flat = folded.reshape(-1, 2)
                 if fill is not None:
                     fill.add(geom.d0(flat), lambda pos: _fold_pairs(pos, s, n))
@@ -930,14 +995,13 @@ class StreamingCondensed:
             if edges is not None:
                 cum = fill.cum.cpu().numpy()
                 self._prefill = (edges, cum, dict(fill_spec))
-            ki = torch.cat([st[0].cpu() for st in state]).numpy()
-            kd = torch.cat([st[1].cpu() for st in state]).numpy()
-            self._cmax = torch.stack([st[2].cpu() for st in state]).amax(
+            knn_col, knn_dist = _knn_arrays([st[0] for st in state],
+                                            self.device)
+            self._cmax = torch.stack([st[1].cpu() for st in state]).amax(
                 dim=0).numpy()
             sp.add(bytes=_host_bytes(
-                self.device, ki, kd, self._cmax, cum,
+                self.device, knn_col, knn_dist, self._cmax, cum,
                 self._sub_vals if self._sub_spec is not None else None))
-        knn_col, knn_dist = _unfold_knn(ki, kd, n)
         self.knn_col = knn_col[:self._n_real]
         self.knn_dist = knn_dist[:self._n_real]
 
@@ -1079,36 +1143,29 @@ def _fill_shards(devices, planes, lengths, freqs, klist, sketchsize64,
                  bbits, chunk, knn, dist_col):
     """The buffered fill over row shards, one per device (the planes
     replicated with .to): each device's shard of the folded buffer and
-    its kNN in the folded layout, in waves of one step per shard. Returns
-    (buffers, host knn_col, host knn_dist)."""
+    its running kNN over every genome, in waves of one step per shard.
+    Returns (buffers, host knn_col, host knn_dist)."""
     n = planes.shape[2]
     half_loc = fold_rows(n) // len(devices)
     pad_bits = plane_geometry(sketchsize64, bbits)[2]
     klist = tuple(int(k) for k in klist)
     ops = [(d * half_loc, planes.to(dev), lengths.to(dev), freqs.to(dev))
            for d, dev in enumerate(devices)]
-    bufs, kis, kds = [], [], []
+    bufs, keys = [], []
     for _, pl, _, _ in ops:
         dev = pl.device
         bufs.append(torch.empty((half_loc, n - 1, 2), dtype=torch.float32,
                                 device=dev))
-        kis.append(torch.zeros((half_loc, 2, knn), dtype=torch.int64,
-                               device=dev))
-        kds.append(torch.zeros((half_loc, 2, knn), dtype=torch.float32,
-                               device=dev))
+        keys.append(_knn_keys(n, knn, dev))
     c = chunk
     for off in range(0, half_loc, c):
         wave = [_fold_block(pl, ln, fr, row0 + off, c, klist, sketchsize64,
-                            bbits, pad_bits, knn, dist_col)
-                for row0, pl, ln, fr in ops]
-        for d, (folded, top_i, top_d) in enumerate(wave):
+                            bbits, pad_bits, kk, dist_col)
+                for (row0, pl, ln, fr), kk in zip(ops, keys)]
+        for d, folded in enumerate(wave):
             bufs[d][off:off + c] = folded
-            if knn:
-                _fold_knn_rows(kis[d], kds[d], off, c, top_i, top_d)
         del wave
-    knn_col, knn_dist = _unfold_knn(
-        torch.cat([k.cpu() for k in kis]).numpy(),
-        torch.cat([k.cpu() for k in kds]).numpy(), n)
+    knn_col, knn_dist = _knn_arrays(keys, devices[0])
     return bufs, knn_col, knn_dist
 
 
@@ -1132,9 +1189,9 @@ def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
     """Compute all pairwise distances into a device condensed buffer.
 
     One pass over n//2 folded rows, a host loop of _fold_block steps (the
-    reference's lax.scan): each computes 2 * chunk full rows in one kernel
-    launch, writes its folded [chunk, n-1, 2] block into the preallocated
-    buffer and its rows' fused kNN into [n, knn] arrays. planes:
+    reference's lax.scan): each counts the pairs its 2 * chunk rows own,
+    writes its folded [chunk, n-1, 2] block into the preallocated buffer
+    and merges its candidates into the running [n, knn] kNN. planes:
     plane-major [K, P, n, Wp], numpy uint32 or an int32 tensor on its
     device (``device`` None: ``_device.resolve``'s choice)."""
     dev, planes, lengths, freqs = _buffer_operands(planes, lengths, freqs,
@@ -1159,10 +1216,9 @@ def fill_condensed_sharded(planes, lengths, freqs, klist, sketchsize64,
     parallel.mesh.get_mesh()).
 
     Each device owns half/n_dev contiguous folded rows and runs the same
-    _fold_block loop over its shard, the planes replicated; the fused kNN
-    is accumulated per device in the folded layout [half_loc, 2, k] (row
-    i and its mirror n-1-i share a folded row), so every output shard is
-    contiguous. Returns a CondensedDevice whose buf is the tuple of
+    _fold_block loop over its shard, the planes replicated; each device
+    keeps a running kNN over every genome, merged across devices at the
+    end, and every output shard is contiguous. Returns a CondensedDevice whose buf is the tuple of
     shards."""
     from .parallel.mesh import get_mesh
 
@@ -1287,7 +1343,7 @@ def _stream_pairs(cd):
     for off in range(0, cd._half_loc, cd.chunk):
         wave = [(row0 + off, _fold_block(
             planes, lengths, freqs, row0 + off, cd.chunk, cd._klist,
-            cd._ss64, cd._bbits, cd._pad_bits, 0, 0, nr)[0])
+            cd._ss64, cd._bbits, cd._pad_bits, n_real=nr))
             for row0, planes, lengths, freqs in cd._shards]
         for d, (s, folded) in enumerate(wave):
             yield d, s, folded.reshape(-1, 2)

@@ -93,15 +93,19 @@ def test_spans_nest_under_pass1_and_count_the_work(monkeypatch, fill):
     for s in found:
         if s.name in ("scale.tile", "scale.knn", "scale.fill", "scale.fetch"):
             assert "scale.pass1" in _ancestors(s, by_index), s.name
+    # two owned tiles a chunk from row s: its low rows against the genomes
+    # from s on, its mirror rows against those from n_pad - s - CHUNK on
     tiles = [s.counts["pairs"] for s in found if s.name == "scale.tile"]
-    assert len(tiles) == N_PAD // 2 // CHUNK
-    assert sum(tiles) == N_PAD ** 2
-    assert names.count("scale.knn") == 2 * len(tiles)
+    starts = range(0, N_PAD // 2, CHUNK)
+    assert tiles == [p for s in starts
+                     for p in (CHUNK * (N_PAD - s), CHUNK * (s + CHUNK))]
+    assert sum(tiles) == len(starts) * CHUNK * (N_PAD + CHUNK)
+    assert names.count("scale.knn") == len(tiles)
     assert names.count("scale.fetch") == 1
     fills = [s.counts["pairs"] for s in found if s.name == "scale.fill"]
     if fill:
         edges, cum, _ = cd.pop_prefill()
-        assert len(fills) == len(tiles)
+        assert len(fills) == len(starts)
         assert sum(fills) == edges.count == cum[29] > 0
     else:
         assert fills == [] and cd.pop_prefill() is None
@@ -142,7 +146,7 @@ def test_pairs_per_needed_reads_the_window_tiles(monkeypatch):
     found = profiling.spans()
     window = (min(s.start for s in found) - 1, max(s.end for s in found) + 1)
     run, _ = _run(found, window, 1)
-    want = N_PAD ** 2 / (N_REAL * (N_REAL - 1) / 2)
+    want = (N_PAD // 2 * (N_PAD + CHUNK)) / (N_REAL * (N_REAL - 1) / 2)
     assert stream_readers.pairs_per_needed(run) == pytest.approx(want)
     # no trace, no passes, or no tile in the window: nothing to read
     assert stream_readers.pairs_per_needed(
