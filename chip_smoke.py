@@ -128,7 +128,8 @@ Phases, each printing one JSON line with its seconds:
      (M2's edges and partition, s_opt within rtol 1e-4) and the QC and
      fetch passes through _compact_pass's column arm at M1's boundary
      (N3's pairs as sets); O1 and O2 hold kernel 1's plane-major route to
-     its plain version at their own query blocks and shards; O2 pass 1
+     its plain version at the last shard's cuts of two chunks' owned
+     tiles, and the epilogue at a cut and its transposed counts; O2 pass 1
      at 131,072 genomes drawn on the card with shard_planes="auto"
      (column shards; seconds, launches, kernel time,
      peak device memory against streaming_hbm_accounting's column figure,
@@ -3652,39 +3653,63 @@ M_GEOMETRY = ((13, 16, 19, 22, 25, 28), 156, 14)
 
 
 def hold_col_tile_to_plain(torch, cd):
-    """Kernel 1's plane-major route at a column tile's own operands, bit
-    for bit against the plain version on the same device: the first
-    chunk's query block as _ColShardedStream.waves assembles it (rows
-    [0, c) and [n - c, n), gathered from the shards that own them)
-    against the last shard's resident [K, P, n_loc, Wp] planes; then the
-    epilogue kernel at the same tile (hold_tile_epilogue). These launches
-    compare; no path counts them. Returns (kernel 1's max_abs_err, the
-    plain version's seconds, the operands' shapes)."""
+    """Kernel 1's plane-major route at a column shard's own operands, bit
+    for bit against the plain version on the same device: the last
+    shard's cuts of the first and of a middle chunk's two owned tiles
+    (_ColShardedStream._cut), each the tile's rows as _rows assembles them
+    from the shards that own them against a column view of the shard's
+    resident [K, P, n_loc, Wp] planes. At the middle chunk's low cut the
+    epilogue kernel too (hold_tile_epilogue), as the tile computes it
+    (scale._tile_dists) and as the kNN computes it again on the transposed
+    counts, the column genomes as the queries (scale._merge_knn). These
+    launches compare; no path counts them. Returns (kernel 1's
+    max_abs_err, the plain version's seconds, the operands' shapes)."""
     from poppunk_tpu_torch import scale
     from poppunk_tpu_torch.ops import match_counts as mc
 
-    cs = cd._cs
-    shard = cs.planes[-1]
-    ranges = [(0, cs.c), (cs.n - cs.c, cs.n)]
-    q = cs._rows(ranges, shard.device)
-    got = mc.match_counts(q, shard, cs.pad_bits, plane_major=True)
-    t = time.perf_counter()
-    want = mc.match_counts_torch(q, shard, cs.pad_bits, plane_major=True)
-    plain_s = elapsed(torch, t)
-    err = max_abs_err(got, want)
-    shapes = [list(q.shape), list(shard.shape)]
-    if err:
-        raise AssertionError(f"the plane-major route disagrees with the "
-                             f"plain version at the column tile {shapes}: "
-                             f"{err}")
-    _, ln, fr, l_loc, f_loc = cs._ops[-1]
-    rows = torch.cat([torch.arange(a, b, device=shard.device)
-                      for a, b in ranges])
-    ops = (ln[rows], l_loc, fr[rows], f_loc, cs.klist, cs.ss64, cs.bbits)
-    hold_tile_epilogue(torch, f"column tile {shapes}",
-                       lambda: scale._tile_dists(q, shard, *ops,
-                                                 cs.pad_bits),
-                       *ops, got, want)
+    lay, c = cd._layout, cd.chunk
+    d = len(lay.planes) - 1
+    shard = lay.planes[d]
+    ln, fr = lay._ops[d]
+    ops = (cd._klist, cd._ss64, cd._bbits)
+    mid = lay.n // 2 // c // 2 * c  # a middle chunk's first row
+    err, plain_s, shapes = 0, 0.0, []
+    for s in (0, mid):
+        for side, (r0, c0, w) in zip(("low", "mirror"), lay._cut(d, s, c)):
+            if not w:
+                continue
+            q = lay._rows(r0, r0 + c, shard.device)
+            k = shard[:, :, c0 - d * lay.n_loc:]
+            got = mc.match_counts(q, k, cd._pad_bits, plane_major=True)
+            t = time.perf_counter()
+            want = mc.match_counts_torch(q, k, cd._pad_bits,
+                                         plane_major=True)
+            plain_s += elapsed(torch, t)
+            err = max(err, max_abs_err(got, want))
+            shapes.append([list(q.shape), list(k.shape)])
+            if err:
+                raise AssertionError(
+                    f"the plane-major route disagrees with the plain "
+                    f"version at the column cut {side} {s} {shapes[-1]}: "
+                    f"{err}")
+            if (s, side) == (mid, "low"):
+                rows, cols = slice(r0, r0 + c), slice(c0, c0 + w)
+                hold_tile_epilogue(
+                    torch, f"column cut {shapes[-1]}",
+                    lambda: scale._tile_dists(q, k, ln[rows], ln[cols],
+                                              fr[rows], fr[cols], *ops,
+                                              cd._pad_bits),
+                    ln[rows], ln[cols], fr[rows], fr[cols], *ops, got, want)
+                got_t = got.transpose(0, 1).contiguous()
+                hold_tile_epilogue(
+                    torch, f"transposed column cut {shapes[-1]}",
+                    lambda: scale._epilogue(got_t, cd._klist, ln[cols],
+                                            ln[rows], fr[cols], fr[rows],
+                                            cd._ss64, cd._bbits),
+                    ln[cols], ln[rows], fr[cols], fr[rows], *ops, got_t,
+                    want.transpose(0, 1).contiguous())
+                del got_t
+            del got, want
     return err, plain_s, shapes
 
 
@@ -3838,15 +3863,16 @@ def phase_o2(torch, device, mesh, n=131072, n_strains=128, spot=256):
     shard_planes="auto", which must take the column shards (the
     replicated planes pass the reference's 8e9 bytes); the chunk is the
     scale CLI's at its default --chunk 256, kNN 5. Reports the
-    pass's seconds, launches, kernel event time and full-row pairs/s, and
+    pass's seconds, launches, kernel event time, full-row (n^2) and
+    computed ((n/2)(n + c), the owned tiles') pairs/s, and
     the net peak device memory (from before the shards are copied, the
     drawn planes excluded) against streaming_hbm_accounting's column
     figure for each shard on this card; fails past it. Then ``spot``
     random genomes' kNN are held bit for bit to a single-device full-row
     recompute from the drawn planes (_tile_dists against all n columns,
-    _seq_topk), and kernel 1 to its plain version at the column tile's
-    operands (hold_col_tile_to_plain). Returns standard launches and
-    that difference."""
+    the top-k of its _keys), and kernel 1 to its plain version at the
+    last shard's cuts of the owned tiles (hold_col_tile_to_plain).
+    Returns standard launches and that difference."""
     from poppunk_tpu_torch import scale
 
     klist, ss64, bbits = M_GEOMETRY
@@ -3886,7 +3912,7 @@ def phase_o2(torch, device, mesh, n=131072, n_strains=128, spot=256):
                           cd._pad_bits)
     near = d[..., 0]
     near[torch.arange(spot, device=device), rows] = float("inf")  # self
-    top_i, top_d = scale._seq_topk(near, 5)
+    top_i, top_d = scale._decode(scale._smallest(scale._keys(near), 5))
     spot_equal = bool(np.array_equal(top_i.cpu().numpy(), cd.knn_col[idx])
                       and np.array_equal(top_d.cpu().numpy(),
                                          cd.knn_dist[idx]))
@@ -3898,6 +3924,7 @@ def phase_o2(torch, device, mesh, n=131072, n_strains=128, spot=256):
           "pass1_seconds": pass_s, "pass1_launches": launches,
           "pass1_kernel_s": kernel_s, "pass1_rest_s": pass_s - kernel_s,
           "full_row_pairs_per_s": n * n / pass_s,
+          "computed_pairs_per_s": n // 2 * (n + chunk) / pass_s,
           "replicated_planes_bytes": scale.streaming_hbm_accounting(
               n, klist, ss64, bbits, chunk, 5, n_dev)["planes"],
           "peak_device_bytes": peak, "accounting_per_device": acct,

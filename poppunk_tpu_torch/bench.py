@@ -1160,18 +1160,18 @@ def fill_profile(device=None, n=20480, steps=16):
                  tiles: its c low rows against the planes from row s on,
                  its c mirror rows against those from row n-s-c on, both
                  views of the resident planes;
-      fold       scale._fold_block without the kNN: + the epilogue
-                 (_tile_dists) and the fold (fill_condensed_device's step);
-      fold+knn   the full stats step: + the running kNN (StreamingCondensed
-                 pass 1's step);
-      stats+fill + the bootstrap's band fill (_BandFill.add at bench.py's
-                 line), pass 1 as the two-round bootstrap runs it.
+      fold       StreamingCondensed's pass 1 walk without the kNN: + the
+                 epilogue (_tile_dists), the fold and the column maxima;
+      fold+knn   the full stats step: + the running kNN (pass 1's step);
+      stats+fill + the bootstrap's band fill at bench.py's line, pass 1
+                 as the two-round bootstrap runs it.
 
     Computed pairs per second each, c (n + c) a step; the fold's share
     against the kernel's is what the epilogue kernel
     (csrc/dist_epilogue.cu) and the fold add to the counts."""
-    from .scale import (_BandFill, _SweepGeometry, _fold_block, _fold_pairs,
-                        _knn_keys)
+    import itertools
+
+    from .scale import StreamingCondensed
 
     device = _device.resolve(device)
     _, _, pad_bits = plane_geometry(SS64, BBITS)
@@ -1190,43 +1190,28 @@ def fill_profile(device=None, n=20480, steps=16):
                                        plane_major=True).sum()
         return acc
 
-    def fold(knn):
-        def run():
-            acc = torch.zeros((), dtype=torch.float32, device=device)
-            keys = _knn_keys(n, knn, device) if knn else None
-            for s in starts:
-                acc += _fold_block(planes, lengths, freqs, s, c, KLIST, SS64,
-                                   BBITS, pad_bits, keys, 0).sum()
-            if knn:
-                acc += keys[:, 0].min().to(torch.float32)
-            return acc
+    def walk(knn, fill_spec=None):
+        def run():  # the first ``steps`` chunks of pass 1
+            cd = StreamingCondensed(planes, lengths, freqs, KLIST, SS64,
+                                    BBITS, chunk=c, knn=knn, defer=True,
+                                    device=device)
+            for _ in itertools.islice(cd._walk(fill_spec), steps):
+                pass
         return run
 
-    geom = _SweepGeometry(SimpleNamespace(device=device),
-                          np.array([0.6, 0.8]), np.linspace(0.0, 0.35, 40),
-                          2, (0.05, 0.05, 0.6, 0.6))
-
-    def stats_fill():
-        fill = _BandFill(n, geom.t, 40, steps * c * (n - 1), device)
-        keys = _knn_keys(n, 5, device)
-        for s in starts:
-            folded = _fold_block(planes, lengths, freqs, s, c, KLIST, SS64,
-                                 BBITS, pad_bits, keys, 0)
-            fill.add(geom.d0(folded.reshape(-1, 2)),
-                     lambda pos: _fold_pairs(pos, s, n))
-        return fill.acc
-
+    band = dict(scale=np.array([0.6, 0.8]), offsets=np.linspace(0.0, 0.35,
+                                                                40),
+                slope=2, line=(0.05, 0.05, 0.6, 0.6), n_act=40,
+                e_total=steps * c * (n - 1))
     pairs = c * (n + c) * steps
     detail = {}
-    for name, fn in (("kernel", kernel), ("fold", fold(0)),
-                     ("fold+knn", fold(5)), ("stats+fill", stats_fill)):
+    for name, fn in (("kernel", kernel), ("fold", walk(0)),
+                     ("fold+knn", walk(5)), ("stats+fill", walk(5, band))):
         fn()  # warm
         sync(device)
         launches0 = mc.LAUNCHES
         t0 = time.perf_counter()
-        out = fn()
-        if isinstance(out, torch.Tensor):
-            out = out.item()
+        fn()
         sync(device)
         seconds = time.perf_counter() - t0
         detail[name] = {"s": seconds, "pairs_per_s": pairs / seconds,

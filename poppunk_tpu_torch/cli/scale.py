@@ -30,9 +30,12 @@ scoreable cells' union, the host scorer per grid row), --multi-boundary,
 pass). With more than one card the streaming passes are row-sharded over
 every card (parallel.mesh, scale.py's row-sharded mesh) once the
 population has at least 4 * cards * chunk genomes, as in the reference;
---single-device turns the mesh off. The column-sharded arms are not
-ported: a population whose replicated planes pass 8e9 bytes on a mesh
-raises (pass --single-device).
+--single-device turns the mesh off. Every pass asks for
+``shard_planes="auto"``: on a mesh whose replicated planes would pass 8e9
+bytes a card, and whose genomes divide over its cards, the planes are
+split over the genome axis instead (scale.py's column-sharded mesh, each
+card computing its cut of every chunk's owned tiles), with the same
+results.
 
 The distance passes and the sweeps run on ``cuda:<--deviceid>``, and the
 start model too, unless ``POPPUNK_TPU_TORCH_DEVICE=cpu`` asks for the CPU;

@@ -60,24 +60,25 @@ neighbours, never drawn into the subsample).
 The row-sharded mesh (``mesh=``, a parallel.mesh.Mesh): device d owns the
 folded rows [d * half_loc, (d + 1) * half_loc), half_loc = n // 2 / n_dev,
 with the planes replicated on every device (``Tensor.to``: one copy per
-distinct device). Every pass walks the shards in waves: step k of every
-shard is enqueued, each on its device, before any is read back
-(_stream_pairs); counts are summed per shard, fetched pairs and the
-predeclared subsample are put back in ascending global row order, and the
-fill's per-shard edge buffers are concatenated on the mesh's first device,
-so every result is the single-device one. The buffered tier's buffer is
-row-sharded the same way (fill_condensed_sharded).
+distinct device). Every pass walks the shards in waves (_parts): step k of
+every shard is enqueued, each on its device, before any is read back;
+counts are summed per shard, fetched pairs and the predeclared subsample
+are put back in ascending global row order, and the fill's per-shard edge
+buffers are concatenated on the mesh's first device, so every result is
+the single-device one. The buffered tier's buffer is row-sharded the same
+way (fill_condensed_sharded).
 
 The column-sharded mesh (shard_planes=True, or "auto" past 8e9 bytes of
 replicated planes, _resolve_shard_planes): device d owns genome block
 [d * n_loc, (d + 1) * n_loc) of the planes, and every device walks all
-folded chunks, computing its column slice of each chunk's tile
-(_ColShardedStream). Pass 1 merges the shards' kNN into the single
-device's order; the counts and fills stay per device, and the fetches and
-compactions (_compact_pass) come back grouped by owning device, then
-chunk, as the reference's do. Every distance, count and kNN equals the
-single device's bit for bit: each pair's arithmetic is the same whatever
-the tile's shape (_tile_dists).
+folded chunks, computing its cut of each chunk's two owned tiles: their
+columns cut to its block (_ColShardedStream). Each device keeps a running
+kNN over every genome, merged at the fetch as the row shards' are; the
+counts and fills stay per device, and the fetches and compactions
+(_compact_pass) come back grouped by owning device, then chunk, as the
+reference's do. Every distance, count and kNN equals the single device's
+bit for bit: each pair's arithmetic is the same whatever the tile's shape
+(_tile_dists).
 """
 
 import os
@@ -188,7 +189,7 @@ def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
                                  freqs[cols], klist, sketchsize64, bbits,
                                  pad_bits, counts=True)
         if knn_keys is not None and knn_keys.shape[1]:
-            _merge_knn(knn_keys, d, matches, r0, lengths, freqs, klist,
+            _merge_knn(knn_keys, d, matches, r0, r0, lengths, freqs, klist,
                        sketchsize64, bbits, dist_col, n_real)
         del matches
         tiles.append(d)
@@ -212,42 +213,54 @@ def _fold_block(planes, lengths, freqs, s, c, klist, sketchsize64, bbits,
     return folded
 
 
-def _merge_knn(knn_keys, d, matches, r0, lengths, freqs, klist,
+def _merge_knn(knn_keys, d, matches, r0, c0, lengths, freqs, klist,
                sketchsize64, bbits, dist_col, n_real):
-    """Merge one owned tile's kNN candidates into the running keys: each
-    row genome's distances to the genomes after it (its row of d), and
-    each column genome's to the tile's rows before it. A genome's distance
-    to a neighbour is the one its own row computes, the genome as the
-    query; the counts are symmetric but the epilogue's random-match dot is
-    not, bit for bit, so the column side runs the epilogue again on the
-    transposed counts with the column genomes as the queries. Over all
-    tiles every (genome, neighbour) pair comes once, self and pads as
-    +inf, so the merged top-k, ties to the lowest index, is the top-k of
-    each whole row."""
+    """Merge one owned tile's kNN candidates into the running keys. The
+    tile holds the genomes [r0, r0 + c) against [c0, c0 + w), c0 >= r0,
+    and owns the pairs whose column genome comes after the row genome:
+    each row genome takes its distances to the later column genomes (its
+    row of d), each column genome those to the earlier row genomes. A
+    genome's distance to a neighbour is the one its own row computes, the
+    genome as the query; the counts are symmetric but the epilogue's
+    random-match dot is not, bit for bit, so the column side runs the
+    epilogue again on the transposed counts with the column genomes as
+    the queries. Over all tiles every (genome, neighbour) pair comes once,
+    pads as +inf, so the merged top-k, ties to the lowest index, is the
+    top-k of each whole row."""
     with profiling.span("scale.knn"):
         n, k = knn_keys.shape
         c, w = d.shape[:2]
         dev = d.device
         dt = _epilogue(matches.transpose(0, 1).contiguous(), klist,
-                       lengths[r0:], lengths[r0:r0 + c], freqs[r0:],
-                       freqs[r0:r0 + c], sketchsize64, bbits)
+                       lengths[c0:c0 + w], lengths[r0:r0 + c],
+                       freqs[c0:c0 + w], freqs[r0:r0 + c], sketchsize64,
+                       bbits)
         row = d[..., dist_col].contiguous()  # [c, w]
-        row[:, :c].diagonal().fill_(float("inf"))  # self
         col = dt[..., dist_col]  # [w, c]: (column genome, row genome)
-        if n_real is not None and n_real < n:
-            pad = max(0, n_real - r0)  # pads are never neighbours
-            row[:, pad:] = float("inf")
-            col[:, pad:] = float("inf")
-        ids = torch.arange(r0, n, device=dev)
-        before = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
-        row_keys = _keys(row, ids)
-        row_keys[:, :c].masked_fill_(before, _ABSENT)  # the column side's
-        col_keys = _keys(col, ids[:c])
-        col_keys[:c].masked_fill_(~before, _ABSENT)  # the row side's
-        own = _knn_keys(w, min(k, w), dev)
+        if n_real is not None and n_real < n:  # pads are never neighbours
+            row[:, max(0, n_real - c0):] = float("inf")
+            col[:, max(0, n_real - r0):] = float("inf")
+        row_ids = torch.arange(r0, r0 + c, device=dev)
+        col_ids = torch.arange(c0, c0 + w, device=dev)
+        row_keys = _keys(row, col_ids)
+        col_keys = _keys(col, row_ids)
+        # the first q columns meet the rows' square: a column genome that
+        # does not come after the row genome is the other side's, or self
+        q = min(w, max(0, r0 + c - c0))
+        if q:
+            early = col_ids[None, :q] <= row_ids[:, None]  # [c, q]
+            row_keys[:, :q].masked_fill_(early, _ABSENT)
+            col_keys[:q].masked_fill_(early.T, _ABSENT)
+        span = max(c, c0 - r0 + w)  # the genomes [r0, r0 + span) merge
+        own = _knn_keys(span, min(k, w), dev)
         own[:c] = _smallest(row_keys, own.shape[1])
-        knn_keys[r0:] = _smallest(torch.cat(
-            [knn_keys[r0:], _smallest(col_keys, min(k, c)), own], dim=1), k)
+        near = _smallest(col_keys, min(k, c))
+        if w < span:  # the column genomes are not all of the span
+            full = _knn_keys(span, near.shape[1], dev)
+            full[c0 - r0:c0 - r0 + w] = near
+            near = full
+        knn_keys[r0:r0 + span] = _smallest(torch.cat(
+            [knn_keys[r0:r0 + span], near, own], dim=1), k)
 
 
 def _tile_dists(pq, planes, lq, lengths, fq, freqs, klist, sketchsize64,
@@ -310,20 +323,9 @@ def _decode(top):
         torch.float32)
 
 
-def _seq_topk(col, knn, ids=None):
-    """k smallest entries per row of ``col`` ordered by (value, index)
-    ascending — ties resolve to the LOWEST index, as the reference's
-    argmin passes and lax.top_k do. One torch.topk over int64 keys
-    (_keys): the keys are unique, so the order is total whatever
-    torch.topk does with ties. The kNN merge of column shards passes
-    ``ids``, each candidate's global genome. Returns (idx int64 [rows, k],
-    dist f32 [rows, k])."""
-    return _decode(_smallest(_keys(col, ids), knn))
-
-
 def _knn_arrays(keys, device):
-    """Host (knn_col int64, knn_dist f32) [n, k] of the row shards'
-    running kNN keys [n, k], merged on ``device``."""
+    """Host (knn_col int64, knn_dist f32) [n, k] of the shards' running
+    kNN keys [n, k], merged on ``device``."""
     top = (keys[0] if len(keys) == 1 else _smallest(
         torch.cat([x.to(device) for x in keys], dim=1), keys[0].shape[1]))
     idx, dist = _decode(top)
@@ -505,35 +507,68 @@ def _mesh_devices(mesh):
     return mesh.flat()
 
 
+class _RowShards:
+    """The row layout: shard d walks the folded rows [d * rows, (d + 1) *
+    rows) on device d against the whole planes, replicated there with
+    Tensor.to (one copy per distinct device); one device is the one shard
+    of every row. A part is a folded chunk, flat [c * (n - 1), 2]
+    (_fold_block)."""
+
+    def __init__(self, devices, planes, lengths, freqs, rows):
+        self._ops = [(planes.to(dev), lengths.to(dev), freqs.to(dev))
+                     for dev in devices]
+        self.devices = [p.device for p, _, _ in self._ops]
+        self.row0 = [d * rows for d in range(len(devices))]
+        self.rows = rows
+
+    def part(self, cd, d, s, keys):
+        """Shard d's folded chunk from row s, its kNN candidates merged
+        into ``keys``."""
+        return _fold_block(*self._ops[d], s, cd.chunk, cd._klist, cd._ss64,
+                           cd._bbits, cd._pad_bits, keys, cd._dist_col,
+                           cd._nr).reshape(-1, 2)
+
+    def pairs(self, cd, d, pos, s):
+        return _fold_pairs(pos, s, cd._n_pad)
+
+    def locate(self, cd, d, pos):
+        """(which of the folded-flat positions ``pos``, host int64, shard
+        d's parts hold, their places in those parts)."""
+        block = cd.chunk * (cd._n_pad - 1)
+        g = pos // block
+        mine = np.nonzero(g * cd.chunk // self.rows == d)[0]
+        return mine, pos[mine] - g[mine] * block
+
+
 class _ColShardedStream:
-    """Column-sharded streaming passes (the reference's _ColShardedStream,
+    """The column layout (the reference's _ColShardedStream,
     poppunk_tpu/scale.py:894): device d owns genome (column) block
     [d * n_loc, (d + 1) * n_loc) of the PLANES, a contiguous [K, P, n_loc,
     Wp] tensor on its device — on a virtual mesh separate tensors too, so
     the memory they take is what it would be over several cards. The
     planes are the one tensor whose replicated residency caps the
     row-sharded mesh (streaming_hbm_accounting). Every device walks ALL
-    folded chunks and computes its column slice of each chunk's tile:
+    folded chunks and computes its cut of each chunk's two owned tiles,
+    the tiles the row walk computes (_fold_block) with their columns cut
+    to its block (_cut):
 
-      - the chunk's 2c rows (genomes s..s+c-1 and n-s-c..n-s-1) are
-        assembled from the shards that own them, each piece copied to each
-        distinct device (_rows; the reference's masked gather + psum —
-        integers, so exact);
-      - the tile d [2c, n_loc, 2] is kernel 1's plane-major route against
-        the device's shard plus the epilogue (_tile_dists);
-      - its OWNED entries, col > row and col < n_real, are the chunk's
-        condensed pairs (each pair owned exactly once over chunks x
-        devices).
+      - the tile's rows (genomes [s, s + c), or the mirrors [n - s - c,
+        n - s)) are assembled from the shards that own them, each piece
+        copied to the device (_rows; the reference's masked gather + psum
+        — integers, so exact); its columns are a view of the device's
+        resident planes; a device whose block lies wholly before the
+        tile's first row computes none of it;
+      - the tile's kNN candidates merge into the device's running keys
+        (_merge_knn), as a row shard's do;
+      - its entries it does not own, the square's diagonal and lower
+        triangle and the pads, are NaN (a NaN pair fails every pass's
+        rule: it compares false, is not finite and counts at no offset).
 
-    Pass 1 (stats: column maxima over owned pairs, the predeclared
-    subsample, the fused kNN: each shard's k best (value, global index)
-    merged into the single device's order, ties to the lower index) runs
-    here; every later pass reads the tiles through _stream_pairs, the
-    entries a tile does not own set to NaN. A wave computes one chunk's
-    tile on every shard before any is read back."""
+    Over all devices a chunk computes c (n + c) pairs, as the row walk
+    does. A part is the two cut tiles flat, the low rows' first, each
+    row's columns ascending."""
 
-    def __init__(self, devices, planes, lengths, freqs, klist, sketchsize64,
-                 bbits, chunk, n_real):
+    def __init__(self, devices, planes, lengths, freqs):
         n_dev = len(devices)
         if isinstance(planes, tuple):  # column shards already placed
             if len(planes) != n_dev:
@@ -556,36 +591,26 @@ class _ColShardedStream:
         self.n = self.n_loc * n_dev
         self.shape = (*self.planes[0].shape[:2], self.n,
                       self.planes[0].shape[3])
-        self.c = int(chunk)
-        self.n_real = int(n_real)
-        self.klist = tuple(int(k) for k in klist)
-        self.ss64 = int(sketchsize64)
-        self.bbits = int(bbits)
-        self.pad_bits = int(plane_geometry(sketchsize64, bbits)[2])
+        self.devices = [p.device for p in self.planes]
+        self.row0 = [0] * n_dev  # every device walks every chunk
+        # per device the whole lengths / freqs (the rows' and its columns')
         lengths = torch.as_tensor(lengths, dtype=torch.int32)
         freqs = torch.as_tensor(freqs, dtype=torch.float32)
-        # per device: its first column, the whole lengths / freqs (the
-        # chunk rows' come from them) and its columns'
-        self._ops = []
-        for d, p in enumerate(self.planes):
-            col0 = d * self.n_loc
-            ln, fr = lengths.to(p.device), freqs.to(p.device)
-            self._ops.append((col0, ln, fr, ln[col0:col0 + self.n_loc],
-                              fr[col0:col0 + self.n_loc]))
+        self._ops = [(lengths.to(dev), freqs.to(dev))
+                     for dev in self.devices]
 
-    def _rows(self, ranges, device):
-        """The planes of genome ranges [(start, stop), ...] concatenated in
-        order, [K, P, m, Wp] on ``device``: each range split at the shard
-        boundaries, each piece sliced from its owner and copied there."""
+    def _rows(self, start, stop, device):
+        """The planes of genomes [start, stop), [K, P, m, Wp] on
+        ``device``: the range split at the shard boundaries, each piece
+        sliced from its owner and copied there."""
         pieces = []
-        for start, stop in ranges:
-            while start < stop:
-                e = start // self.n_loc
-                end = min(stop, (e + 1) * self.n_loc)
-                col0 = e * self.n_loc
-                pieces.append(self.planes[e][:, :, start - col0:end - col0]
-                              .to(device))
-                start = end
+        while start < stop:
+            e = start // self.n_loc
+            end = min(stop, (e + 1) * self.n_loc)
+            col0 = e * self.n_loc
+            pieces.append(self.planes[e][:, :, start - col0:end - col0]
+                          .to(device))
+            start = end
         return torch.cat(pieces, dim=2)
 
     def k_rows(self, k, ids):
@@ -603,127 +628,70 @@ class _ColShardedStream:
                                 .to(ids.device))
         return out
 
-    def waves(self):
-        """(s, [(d, tile, row ids, column ids) for every shard d]) for
-        every folded chunk s: the tile f32 [2c, n_loc, 2], the ids int64
-        tensors on the shard's device."""
-        n, c = self.n, self.c
-        for s in range(0, n // 2, c):
-            ranges = [(s, s + c), (n - s - c, n - s)]
-            queries = {}
-            wave = []
-            for d, shard in enumerate(self.planes):
-                dev = shard.device
-                col0, ln, fr, l_loc, f_loc = self._ops[d]
-                if dev not in queries:
-                    r = torch.cat([torch.arange(a, b, device=dev)
-                                   for a, b in ranges])
-                    queries[dev] = (self._rows(ranges, dev), ln[r], fr[r], r)
-                pq, lq, fq, r = queries[dev]
-                tile = _tile_dists(pq, shard, lq, l_loc, fq, f_loc,
-                                   self.klist, self.ss64, self.bbits,
-                                   self.pad_bits)
-                wave.append((d, tile, r,
-                             col0 + torch.arange(self.n_loc, device=dev)))
-            del queries
-            yield s, wave
+    def _cut(self, d, s, c):
+        """(first row, first column, columns) of device d's cut of the
+        low and of the mirror owned tile of the chunk from row s (ints, or
+        numpy arrays of s)."""
+        col0 = d * self.n_loc
+        cuts = []
+        for r0 in (s, self.n - s - c):
+            c0 = np.maximum(r0, col0)
+            cuts.append((r0, c0, np.maximum(0, col0 + self.n_loc - c0)))
+        return cuts
 
-    def _owned(self, rows, cols):
-        return ((cols[None, :] > rows[:, None])
-                & (cols < self.n_real)[None, :])
+    def part(self, cd, d, s, keys):
+        """Device d's part of the chunk from row s (None when it holds no
+        cut of it), its kNN candidates merged into ``keys``."""
+        c, n_real = cd.chunk, cd._n_real
+        shard = self.planes[d]
+        dev = shard.device
+        ln, fr = self._ops[d]
+        tiles = []
+        for r0, c0, w in self._cut(d, s, c):
+            if not w:
+                continue
+            rows, cols = slice(r0, r0 + c), slice(c0, c0 + w)
+            dist, matches = _tile_dists(
+                self._rows(r0, r0 + c, dev),
+                shard[:, :, c0 - d * self.n_loc:], ln[rows], ln[cols],
+                fr[rows], fr[cols], cd._klist, cd._ss64, cd._bbits,
+                cd._pad_bits, counts=True)
+            if keys is not None and keys.shape[1]:
+                _merge_knn(keys, dist, matches, r0, c0, ln, fr, cd._klist,
+                           cd._ss64, cd._bbits, cd._dist_col, cd._nr)
+            del matches
+            if c0 < r0 + c or c0 + w > n_real:
+                ids = torch.arange(c0, c0 + w, device=dev)
+                rid = torch.arange(r0, r0 + c, device=dev)
+                owned = (ids > rid[:, None]) & (ids < n_real)
+                dist = dist.masked_fill(~owned[..., None], float("nan"))
+            tiles.append(dist.reshape(-1, 2))
+        return torch.cat(tiles) if tiles else None
 
-    def pairs(self):
-        """(d, s, flat) for every shard d of every chunk s: the tile's
-        [2c * n_loc, 2] distances, NaN where the tile does not own the
-        entry — a NaN pair fails every pass's rule (it compares false, is
-        not finite and counts at no offset), as the reference's explicit
-        owned mask does."""
-        for s, wave in self.waves():
-            for d, tile, rows, cols in wave:
-                flat = tile.masked_fill(~self._owned(rows, cols)[..., None],
-                                        float("nan"))
-                yield d, s, flat.reshape(-1, 2)
-
-    def tile_pairs(self, pos, s, d):
+    def pairs(self, cd, d, pos, s):
         """Global (i, j), i < j, of flat positions ``pos`` (int64 tensor)
-        in device d's tile of the chunk from row s: tile row a is genome
-        s + a for a < c, n - s - c + (a - c) after (the reference's
+        in device d's part of the chunk from row s (the reference's
         _col_decode)."""
-        a, lcol = pos // self.n_loc, pos % self.n_loc
-        c = self.c
-        return (torch.where(a < c, s + a, self.n - s - c + (a - c)),
-                d * self.n_loc + lcol)
+        c = cd.chunk
+        (r_lo, c_lo, w_lo), (r_hi, c_hi, w_hi) = self._cut(d, s, c)
+        hi = pos - c * w_lo  # the position in the mirror tile, from 0
+        lo = hi < 0
+        w_lo, w_hi = max(w_lo, 1), max(w_hi, 1)  # an empty cut divides none
+        return (torch.where(lo, r_lo + pos // w_lo, r_hi + hi // w_hi),
+                torch.where(lo, c_lo + pos % w_lo, c_hi + hi % w_hi))
 
-    def pass1(self, knn, dist_col, device, sub_flat=None):
-        """Pass 1 over the column shards: (knn_col, knn_dist) host [n, k]
-        in the single device's order, the column maxima over owned pairs,
-        and the values of the predeclared subsample's folded-flat
-        positions ``sub_flat`` (ascending), each gathered by the shard
-        that owns its column. The kNN lives on ``device``."""
-        n, c, n_loc = self.n, self.c, self.n_loc
-        ki = torch.zeros((n, knn), dtype=torch.int64, device=device)
-        kd = torch.zeros((n, knn), dtype=torch.float32, device=device)
-        cmax = [torch.full((2,), float("-inf"), device=p.device)
-                for p in self.planes]
-        sub = None
-        if sub_flat is not None:
-            # each sampled position decoded once on the host to (chunk,
-            # tile row, global column); its owner gathers it in the walk
-            g, loc = np.divmod(sub_flat, c * (n - 1))
-            r, q = np.divmod(loc, n - 1)
-            first = q < n - 1 - (g * c + r)
-            a_row = np.where(first, r, 2 * c - 1 - r)
-            col = np.where(first, q + g * c + r + 1, q + 1)
-            sub = []
-            for d, p in enumerate(self.planes):
-                mine = np.nonzero(col // n_loc == d)[0]
-                sub.append((mine, np.searchsorted(
-                    g[mine], np.arange(n // 2 // c + 1)),
-                    torch.as_tensor(a_row[mine], device=p.device),
-                    torch.as_tensor(col[mine] - d * n_loc, device=p.device),
-                    []))
-        k_loc = min(knn, n_loc)
-        for s, wave in self.waves():
-            cand_i, cand_d = [], []
-            for d, tile, rows, cols in wave:
-                owned = self._owned(rows, cols)[..., None]
-                finite = tile.masked_fill(~owned | torch.isinf(tile),
-                                          float("-inf"))
-                cmax[d] = torch.maximum(cmax[d], finite.amax(dim=(0, 1)))
-                del finite
-                if sub is not None:
-                    _, bounds, a_d, l_d, got = sub[d]
-                    b0, b1 = bounds[s // c], bounds[s // c + 1]
-                    if b1 > b0:
-                        got.append(tile[a_d[b0:b1], l_d[b0:b1]])
-                if knn:
-                    bad = ((cols[None, :] == rows[:, None])
-                           | (cols >= self.n_real)[None, :])
-                    li, ld = _seq_topk(
-                        tile[..., dist_col].masked_fill(bad, float("inf")),
-                        k_loc)
-                    cand_i.append((li + cols[0]).to(device))
-                    cand_d.append(ld.to(device))
-            if knn:
-                top_i, top_d = _seq_topk(torch.cat(cand_d, dim=1), knn,
-                                         ids=torch.cat(cand_i, dim=1))
-                for half, (lo, hi) in enumerate(((s, s + c),
-                                                 (n - s - c, n - s))):
-                    ki[lo:hi] = top_i[half * c:(half + 1) * c]
-                    kd[lo:hi] = top_d[half * c:(half + 1) * c]
-        with profiling.span("scale.fetch") as sp:
-            sub_vals = None
-            if sub is not None:
-                sub_vals = np.empty((len(sub_flat), 2), np.float32)
-                for mine, _, _, _, got in sub:
-                    if got:
-                        sub_vals[mine] = torch.cat(
-                            [v.cpu() for v in got]).numpy()
-            out = (ki.cpu().numpy(), kd.cpu().numpy(),
-                   torch.stack([m.cpu() for m in cmax]).amax(dim=0).numpy(),
-                   sub_vals)
-            sp.add(bytes=_host_bytes(device, *out))
-        return out
+    def locate(self, cd, d, pos):
+        """(which of the folded-flat positions ``pos``, host int64, device
+        d's parts hold, their places in those parts)."""
+        n, c = self.n, cd.chunk
+        i, j = fold_inverse(pos, n)
+        mine = np.nonzero(j // self.n_loc == d)[0]
+        i, j = i[mine], j[mine]
+        (r_lo, c_lo, w_lo), (r_hi, c_hi, w_hi) = self._cut(
+            d, np.minimum(i, n - 1 - i) // c * c, c)
+        return mine, np.where(i < n - 1 - i,  # a low row
+                              (i - r_lo) * w_lo + j - c_lo,
+                              c * w_lo + (i - r_hi) * w_hi + j - c_hi)
 
 
 def _host_bytes(device, *arrays):
@@ -774,55 +742,40 @@ class StreamingCondensed:
         self._mesh = mesh
         self._col = col or (mesh is not None and _resolve_shard_planes(
             shard_planes, mesh, n, klist, sketchsize64, bbits, chunk, knn))
-        if self._col:
-            if mesh is None:
-                raise ValueError("column shards need the mesh they lie on")
+        if self._col and mesh is None:
+            raise ValueError("column shards need the mesh they lie on")
+        # the folded rows each shard walks: its block of a row mesh, every
+        # row on one device or column shards
+        rows, what = half, "n//2"
+        if mesh is not None:
             devices = _mesh_devices(mesh)
             n_dev = len(devices)
-            if n % n_dev:
+            if self._col and n % n_dev:
                 raise ValueError(f"n ({n}) must be a multiple of the "
                                  f"device count ({n_dev})")
-            # every device walks all folded rows
-            chunk = min(chunk, half)
-            if half % chunk:
-                raise ValueError(
-                    f"n//2 ({half}) must be a multiple of chunk ({chunk})")
+            if not self._col:
+                if half % n_dev:
+                    raise ValueError(f"n//2 ({half}) must be a multiple of "
+                                     f"the device count ({n_dev})")
+                rows, what = half // n_dev, "per-device rows"
             device = devices[0]
-        elif mesh is not None:
-            devices = _mesh_devices(mesh)
-            n_dev = len(devices)
-            if half % n_dev:
-                raise ValueError(f"n//2 ({half}) must be a multiple of "
-                                 f"the device count ({n_dev})")
-            self._half_loc = half // n_dev
-            chunk = min(chunk, self._half_loc)
-            if self._half_loc % chunk:
-                raise ValueError(f"per-device rows ({self._half_loc}) "
-                                 f"must be a multiple of chunk ({chunk})")
-            device = devices[0]
-        else:
-            chunk = min(chunk, half)
-            if half % chunk:
-                raise ValueError(
-                    f"n//2 ({half}) must be a multiple of chunk ({chunk})")
-            self._half_loc = half
-        if self._col:
-            # resolve keeps float32 products in full precision on a card
-            self.device = _device.resolve(device)
-        elif isinstance(planes, torch.Tensor):
-            self.device = _device.resolve(planes.device if device is None
-                                          else device)
-        else:
-            self.device = _device.resolve(device)
+        chunk = min(chunk, rows)
+        if rows % chunk:
+            raise ValueError(
+                f"{what} ({rows}) must be a multiple of chunk ({chunk})")
+        # resolve keeps float32 products in full precision on a card
+        self.device = _device.resolve(
+            planes.device if device is None
+            and isinstance(planes, torch.Tensor) else device)
+        if mesh is None:
+            devices = [self.device]
         with profiling.span("scale.upload", bytes=_host_bytes(
                 self.device, *(planes if col else (planes,)), lengths,
                 freqs)):
             if self._col:
-                self._cs = _ColShardedStream(devices, planes, lengths,
-                                             freqs, klist, sketchsize64,
-                                             bbits, chunk, n_real)
-                self.planes = self._cs.planes
-                self._n_dev = n_dev
+                self._layout = _ColShardedStream(devices, planes, lengths,
+                                                 freqs)
+                self.planes = self._layout.planes
             elif isinstance(planes, torch.Tensor):
                 self.planes = planes.to(self.device)
             else:
@@ -832,17 +785,14 @@ class StreamingCondensed:
             self.freqs = torch.as_tensor(freqs, dtype=torch.float32,
                                          device=self.device)
         if not self._col:
-            # (first folded row, planes, lengths, freqs) per row shard; the
-            # operands are replicated with .to, one copy per distinct device
-            self._shards = [
-                (d * self._half_loc, self.planes.to(dev),
-                 self.lengths.to(dev), self.freqs.to(dev))
-                for d, dev in enumerate(devices if mesh is not None
-                                        else [self.device])]
-            self._n_dev = len(self._shards)
+            self._layout = _RowShards(devices, self.planes, self.lengths,
+                                      self.freqs, rows)
+        self._n_dev = len(devices)
+        self._half_loc = rows
         self.n = int(n_real)
         self._n_pad = n
         self._n_real = int(n_real)
+        self._nr = self._n_real if self._n_real < n else None  # pads
         self.n_pairs = n_real * (n_real - 1) // 2
         self.chunk = int(chunk)
         self._klist = tuple(int(k) for k in klist)
@@ -870,10 +820,7 @@ class StreamingCondensed:
 
                 ri, rj = condensed_to_pair(pos, n_real)
                 pos = np.sort(fold_index(ri, rj, n))
-            block_pairs = self.chunk * (n - 1)
             self._sub_flat = pos
-            self._sub_bounds = np.searchsorted(
-                pos, np.arange(half // self.chunk + 1) * block_pairs)
             self._sub_spec = (size, sseed)
 
         # two-round bootstrap: the caller computes the model subsample
@@ -905,28 +852,23 @@ class StreamingCondensed:
     def _pass1(self, fill_spec=None):
         """Pass 1: fused kNN, column maxima and the predeclared-subsample
         gather (the reference's _stream_stats_range, and on a mesh the
-        stats body of its _ShardedStream: a running kNN over every genome
-        and column maxima per shard, merged at the fetch), optionally
-        with the boundary-band edge fill (_stream_stats_fill_range; one
-        device). Each wave enqueues one step per shard before the next. On
-        column shards, _ColShardedStream.pass1."""
+        stats body of its _ShardedStream and _ColShardedStream: a running
+        kNN over every genome and column maxima per shard, merged at the
+        fetch), optionally with the boundary-band edge fill
+        (_stream_stats_fill_range; one device): _walk to its end."""
         with profiling.span("scale.pass1",
                             chunks=self._n_pad // 2 // self.chunk,
                             pairs_needed=self.n_pairs):
-            self._walk(fill_spec)
+            for _ in self._walk(fill_spec):
+                pass
 
-    def _walk(self, fill_spec):
+    def _walk(self, fill_spec=None):
+        """Pass 1 part by part: a generator that takes in one part of the
+        walk (_parts) a step, the same body for every layout, and fetches
+        the results once the walk has ended."""
         n = self._n_pad
         c = self.chunk
-        knn = self._knn_k
-        if self._col:
-            ki, kd, self._cmax, self._sub_vals = self._cs.pass1(
-                knn, self._dist_col, self.device,
-                None if self._sub_spec is None else self._sub_flat)
-            self.knn_col = ki[:self._n_real]
-            self.knn_dist = kd[:self._n_real]
-            return
-        nr = self._n_real if self._n_real < n else None
+        lay = self._layout
         fill = None
         if fill_spec is not None:
             # the bootstrap computes the model subsample directly; a
@@ -937,41 +879,35 @@ class StreamingCondensed:
                                   fill_spec["line"])
             fill = _BandFill(n, geom.t, int(fill_spec["n_act"]),
                              fill_spec["e_total"], self.device)
-        state = []
-        for row0, planes, _, _ in self._shards:
-            dev = planes.device
-            state.append((
-                # the shard's running kNN over every genome
-                _knn_keys(n, knn, dev),
-                torch.full((2,), float("-inf"), device=dev),
-                # the sampled positions on the shard's device, uploaded
-                # once: no copy from the host inside the walk
-                None if self._sub_spec is None else torch.as_tensor(
-                    self._sub_flat, device=dev)))
-        sub_parts = []
-        for off in range(0, self._half_loc, c):
-            wave = [_fold_block(planes, lengths, freqs, row0 + off, c,
-                                self._klist, self._ss64, self._bbits,
-                                self._pad_bits, st[0], self._dist_col, nr)
-                    for (row0, planes, lengths, freqs), st in zip(
-                        self._shards, state)]
-            for d, folded in enumerate(wave):
-                _, cmax, sub_flat = state[d]
-                s = self._shards[d][0] + off
-                finite = folded.masked_fill(torch.isinf(folded),
-                                            float("-inf"))
-                cmax.copy_(torch.maximum(cmax, finite.amax(dim=(0, 1))))
-                del finite
-                flat = folded.reshape(-1, 2)
-                if fill is not None:
-                    fill.add(geom.d0(flat), lambda pos: _fold_pairs(pos, s, n))
-                if self._sub_spec is not None:
-                    g = s // c  # the global chunk
-                    b0, b1 = self._sub_bounds[g], self._sub_bounds[g + 1]
-                    if b1 > b0:
-                        loc = sub_flat[b0:b1] - g * c * (n - 1)
-                        sub_parts.append((g, flat[loc]))
-            del wave
+        # each shard's running kNN over every genome, and its maxima
+        keys = [_knn_keys(n, self._knn_k, dev) for dev in lay.devices]
+        cmax = [torch.full((2,), float("-inf"), device=dev)
+                for dev in lay.devices]
+        sub = None
+        if self._sub_spec is not None:
+            # each shard's sampled positions: their indices in the sample,
+            # each chunk's bounds among them, and their places in its parts
+            # on its device, uploaded once: no copy from the host in the walk
+            sub, got = [], []
+            for d, dev in enumerate(lay.devices):
+                mine, local = lay.locate(self, d, self._sub_flat)
+                g = self._sub_flat[mine] // (c * (n - 1))  # their chunks
+                sub.append((mine, np.searchsorted(
+                    g, np.arange(n // 2 // c + 1)), torch.as_tensor(
+                        local, device=dev)))
+        for d, s, flat in _parts(self, keys):
+            finite = flat.masked_fill(~torch.isfinite(flat), float("-inf"))
+            cmax[d] = torch.maximum(cmax[d], finite.amax(dim=0))
+            del finite
+            if fill is not None:
+                fill.add(geom.d0(flat),
+                         lambda pos: _chunk_pairs(self, d, s, pos))
+            if sub is not None:
+                mine, bounds, local = sub[d]
+                b0, b1 = bounds[s // c], bounds[s // c + 1]
+                if b1 > b0:
+                    got.append((mine[b0:b1], flat[local[b0:b1]]))
+            yield
         edges = None
         if fill is not None:
             if fill.acc > fill.cap:
@@ -985,23 +921,21 @@ class StreamingCondensed:
                 edges = SweepEdges(fill.bi, fill.bj, fill.bd, fill.acc, n,
                                    n_real=self._n_real)
         with profiling.span("scale.fetch") as sp:
-            if self._sub_spec is not None:
-                # back in global chunk order (folded-flat order), whatever
-                # the shard each chunk came from
-                self._sub_vals = torch.cat(
-                    [v.cpu() for _, v in sorted(sub_parts,
-                                                key=lambda p: p[0])]).numpy()
+            if sub is not None:
+                self._sub_vals = np.empty((len(self._sub_flat), 2),
+                                          np.float32)
+                for idx, v in got:
+                    self._sub_vals[idx] = v.cpu().numpy()
             cum = None
             if edges is not None:
                 cum = fill.cum.cpu().numpy()
                 self._prefill = (edges, cum, dict(fill_spec))
-            knn_col, knn_dist = _knn_arrays([st[0] for st in state],
-                                            self.device)
-            self._cmax = torch.stack([st[1].cpu() for st in state]).amax(
+            knn_col, knn_dist = _knn_arrays(keys, self.device)
+            self._cmax = torch.stack([m.cpu() for m in cmax]).amax(
                 dim=0).numpy()
             sp.add(bytes=_host_bytes(
                 self.device, knn_col, knn_dist, self._cmax, cum,
-                self._sub_vals if self._sub_spec is not None else None))
+                self._sub_vals if sub is not None else None))
         self.knn_col = knn_col[:self._n_real]
         self.knn_dist = knn_dist[:self._n_real]
 
@@ -1014,7 +948,7 @@ class StreamingCondensed:
         self.device), [P, m, w32]: gathered from the column shards that
         own them, or sliced from the resident planes."""
         if self._col:
-            return self._cs.k_rows(k, ids)[:, :, :self._w32]
+            return self._layout.k_rows(k, ids)[:, :, :self._w32]
         return self.planes[k, :, :, :self._w32][:, ids]
 
     def subsample_pairs(self, size, seed=42, block=8192):
@@ -1088,8 +1022,6 @@ class CondensedDevice:
     planes, so every sweep slices the buffer instead of recomputing
     distances; its readers walk the shards in row order."""
 
-    _col = False  # no column shards: the buffer is always folded rows
-
     def __init__(self, buf, n, knn_row, knn_col, knn_dist):
         self.buf = buf
         self.n = n
@@ -1139,49 +1071,23 @@ class CondensedDevice:
         return _knn_sparse(self.knn_col, self.knn_dist)
 
 
-def _fill_shards(devices, planes, lengths, freqs, klist, sketchsize64,
-                 bbits, chunk, knn, dist_col):
-    """The buffered fill over row shards, one per device (the planes
-    replicated with .to): each device's shard of the folded buffer and
-    its running kNN over every genome, in waves of one step per shard.
-    Returns (buffers, host knn_col, host knn_dist)."""
-    n = planes.shape[2]
-    half_loc = fold_rows(n) // len(devices)
-    pad_bits = plane_geometry(sketchsize64, bbits)[2]
-    klist = tuple(int(k) for k in klist)
-    ops = [(d * half_loc, planes.to(dev), lengths.to(dev), freqs.to(dev))
-           for d, dev in enumerate(devices)]
-    bufs, keys = [], []
-    for _, pl, _, _ in ops:
-        dev = pl.device
-        bufs.append(torch.empty((half_loc, n - 1, 2), dtype=torch.float32,
-                                device=dev))
-        keys.append(_knn_keys(n, knn, dev))
-    c = chunk
-    for off in range(0, half_loc, c):
-        wave = [_fold_block(pl, ln, fr, row0 + off, c, klist, sketchsize64,
-                            bbits, pad_bits, kk, dist_col)
-                for (row0, pl, ln, fr), kk in zip(ops, keys)]
-        for d, folded in enumerate(wave):
-            bufs[d][off:off + c] = folded
-        del wave
-    knn_col, knn_dist = _knn_arrays(keys, devices[0])
-    return bufs, knn_col, knn_dist
-
-
-def _buffer_operands(planes, lengths, freqs, device):
-    """(device, planes, lengths, freqs) for a fill: numpy planes moved to
-    ``device`` (None: ``_device.resolve``'s choice), a tensor's device
-    kept."""
-    if isinstance(planes, torch.Tensor):
-        dev = _device.resolve(planes.device if device is None else device)
-        planes = planes.to(dev)
-    else:
-        dev = _device.resolve(device)
-        planes = planes_to_tensor(planes, dev)
-    return (dev, planes,
-            torch.as_tensor(lengths, dtype=torch.int32, device=dev),
-            torch.as_tensor(freqs, dtype=torch.float32, device=dev))
+def _fill_shards(cd):
+    """The buffered fill over a deferred streaming cd's row shards: each
+    shard's block of the folded buffer, written from the walk (_parts),
+    and its running kNN over every genome, merged at the end. Returns a
+    CondensedDevice, its buffer the tuple of the shards' blocks on a
+    mesh."""
+    n, c = cd._n_pad, cd.chunk
+    devices = cd._layout.devices
+    keys = [_knn_keys(n, cd._knn_k, dev) for dev in devices]
+    bufs = [torch.empty((cd._half_loc, n - 1, 2), dtype=torch.float32,
+                        device=dev) for dev in devices]
+    for d, s, flat in _parts(cd, keys):
+        off = s - cd._layout.row0[d]
+        bufs[d][off:off + c] = flat.view(c, n - 1, 2)
+    knn_col, knn_dist = _knn_arrays(keys, cd.device)
+    return CondensedDevice(bufs[0] if cd._mesh is None else tuple(bufs), n,
+                           np.arange(n, dtype=np.int64), knn_col, knn_dist)
 
 
 def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
@@ -1194,19 +1100,9 @@ def fill_condensed_device(planes, lengths, freqs, klist, sketchsize64,
     and merges its candidates into the running [n, knn] kNN. planes:
     plane-major [K, P, n, Wp], numpy uint32 or an int32 tensor on its
     device (``device`` None: ``_device.resolve``'s choice)."""
-    dev, planes, lengths, freqs = _buffer_operands(planes, lengths, freqs,
-                                                   device)
-    n = planes.shape[2]
-    half = fold_rows(n)
-    chunk = min(chunk, half)
-    if half % chunk:
-        raise ValueError(
-            f"n//2 ({half}) must be a multiple of chunk ({chunk})")
-    bufs, knn_col, knn_dist = _fill_shards(
-        [dev], planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
-        min(knn, n - 1), dist_col)
-    return CondensedDevice(bufs[0], n, np.arange(n, dtype=np.int64),
-                           knn_col, knn_dist)
+    return _fill_shards(StreamingCondensed(
+        planes, lengths, freqs, klist, sketchsize64, bbits, chunk=chunk,
+        knn=knn, dist_col=dist_col, defer=True, device=device))
 
 
 def fill_condensed_sharded(planes, lengths, freqs, klist, sketchsize64,
@@ -1218,31 +1114,14 @@ def fill_condensed_sharded(planes, lengths, freqs, klist, sketchsize64,
     Each device owns half/n_dev contiguous folded rows and runs the same
     _fold_block loop over its shard, the planes replicated; each device
     keeps a running kNN over every genome, merged across devices at the
-    end, and every output shard is contiguous. Returns a CondensedDevice whose buf is the tuple of
-    shards."""
+    end, and every output shard is contiguous. Returns a CondensedDevice
+    whose buf is the tuple of shards."""
     from .parallel.mesh import get_mesh
 
-    if mesh is None:
-        mesh = get_mesh()
-    devices = _mesh_devices(mesh)
-    _, planes, lengths, freqs = _buffer_operands(planes, lengths, freqs,
-                                                 devices[0])
-    n = planes.shape[2]
-    half = fold_rows(n)
-    n_dev = len(devices)
-    if half % n_dev:
-        raise ValueError(f"n//2 ({half}) must be a multiple of the device "
-                         f"count ({n_dev})")
-    half_loc = half // n_dev
-    chunk = min(chunk, half_loc)
-    if half_loc % chunk:
-        raise ValueError(f"per-device rows ({half_loc}) must be a multiple "
-                         f"of chunk ({chunk})")
-    bufs, knn_col, knn_dist = _fill_shards(
-        devices, planes, lengths, freqs, klist, sketchsize64, bbits, chunk,
-        min(knn, n - 1), dist_col)
-    return CondensedDevice(tuple(bufs), n, np.arange(n, dtype=np.int64),
-                           knn_col, knn_dist)
+    return _fill_shards(StreamingCondensed(
+        planes, lengths, freqs, klist, sketchsize64, bbits, chunk=chunk,
+        knn=knn, dist_col=dist_col, defer=True,
+        mesh=get_mesh() if mesh is None else mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -1314,48 +1193,50 @@ class _SweepGeometry:
         return _d0_chunk(flat, g["scale"], g["xm0"], g["ym0"], self.slope)
 
 
-def _stream_pairs(cd):
-    """(d, s, the folded chunk from row s as flat [rows * (n - 1), 2]
-    distances) for every chunk, d its shard: the recompute shared by every
-    pass after pass 1 (the reference's sweep, 2-D, QC and boundary
-    groups). A buffered cd slices _BUF_ROWS folded rows of its buffer at a
-    time instead. On a column-sharded cd each part is device d's tile of
-    the chunk from row s, [2c * n_loc, 2], NaN where the tile does not own
-    the pair (_ColShardedStream.pairs); _chunk_pairs decodes positions in
-    either layout.
-
-    On a sharded cd the shards are walked in waves: step k of every shard
-    is enqueued (each on its device) before any of them is yielded, then
+def _parts(cd, keys=None):
+    """(d, s, part) for device d's part of the folded chunk from row s,
+    for every chunk d walks, on a streaming cd: the one wave loop of every
+    pass (pass 1, the buffered fill, _stream_pairs). Step k of every shard
+    is enqueued, each on its device, before any part is yielded; then
     they are yielded in shard order, each on its shard's device. So the
-    parts do not come in (d, s) order: a consumer that keeps an order puts
-    them back in it (_host_parts)."""
+    parts do not come in (d, s) order: a consumer that keeps an order
+    puts them back in it (_host_parts). ``keys``: each shard's running
+    kNN keys (_knn_keys), which its steps merge into; None skips the kNN.
+    A column shard with no cut of a chunk yields no part of it."""
+    lay = cd._layout
+    for off in range(0, cd._half_loc, cd.chunk):
+        wave = [(d, row0 + off, lay.part(cd, d, row0 + off,
+                                         None if keys is None else keys[d]))
+                for d, row0 in enumerate(lay.row0)]
+        for d, s, part in wave:
+            if part is not None:
+                yield d, s, part
+        del wave
+
+
+def _stream_pairs(cd):
+    """(d, s, the part of the chunk from row s as flat [m, 2] distances)
+    for every part, d its shard: the recompute shared by every pass after
+    pass 1 (the reference's sweep, 2-D, QC and boundary groups), a folded
+    chunk on one device or a row shard (_parts), a column shard's cut of
+    a chunk's owned tiles with NaN where it does not own the pair. A
+    buffered cd slices _BUF_ROWS folded rows of its buffer at a time
+    instead. _chunk_pairs decodes positions in any of them."""
     if cd.buf is not None:
         shards = cd.shards()
         for off in range(0, shards[0][1].shape[0], _BUF_ROWS):
             for d, (row0, buf) in enumerate(shards):
                 yield d, row0 + off, buf[off:off + _BUF_ROWS].reshape(-1, 2)
         return
-    if cd._col:
-        yield from cd._cs.pairs()
-        return
-    n_pad = cd._n_pad
-    nr = cd._n_real if cd._n_real < n_pad else None
-    for off in range(0, cd._half_loc, cd.chunk):
-        wave = [(row0 + off, _fold_block(
-            planes, lengths, freqs, row0 + off, cd.chunk, cd._klist,
-            cd._ss64, cd._bbits, cd._pad_bits, n_real=nr))
-            for row0, planes, lengths, freqs in cd._shards]
-        for d, (s, folded) in enumerate(wave):
-            yield d, s, folded.reshape(-1, 2)
-        del wave
+    yield from _parts(cd)
 
 
 def _chunk_pairs(cd, d, s, pos):
     """Global (i, j), i < j, int64 tensors, of the flat positions ``pos``
     in the part _stream_pairs yielded as (d, s)."""
-    if cd._col:
-        return cd._cs.tile_pairs(pos, s, d)
-    return _fold_pairs(pos, s, cd._n_pad)
+    if cd.buf is not None:
+        return _fold_pairs(pos, s, cd._n_pad)
+    return cd._layout.pairs(cd, d, pos, s)
 
 
 def _host_parts(parts, dtypes):

@@ -6,11 +6,13 @@ The reference is the walk that counts every pair twice: each chunk's 2c
 rows (its low rows and their mirrors) against every genome in one tile
 (``_tile_dists``), folded by a gather over the low rows and a ``where``
 with the reversed mirror rows, and each row's kNN taken from its own full
-row (self and pads at +inf, ``_seq_topk``). The walk under test counts
-only the pairs each chunk owns and merges the kNN across chunks, so the
-folded blocks, the kNN indices and distances, the column maxima and the
-subsample must equal the reference's bit for bit; every pair's arithmetic
-is the same whatever the tile's shape.
+row (self and pads at +inf, the top-k of its ``_keys``). The walk under
+test counts only the pairs each chunk owns and merges the kNN across
+chunks, so the folded blocks, the kNN indices and distances, the column
+maxima and the subsample must equal the reference's bit for bit; every
+pair's arithmetic is the same whatever the tile's shape. The row- and the
+column-sharded walks, on a virtual mesh of the CPU, must equal the one
+device's.
 
 The population: planted strains of random sketches with some genomes
 copied, so that exact ties test the lowest-index rule, padded with zero
@@ -108,7 +110,7 @@ def full_rows(planes, lengths, freqs, s, c, knn, dist_col, n_real):
     col = d[..., dist_col].contiguous()
     col[torch.arange(2 * c, device=dev), rows] = float("inf")
     col[:, n_real:] = float("inf")
-    top_i, top_d = tsc._seq_topk(col, knn)
+    top_i, top_d = tsc._decode(tsc._smallest(tsc._keys(col), knn))
     return folded, rows, top_i, top_d
 
 
@@ -216,28 +218,78 @@ def test_row_sharded_mesh_equals_one_device(case, shards):
         assert got.knn_dist.tobytes() == one.knn_dist.tobytes()
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_tiles_count_the_owned_pairs(case, monkeypatch):
-    """Two scale.tile spans a chunk, c (n_pad - s) and c (s + c) pairs: in
-    all chunks * c * (n_pad + c), about half the full rows' 2c n_pad; one
-    scale.knn span a tile when there is a kNN."""
+# (case, devices) of the column-sharded mesh: 8 columns a shard inside a
+# chunk's 64 rows and the pads in the last, 16 inside 32 rows, shards as
+# wide as a chunk or wider, and pads inside the last shard in each padded
+# case
+COL_CASES = [("pads-c64-k5", 8), ("pads-c32-k1-acc", 5), ("one-chunk", 4),
+             ("knn-past-chunk", 8), ("small-pads-knn-past-chunk", 4),
+             ("no-knn", 2)]
+
+
+@pytest.mark.parametrize("case,shards", COL_CASES)
+def test_column_sharded_mesh_equals_one_device(case, shards):
+    """The column-sharded walk on a virtual mesh (the CPU repeated): each
+    shard computes its cut of every chunk's owned tiles and keeps a
+    running kNN over every genome, merged at the fetch."""
+    n_real, n_pad, c, knn, dist_col, copies = CASES[case]
+    host = population(n_real, n_pad, copies)
+    kw = dict(chunk=c, knn=knn, dist_col=dist_col, n_real=n_real,
+              subsample=(300, 7))
+    one = tsc.StreamingCondensed(*host, KLIST, SS64, BBITS, device=CPU,
+                                 **kw)
+    ts = tsc.StreamingCondensed(*host, KLIST, SS64, BBITS,
+                                mesh=tmesh.get_mesh(devices=[CPU] * shards),
+                                shard_planes=True, **kw)
+    assert ts._col and ts._n_dev == shards
+    np.testing.assert_array_equal(ts.knn_col, one.knn_col)
+    assert ts.knn_dist.tobytes() == one.knn_dist.tobytes()
+    assert ts.max_scale().tobytes() == one.max_scale().tobytes()
+    assert ts.subsample_pairs(300, seed=7).tobytes() == \
+        one.subsample_pairs(300, seed=7).tobytes()
+
+
+def tile_spans(monkeypatch, case, **kw):
+    """(pairs of each scale.tile span, the number of scale.knn spans) of
+    one pass 1 of ``case``."""
     n_real, n_pad, c, knn, dist_col, copies = CASES[case]
     monkeypatch.setattr(profiling, "_ENABLED", True)
     profiling.clear()
     try:
         tsc.StreamingCondensed(*population(n_real, n_pad, copies), KLIST,
                                SS64, BBITS, chunk=c, knn=knn,
-                               dist_col=dist_col, n_real=n_real, device=CPU)
-        tiles = [s.counts["pairs"] for s in profiling.spans()
-                 if s.name == "scale.tile"]
-        knns = [s for s in profiling.spans() if s.name == "scale.knn"]
+                               dist_col=dist_col, n_real=n_real, **kw)
+        return ([s.counts["pairs"] for s in profiling.spans()
+                 if s.name == "scale.tile"],
+                sum(s.name == "scale.knn" for s in profiling.spans()))
     finally:
         profiling.clear()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tiles_count_the_owned_pairs(case, monkeypatch):
+    """Two scale.tile spans a chunk, c (n_pad - s) and c (s + c) pairs: in
+    all chunks * c * (n_pad + c), about half the full rows' 2c n_pad; one
+    scale.knn span a tile when there is a kNN."""
+    _, n_pad, c, knn, _, _ = CASES[case]
+    tiles, knns = tile_spans(monkeypatch, case, device=CPU)
     starts = range(0, n_pad // 2, c)
     assert tiles == [p for s in starts
                      for p in (c * (n_pad - s), c * (s + c))]
     assert sum(tiles) == len(starts) * c * (n_pad + c)
-    assert len(knns) == (len(tiles) if knn else 0)
+    assert knns == (len(tiles) if knn else 0)
+
+
+@pytest.mark.parametrize("case,shards", COL_CASES)
+def test_column_tiles_count_the_owned_pairs(case, shards, monkeypatch):
+    """Column shards cut the same owned tiles: their scale.tile pairs sum
+    to chunks * c * (n_pad + c), with one scale.knn span a cut tile."""
+    _, n_pad, c, knn, _, _ = CASES[case]
+    tiles, knns = tile_spans(monkeypatch, case, shard_planes=True,
+                             mesh=tmesh.get_mesh(devices=[CPU] * shards))
+    assert sum(tiles) == n_pad // 2 // c * c * (n_pad + c)
+    assert len(tiles) > 2 * n_pad // 2 // c
+    assert knns == (len(tiles) if knn else 0)
 
 
 def test_the_column_operand_is_a_view_of_the_resident_planes(monkeypatch):

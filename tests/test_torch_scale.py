@@ -238,10 +238,13 @@ def test_pads_never_enter_the_knn_and_are_never_drawn(streams, pop):
 
 @pytest.mark.parametrize("knn", [3, 17])
 def test_seq_topk_orders_ties_by_index(knn):
+    """The kNN's keys (_keys, _smallest, _decode) order ties by the lowest
+    index, as the JAX package's sequential top-k does."""
     rng = np.random.default_rng(4)
     col = rng.integers(0, 5, (7, 40)).astype(np.float32)  # many ties
     col[2, :] = 1.0
-    idx, d = tsc._seq_topk(torch.from_numpy(col), knn)
+    idx, d = tsc._decode(tsc._smallest(tsc._keys(torch.from_numpy(col)),
+                                       knn))
     want = np.lexsort((np.broadcast_to(np.arange(40), col.shape), col),
                       axis=1)[:, :knn]
     np.testing.assert_array_equal(idx.numpy(), want)

@@ -159,7 +159,7 @@ COPIES = {
     "cli/references.py": (("get_options", "main"), ()),
     "cli/lineages.py": (("get_options", "main", "create_db", "query_db"),
                         ()),
-    "scale.py": (("_fold_block", "_seq_topk", "_pair_corrected_fit",
+    "scale.py": (("_fold_block", "_pair_corrected_fit",
                   "_pair_block_dists", "StreamingCondensed", "_d0_chunk",
                   "sweep_counts_streaming", "sweep_first_offsets",
                   "sweep_fill_device", "plan_sweep_band",
