@@ -92,12 +92,68 @@ def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
     return planes, lengths, freqs
 
 
+# Host arrays of more than this many bytes go to a card through two
+# page-locked slabs of this size (_slab_copy); smaller ones, and every copy
+# to the CPU, in one .to(device). 16 MB was the fastest of 8-256 MB for
+# 1.1 and 2.6 GB on an H100's host (PERF.md §5)
+UPLOAD_SLAB = 16 << 20
+
+
 def planes_to_tensor(planes, device=None):
     """uint32 planes (numpy) -> int32 tensor with the same bits, on
     ``device`` (None: ``_device.resolve``'s choice)."""
-    return torch.from_numpy(
-        np.ascontiguousarray(planes).view(np.int32)).to(
-            _device.resolve(device))
+    return _upload(planes, device)[0]
+
+
+def _upload(planes, device=None):
+    """planes_to_tensor, and the bytes that went through page-locked slabs:
+    an array of more than UPLOAD_SLAB bytes bound for a card takes
+    _slab_copy (a pageable ``.to(device)`` runs at the driver's own
+    staging rate, ~5.4 GB/s on the H100's host); anything else one
+    ``.to(device)``, 0 staged."""
+    device = _device.resolve(device)
+    if device.type != "cuda" or planes.nbytes <= UPLOAD_SLAB:
+        return torch.from_numpy(
+            np.ascontiguousarray(planes).view(np.int32)).to(device), 0
+    dst = torch.empty(planes.shape, dtype=torch.int32, device=device)
+    _slab_copy(planes, dst, UPLOAD_SLAB)
+    return dst, planes.nbytes
+
+
+def _slab_ranges(nbytes, slab):
+    """The byte ranges [a, b) of _slab_copy's slabs, in order."""
+    return [(a, min(a + slab, nbytes)) for a in range(0, nbytes, slab)]
+
+
+def _slab_copy(planes, dst, slab):
+    """Copy the bits of the uint32 host array ``planes`` into ``dst``, a
+    contiguous int32 tensor of its shape, ``slab`` bytes at a time through
+    two reused host buffers (_staging). On a card they are page-locked and
+    each slab's copy out of its buffer is asynchronous, with an event
+    recorded after it; before slab i fills its buffer the host waits for
+    that event of slab i - 2 alone, never the stream, so the host copies
+    slab i (over torch's intra-op threads) while the card's DMA takes
+    slab i - 1. Returns without waiting: later work on the stream queues
+    behind the copies, and the caching host allocator keeps a freed
+    buffer until its copy's event has passed. On the CPU each slab goes
+    through its (pageable) buffer as it comes."""
+    on_card = dst.device.type == "cuda"
+    src = torch.from_numpy(np.ascontiguousarray(planes).view(np.int32))
+    src, dst = (t.view(-1).view(torch.uint8) for t in (src, dst))
+    ranges = _slab_ranges(src.numel(), slab)
+    buffers = _staging(min(slab, src.numel()), min(2, len(ranges)),
+                       pinned=on_card)
+    events = [None] * len(buffers)
+    for i, (a, b) in enumerate(ranges):
+        j = i % 2
+        if events[j] is not None:
+            events[j].synchronize()
+        buffer = buffers[j][:b - a]
+        buffer.copy_(src[a:b])
+        dst[a:b].copy_(buffer, non_blocking=on_card)
+        if on_card:
+            events[j] = torch.cuda.Event()
+            events[j].record(torch.cuda.current_stream(dst.device))
 
 
 def _dot4(a, b):
@@ -330,8 +386,9 @@ class _Operands:
         moved = (0 if device.type == "cpu" else
                  sum(a.nbytes for a in (planes, lengths, freqs)
                      if not torch.is_tensor(a) or a.device.type == "cpu"))
-        with profiling.span("dists.upload", bytes=moved):
-            self.planes = planes_to_tensor(planes, device)
+        with profiling.span("dists.upload", bytes=moved) as sp:
+            self.planes, staged = _upload(planes, device)
+            sp.add(staged=staged)
             if mc.KERNEL_CHOICE == "packed":
                 self.planes = mc.pack(self.planes, pad_bits)
             self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -477,9 +534,10 @@ def _place(outs, blocks, start, stop, n):
             at += m
 
 
-def _staging(nbytes, count):
-    """``count`` page-locked host buffers of ``nbytes`` each."""
-    return [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+def _staging(nbytes, count, pinned=True):
+    """``count`` host buffers of ``nbytes`` each, page-locked unless
+    ``pinned`` is false."""
+    return [torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned)
             for _ in range(count)]
 
 

@@ -34,7 +34,11 @@ The spans:
     dists.pack_planes                  sketches -> host planes; sketches
     dists.upload                       planes, lengths and frequencies to
                                        the device; bytes moved from the host
-                                       (0 on the CPU)
+                                       (0 on the CPU), staged (the planes'
+                                       bytes when they went through the
+                                       page-locked slabs of
+                                       ops/distances.py::_slab_copy, past
+                                       one slab to a card; else 0)
     dists.enqueue                      a chunk's match-count and epilogue
                                        launches (host time); pairs
     dists.fetch_copy                   a chunk's result toward the host;
@@ -62,7 +66,7 @@ The spans:
     scale.upload                       planes, lengths and frequencies to
                                        the device in StreamingCondensed;
                                        bytes moved from the host (0 on the
-                                       CPU)
+                                       CPU), staged (as dists.upload's)
     scale.tile                         one tile's match-count and epilogue
                                        launches (scale._tile_dists); pairs
                                        (rows x columns computed)

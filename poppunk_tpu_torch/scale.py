@@ -89,8 +89,8 @@ import numpy as np
 import torch
 
 from . import _device, profiling
-from .ops.distances import (core_accessory, dist_epilogue, plane_geometry,
-                            planes_to_tensor)
+from .ops.distances import (_upload, core_accessory, dist_epilogue,
+                            plane_geometry, planes_to_tensor)
 from .ops.match_counts import match_counts_device, popcount32
 
 
@@ -570,6 +570,7 @@ class _ColShardedStream:
 
     def __init__(self, devices, planes, lengths, freqs):
         n_dev = len(devices)
+        self.staged = 0  # bytes the shards' uploads took through slabs
         if isinstance(planes, tuple):  # column shards already placed
             if len(planes) != n_dev:
                 raise ValueError(f"{len(planes)} column shards for a mesh "
@@ -584,8 +585,9 @@ class _ColShardedStream:
                                       device=dev).copy_(b)
                           for b, dev in zip(blocks, devices)]
             else:
-                shards = [planes_to_tensor(b, dev)
-                          for b, dev in zip(blocks, devices)]
+                shards, staged = zip(*(_upload(b, dev)
+                                       for b, dev in zip(blocks, devices)))
+                self.staged = sum(staged)
         self.planes = tuple(shards)
         self.n_loc = self.planes[0].shape[2]
         self.n = self.n_loc * n_dev
@@ -771,15 +773,18 @@ class StreamingCondensed:
             devices = [self.device]
         with profiling.span("scale.upload", bytes=_host_bytes(
                 self.device, *(planes if col else (planes,)), lengths,
-                freqs)):
+                freqs)) as sp:
+            staged = 0
             if self._col:
                 self._layout = _ColShardedStream(devices, planes, lengths,
                                                  freqs)
                 self.planes = self._layout.planes
+                staged = self._layout.staged
             elif isinstance(planes, torch.Tensor):
                 self.planes = planes.to(self.device)
             else:
-                self.planes = planes_to_tensor(planes, self.device)
+                self.planes, staged = _upload(planes, self.device)
+            sp.add(staged=staged)
             self.lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                            device=self.device)
             self.freqs = torch.as_tensor(freqs, dtype=torch.float32,

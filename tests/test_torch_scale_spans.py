@@ -12,6 +12,7 @@ from benchmark import stream_readers
 from benchmark.trace import Trace
 from poppunk_tpu_torch import profiling
 from poppunk_tpu_torch import scale as tsc
+from poppunk_tpu_torch.ops import distances as td
 
 N_REAL = 61
 N_PAD = 64
@@ -62,10 +63,10 @@ def _spec():
                 line=(0.05, 0.1, 0.6, 0.8), n_act=30, e_total=4000)
 
 
-def _pass(fill=True):
-    cd = tsc.StreamingCondensed(*_population(), KLIST, SS64, BBITS,
-                                chunk=CHUNK, knn=3, n_real=N_REAL,
-                                defer=True, device=torch.device("cpu"))
+def _pass(fill=True, population=None, device=torch.device("cpu")):
+    cd = tsc.StreamingCondensed(*(population or _population()), KLIST, SS64,
+                                BBITS, chunk=CHUNK, knn=3, n_real=N_REAL,
+                                defer=True, device=device)
     cd.run_pass1(_spec() if fill else None)
     return cd
 
@@ -156,3 +157,71 @@ def test_pairs_per_needed_reads_the_window_tiles(monkeypatch):
     assert stream_readers.pairs_per_needed(run) is None
     late, _ = _run(found, (window[1] + 1, window[1] + 2), 1)
     assert stream_readers.pairs_per_needed(late) is None
+
+
+def _upload_span(name, device):
+    """The one ``name`` span of a stream pass 1 (scale.upload) or an
+    all-vs-all call (dists.upload) from the host planes on ``device``,
+    and the host bytes of its planes, lengths and frequencies."""
+    planes, lengths, freqs = _population()
+    if name == "scale.upload":
+        _pass(population=(planes, lengths, freqs), device=device)
+    else:
+        planes = np.ascontiguousarray(planes.transpose(2, 0, 1, 3))
+        td.condensed_self_block(planes, lengths, freqs, KLIST, SS64, BBITS,
+                                chunk=CHUNK, device=device)
+    (up,) = [s for s in profiling.spans() if s.name == name]
+    return up, (planes.nbytes, planes.nbytes + lengths.nbytes + freqs.nbytes)
+
+
+@pytest.mark.parametrize("name", ["scale.upload", "dists.upload"])
+def test_uploads_count_the_staged_bytes(name, monkeypatch):
+    """Both uploads carry ``staged``, the bytes that went through the
+    page-locked slabs: none on the CPU, whose bytes stay 0, even past a
+    slab."""
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(td, "UPLOAD_SLAB", 1024)
+    up, _ = _upload_span(name, torch.device("cpu"))
+    assert up.counts["staged"] == 0 and up.counts["bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scale.upload", "dists.upload"])
+def test_uploads_stage_the_planes_on_the_card(name, monkeypatch):
+    """Past one slab the planes go through the slabs: ``staged`` counts
+    them, ``bytes`` the planes, lengths and frequencies as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(td, "UPLOAD_SLAB", 40_000)
+    up, (planes, moved) = _upload_span(name, torch.device("cuda", 0))
+    assert planes > 2 * td.UPLOAD_SLAB
+    assert up.counts["staged"] == planes and up.counts["bytes"] == moved
+
+
+@pytest.mark.cuda
+def test_pass1_from_staged_host_planes_equals_card_planes():
+    """Pass 1 from host planes uploaded through the slabs (a ragged last
+    one) equals pass 1 from the same planes already on the card: kNN,
+    maxima, band count, offset histogram and every band edge in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card = torch.device("cuda", 0)
+    planes, lengths, freqs = _population()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(td, "UPLOAD_SLAB", 40_000)
+        assert planes.nbytes % td.UPLOAD_SLAB and \
+            td._upload(planes, card)[1] == planes.nbytes
+        staged = _pass(population=(planes, lengths, freqs), device=card)
+    resident = _pass(population=(td.planes_to_tensor(planes, card), lengths,
+                                 freqs), device=card)
+    np.testing.assert_array_equal(staged.knn_col, resident.knn_col)
+    assert staged.knn_dist.tobytes() == resident.knn_dist.tobytes()
+    assert staged.max_scale().tobytes() == resident.max_scale().tobytes()
+    (e_s, c_s, _), (e_r, c_r, _) = staged.pop_prefill(), \
+        resident.pop_prefill()
+    assert e_s.count == e_r.count > 0
+    np.testing.assert_array_equal(c_s, c_r)
+    for a, b in zip(e_s.fetch_prefix(e_s.count),
+                    e_r.fetch_prefix(e_r.count)):
+        np.testing.assert_array_equal(a, b)
