@@ -82,6 +82,21 @@ The spans:
     scale.fetch                        pass 1's kNN, maxima, subsample and
                                        band histogram to the host; bytes (0
                                        on the CPU)
+    serve.assign                       one request of serve.AssignSession
+                                       (assign_sketches), parent of the
+                                       serve spans below and of
+                                       dists.pack_planes; queries, pairs
+                                       (queries x references), dispatches
+    serve.dispatch                     one padded bucket's padding, upload
+                                       and fused enqueue; rows (the
+                                       bucket), pairs (bucket x references)
+    serve.upload                       a bucket's planes, lengths and
+                                       frequencies to the device; bytes
+                                       moved from the host (0 on the CPU)
+    serve.attach                       a bucket's answers looked up on the
+                                       host; queries
+    serve.fetch_wait                   inside serve.attach, the wait for
+                                       the bucket's result on the host
 """
 
 import atexit

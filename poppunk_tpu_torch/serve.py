@@ -16,6 +16,15 @@ small requests (the BeeBOP web flow assigns per upload).
   ``warmup()`` runs each bucket once, which builds the kernels and primes
   the allocator before traffic arrives.
 
+A request runs in ``profiling`` spans (they record only while recording
+is on): ``serve.assign`` the whole call (queries, pairs = queries x
+references, dispatches), around ``dists.pack_planes``; per dispatch
+``serve.dispatch`` (rows = the padded bucket, pairs = bucket x
+references: the padding, the upload and the enqueue) holding
+``serve.upload`` (bytes moved from the host, 0 on the CPU); per
+dispatch's result ``serve.attach`` (queries: the host's lookup of each
+answer) holding ``serve.fetch_wait`` (the wait for the result's copy).
+
 Semantics match ``poppunk_tpu_torch_assign --stable {core,accessory}``
 (reference assign.py:663-693): each query takes its nearest reference's
 cluster iff that pair is within-strain, else "NA". Sessions serve
@@ -29,7 +38,7 @@ import os
 import numpy as np
 import torch
 
-from . import _device
+from . import _device, profiling
 from .io.hdf5db import read_db_params, read_sketches
 from .ops import match_counts as mc
 from .ops.distances import _dist_chunk, _Operands, pack_planes, plane_geometry
@@ -116,10 +125,14 @@ class AssignSession:
         """One fused dispatch: distances, classification and 1-NN on the
         device. Returns the device int32 [nq, 2] of (nn_index, within)
         without waiting for it."""
-        planes = self._upload(planes_q.view(np.int32))
+        arrays = (planes_q.view(np.int32), len_q, freq_q)
+        moved = (0 if self.device.type == "cpu"
+                 else sum(a.nbytes for a in arrays))
+        with profiling.span("serve.upload", bytes=moved):
+            planes, lengths, freqs = (self._upload(a) for a in arrays)
         if isinstance(self.ref.planes, mc.PackedPlanes):
             planes = mc.pack(planes, self.pad_bits)
-        qry = (planes, self._upload(len_q), self._upload(freq_q))
+        qry = (planes, lengths, freqs)
         _, extra = _dist_chunk(qry, self.ref.rows(0, None), self.kmers,
                                self.ss64, self.bbits, True, self.use_rc,
                                False, self.post_spec)
@@ -142,8 +155,10 @@ class AssignSession:
         """Synchronous _dispatch_async (warmup / single-batch callers)."""
         return self._dispatch_async(planes_q, len_q, freq_q).cpu().numpy()
 
-    def assign_sketches(self, sketches):
-        """{query name: cluster or 'NA'} for already-sketched queries.
+    def assign_sketches(self, sketches, with_nearest=False):
+        """{query name: cluster or 'NA'} for already-sketched queries;
+        with ``with_nearest``, {query name: (cluster or 'NA', name of the
+        nearest reference)}, the reference whose pair decided the answer.
 
         Double-buffered: batch i+1's fused dispatch is queued before batch
         i's result is read and attached, so the host attach runs under
@@ -158,40 +173,52 @@ class AssignSession:
                 f"query sketch geometry does not match the reference db "
                 f"(sketchsize64={self.ss64}, bbits={self.bbits}): "
                 + ", ".join(bad[:5]))
-        planes_q, len_q, freq_q = pack_planes(sketches, self.kmers)
-        out = {}
+        n_refs = len(self.r_names)
+        with profiling.span("serve.assign", queries=len(sketches),
+                            pairs=len(sketches) * n_refs,
+                            dispatches=-(-len(sketches) // self.chunk)):
+            planes_q, len_q, freq_q = pack_planes(sketches, self.kmers)
+            out = {}
 
-        def attach(fetched, sl, n):
-            host, done = fetched
-            if done is not None:
-                done.synchronize()
-            extra = host.cpu().numpy()[:n]
-            for sk, (nn, within) in zip(sketches[sl], extra):
-                out[sk.name] = (self.ref_clustering[self.r_names[int(nn)]]
-                                if within else "NA")
+            def attach(fetched, sl, n):
+                host, done = fetched
+                with profiling.span("serve.attach", queries=n):
+                    with profiling.span("serve.fetch_wait"):
+                        if done is not None:
+                            done.synchronize()
+                    extra = host.cpu().numpy()[:n]
+                    for sk, (nn, within) in zip(sketches[sl], extra):
+                        nearest = self.r_names[int(nn)]
+                        cluster = (self.ref_clustering[nearest] if within
+                                   else "NA")
+                        out[sk.name] = ((cluster, nearest) if with_nearest
+                                        else cluster)
 
-        pending = None
-        for start in range(0, len(sketches), self.chunk):
-            sl = slice(start, min(start + self.chunk, len(sketches)))
-            n = sl.stop - sl.start
-            bucket = 1
-            while bucket < n:
-                bucket *= 2
-            pad = bucket - n
-            pq = planes_q[sl]
-            lq = np.asarray(len_q[sl])
-            fq = np.asarray(freq_q[sl])
-            if pad:
-                pq = np.pad(pq, ((0, pad),) + ((0, 0),) * 3)
-                lq = np.pad(lq, (0, pad), constant_values=1)
-                fq = np.pad(fq, ((0, pad), (0, 0)))
-            fetched = self._fetch_async(self._dispatch_async(pq, lq, fq))
+            pending = None
+            for start in range(0, len(sketches), self.chunk):
+                sl = slice(start, min(start + self.chunk, len(sketches)))
+                n = sl.stop - sl.start
+                bucket = 1
+                while bucket < n:
+                    bucket *= 2
+                with profiling.span("serve.dispatch", rows=bucket,
+                                    pairs=bucket * n_refs):
+                    pad = bucket - n
+                    pq = planes_q[sl]
+                    lq = np.asarray(len_q[sl])
+                    fq = np.asarray(freq_q[sl])
+                    if pad:
+                        pq = np.pad(pq, ((0, pad),) + ((0, 0),) * 3)
+                        lq = np.pad(lq, (0, pad), constant_values=1)
+                        fq = np.pad(fq, ((0, pad), (0, 0)))
+                    fetched = self._fetch_async(
+                        self._dispatch_async(pq, lq, fq))
+                if pending is not None:
+                    attach(*pending)
+                pending = (fetched, sl, n)
             if pending is not None:
                 attach(*pending)
-            pending = (fetched, sl, n)
-        if pending is not None:
-            attach(*pending)
-        return out
+            return out
 
     def assign_files(self, q_files, threads=1):
         """Sketch query inputs (an rfile path, or a (names, files) pair
