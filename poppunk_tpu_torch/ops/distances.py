@@ -47,8 +47,14 @@ def plane_geometry(sketchsize64, bbits):
     return w32, wp, (wp - w32) * 32
 
 
+# pack_planes moves the bin words of this many genomes at a time: their
+# stacked words, K x sketchsize64 x P uint64 a genome (13 MB a block at
+# K 6, sketch 9984, 14 planes), are its one temporary
+PACK_BLOCK = 128
+
+
 def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
-                pad_to=None):
+                pad_to=None, out=None):
     """Sketch objects -> (planes uint32[n, K, P, Wp], lengths int32[n],
     freqs f32[n, 4]) — the reference's device layout, bit for bit.
 
@@ -59,12 +65,25 @@ def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
     one all-zero pad genome when n is odd; ``pad_to=m`` pads with zero
     genomes up to m >= n (the folded layout's chunk divisibility). Pad
     genomes get the reference's innocuous metadata; the scale tier masks
-    them exactly through ``n_real``."""
+    them exactly through ``n_real``.
+
+    ``out=(planes, lengths, freqs)``: arrays of those shapes (numpy, or
+    CPU tensors; the planes int32 or uint32) written in place of new ones,
+    whatever they held; returned as numpy views. The span's ``staged``
+    counts their bytes when they are page-locked (0 otherwise).
+
+    On a little-endian host a plane row's (low32, high32) pairs are the
+    uint64 words themselves, so row (k, p) is the word-major usigs of k
+    read at stride P from p. The words move PACK_BLOCK genomes at a time:
+    the block's usigs stacked into one uint64 [b, K, ss64, P], then
+    written transposed into the uint64 view of each row's first ss64
+    words in one strided copy over torch's intra-op threads."""
     ss64 = sketches[0].sketchsize64
     bbits = sketches[0].bbits
     if klist is None:
         klist = sorted(sketches[0].usigs.keys())
-    w32, wp, _ = plane_geometry(ss64, bbits)
+    klist = [int(k) for k in klist]
+    _, wp, _ = plane_geometry(ss64, bbits)
     n_real = len(sketches)
     if pad_to is not None:
         if pad_to < n_real:
@@ -72,24 +91,59 @@ def pack_planes(sketches, klist=None, plane_major=False, pad_to_even=False,
         n = int(pad_to)
     else:
         n = n_real + (n_real % 2 if pad_to_even else 0)
-    planes = np.zeros((n, len(klist), bbits, wp), dtype=np.uint32)
-    lengths = np.zeros(n, dtype=np.int32)
-    freqs = np.zeros((n, 4), dtype=np.float32)
-    lengths[n_real:] = 2_000_000
-    freqs[n_real:] = 0.25
-    with profiling.span("dists.pack_planes", sketches=n_real):
-        for i, sk in enumerate(sketches):
+    K = len(klist)
+    shape = (K, bbits, n, wp) if plane_major else (n, K, bbits, wp)
+    if out is None:
+        planes = np.empty(shape, dtype=np.uint32)
+        lengths = np.empty(n, dtype=np.int32)
+        freqs = np.empty((n, 4), dtype=np.float32)
+        staged = 0
+    else:
+        (planes, lengths, freqs), staged = _pack_destination(
+            out, (shape, (n,), (n, 4)))
+    with profiling.span("dists.pack_planes", sketches=n_real,
+                        staged=staged):
+        for sk in sketches:
             if sk.sketchsize64 != ss64 or sk.bbits != bbits:
                 raise ValueError("Inconsistent sketch geometry")
-            lengths[i] = sk.length
-            freqs[i] = sk.base_freq
-            for ki, k in enumerate(klist):
-                u = sk.usigs[int(k)].reshape(ss64, bbits).T  # [P, ss64]
-                planes[i, ki, :, 0:w32:2] = u & np.uint64(0xFFFFFFFF)
-                planes[i, ki, :, 1:w32:2] = u >> np.uint64(32)
+        lengths[:n_real] = [sk.length for sk in sketches]
+        freqs[:n_real] = [sk.base_freq for sk in sketches]
+        lengths[n_real:] = 2_000_000
+        freqs[n_real:] = 0.25
+        words = torch.from_numpy(planes.view(np.int64))  # [..., Wp / 2]
         if plane_major:
-            planes = np.ascontiguousarray(planes.transpose(1, 2, 0, 3))
+            words = words.permute(2, 0, 1, 3)
+        words[:, :, :, ss64:].zero_()
+        words[n_real:].zero_()
+        stack = np.empty((min(PACK_BLOCK, n_real), K, ss64 * bbits),
+                         dtype=np.uint64)
+        for a in range(0, n_real, PACK_BLOCK):
+            block = sketches[a:a + PACK_BLOCK]
+            rows = stack[:len(block)]
+            for row, sk in zip(rows, block):
+                for ki, k in enumerate(klist):
+                    row[ki] = sk.usigs[k]
+            src = torch.from_numpy(rows.view(np.int64)).view(
+                len(block), K, ss64, bbits)
+            words[a:a + len(block), :, :, :ss64].copy_(src.transpose(2, 3))
     return planes, lengths, freqs
+
+
+def _pack_destination(out, shapes):
+    """pack_planes' ``out`` as numpy views (planes uint32, lengths int32,
+    freqs float32) checked against the output's ``shapes``, and their
+    bytes if every one is a page-locked tensor, else 0."""
+    kinds = ((np.uint32, np.int32), (np.int32,), (np.float32,))
+    views = []
+    for a, shape, dtypes in zip(out, shapes, kinds):
+        host = a.numpy() if torch.is_tensor(a) else a
+        if host.shape != shape or host.dtype not in dtypes:
+            raise ValueError(f"pack_planes out: {host.dtype} {host.shape}, "
+                             f"wanted {dtypes[0].__name__} {shape}")
+        views.append(host)
+    views[0] = views[0].view(np.uint32)
+    pinned = all(torch.is_tensor(a) and a.is_pinned() for a in out)
+    return views, sum(v.nbytes for v in views) if pinned else 0
 
 
 # Host arrays of more than this many bytes go to a card through two

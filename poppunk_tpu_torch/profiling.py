@@ -31,7 +31,11 @@ The spans:
     query_distances                    the assign CLI's distance stage
     dists.condensed_self_block         a whole all-vs-all call, parent of
                                        the spans below on one device
-    dists.pack_planes                  sketches -> host planes; sketches
+    dists.pack_planes                  sketches -> host planes; sketches,
+                                       staged (the bytes written into a
+                                       page-locked destination; else 0).
+                                       In serve.AssignSession one a
+                                       bucket, inside serve.dispatch
     dists.upload                       planes, lengths and frequencies to
                                        the device; bytes moved from the host
                                        (0 on the CPU), staged (the planes'
@@ -84,14 +88,17 @@ The spans:
                                        on the CPU)
     serve.assign                       one request of serve.AssignSession
                                        (assign_sketches), parent of the
-                                       serve spans below and of
-                                       dists.pack_planes; queries, pairs
+                                       serve spans below; queries, pairs
                                        (queries x references), dispatches
-    serve.dispatch                     one padded bucket's padding, upload
-                                       and fused enqueue; rows (the
-                                       bucket), pairs (bucket x references)
+    serve.dispatch                     one bucket's packing into the
+                                       session's reused host buffer
+                                       (dists.pack_planes), its padding,
+                                       upload and fused enqueue; rows (the
+                                       padded bucket), pairs (bucket x
+                                       references)
     serve.upload                       a bucket's planes, lengths and
-                                       frequencies to the device; bytes
+                                       frequencies to the device, one
+                                       copy out of that buffer; bytes
                                        moved from the host (0 on the CPU)
     serve.attach                       a bucket's answers looked up on the
                                        host; queries

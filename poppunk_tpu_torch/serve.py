@@ -12,18 +12,23 @@ small requests (the BeeBOP web flow assigns per upload).
 - the fitted model's classifier and the 1-NN search run in the distance
   pass (ops/fused_assign ``*_stable`` posts), so a request fetches
   O(queries) integers: the |Q| x |R| tile never leaves the device;
-- query batches are padded to powers of two, as the reference's are;
-  ``warmup()`` runs each bucket once, which builds the kernels and primes
-  the allocator before traffic arrives.
+- a request goes in buckets of at most ``chunk`` queries, each padded to
+  a power of two, as the reference's are; a bucket is packed straight
+  into one of two host buffers the session reuses (page-locked on a
+  card), padded there and uploaded in one copy; ``warmup()`` runs each
+  bucket size once, which builds the kernels and primes the allocator
+  before traffic arrives.
 
 A request runs in ``profiling`` spans (they record only while recording
 is on): ``serve.assign`` the whole call (queries, pairs = queries x
-references, dispatches), around ``dists.pack_planes``; per dispatch
-``serve.dispatch`` (rows = the padded bucket, pairs = bucket x
-references: the padding, the upload and the enqueue) holding
-``serve.upload`` (bytes moved from the host, 0 on the CPU); per
-dispatch's result ``serve.attach`` (queries: the host's lookup of each
-answer) holding ``serve.fetch_wait`` (the wait for the result's copy).
+references, dispatches); per dispatch ``serve.dispatch`` (rows = the
+padded bucket, pairs = bucket x references: the packing, the padding,
+the upload and the enqueue) holding ``dists.pack_planes`` (sketches, the
+bucket's queries; staged, the bytes packed into page-locked memory, 0 on
+the CPU) and ``serve.upload`` (bytes moved from the host, 0 on the CPU);
+per dispatch's result ``serve.attach`` (queries: the host's lookup of
+each answer) holding ``serve.fetch_wait`` (the wait for the result's
+copy).
 
 Semantics match ``poppunk_tpu_torch_assign --stable {core,accessory}``
 (reference assign.py:663-693): each query takes its nearest reference's
@@ -41,7 +46,8 @@ import torch
 from . import _device, profiling
 from .io.hdf5db import read_db_params, read_sketches
 from .ops import match_counts as mc
-from .ops.distances import _dist_chunk, _Operands, pack_planes, plane_geometry
+from .ops.distances import (_dist_chunk, _Operands, _staging, pack_planes,
+                             plane_geometry)
 from .utils import db_h5_path, read_isolate_type_from_csv
 
 
@@ -112,28 +118,67 @@ class AssignSession:
             raise RuntimeError(
                 f"no fused classifier for model type {self.model.type}")
         self.post_spec = post_spec_on(spec, self.device)
+        # a query's bytes in _send's host buffers (its planes, frequencies
+        # and length); the two buffers, made on first use, the events after
+        # their last uploads, and the next one to fill
+        self._query_bytes = len(self.kmers) * self.bbits * self.wp * 4 + 20
+        self._buffers, self._uploaded, self._turn = None, [None, None], 0
 
-    def _upload(self, array):
-        """A host array on the session's device; to the card through
-        pinned memory, without blocking the host."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _views(self, buffer, bucket):
+        """(planes int32 [bucket, K, P, Wp], lengths int32 [bucket], freqs
+        float32 [bucket, 4]) laid back to back in the uint8 tensor
+        ``buffer``: the planes, then the frequencies, then the lengths,
+        each from a 16-byte boundary of the buffer's start."""
+        a = bucket * (self._query_bytes - 20)
+        b = a + bucket * 16
+        return (buffer[:a].view(torch.int32).view(
+                    bucket, len(self.kmers), self.bbits, self.wp),
+                buffer[b:b + 4 * bucket].view(torch.int32),
+                buffer[a:b].view(torch.float32).view(bucket, 4))
 
-    def _dispatch_async(self, planes_q, len_q, freq_q):
-        """One fused dispatch: distances, classification and 1-NN on the
-        device. Returns the device int32 [nq, 2] of (nn_index, within)
-        without waiting for it."""
-        arrays = (planes_q.view(np.int32), len_q, freq_q)
-        moved = (0 if self.device.type == "cpu"
-                 else sum(a.nbytes for a in arrays))
-        with profiling.span("serve.upload", bytes=moved):
-            planes, lengths, freqs = (self._upload(a) for a in arrays)
+    def _send(self, sketches, bucket):
+        """One fused dispatch of ``sketches`` padded to ``bucket`` rows:
+        packed straight into the next of two reused host buffers
+        (page-locked on a card), the pad rows zeroed (lengths 1), the
+        buffer's first ``bucket`` rows uploaded in one asynchronous copy,
+        then distances, classification and 1-NN enqueued on the device.
+        Before a buffer is refilled the host waits for the event recorded
+        after its last upload alone, never the stream. Returns the device
+        int32 [bucket, 2] of (nn_index, within) without waiting for it."""
+        on_card = self.device.type == "cuda"
+        if self._buffers is None:
+            self._buffers = _staging(self.chunk * self._query_bytes, 2,
+                                     pinned=on_card)
+        turn, self._turn = self._turn, 1 - self._turn
+        buffer = self._buffers[turn]
+        if self._uploaded[turn] is not None:
+            self._uploaded[turn].synchronize()
+        planes, lengths, freqs = self._views(buffer, bucket)
+        n = len(sketches)
+        if n:
+            pack_planes(sketches, self.kmers,
+                        out=(planes[:n], lengths[:n], freqs[:n]))
+        planes[n:].zero_()
+        lengths[n:] = 1
+        freqs[n:].zero_()
+        nbytes = bucket * self._query_bytes
+        with profiling.span("serve.upload", bytes=nbytes if on_card else 0):
+            if on_card:
+                moved = torch.empty(nbytes, dtype=torch.uint8,
+                                    device=self.device)
+                moved.copy_(buffer[:nbytes], non_blocking=True)
+                self._uploaded[turn] = torch.cuda.Event()
+                self._uploaded[turn].record()
+            else:
+                moved = buffer[:nbytes]
+        return self._enqueue(*self._views(moved, bucket))
+
+    def _enqueue(self, planes, lengths, freqs):
+        """The fused dispatch of query operands on the device."""
         if isinstance(self.ref.planes, mc.PackedPlanes):
             planes = mc.pack(planes, self.pad_bits)
-        qry = (planes, lengths, freqs)
-        _, extra = _dist_chunk(qry, self.ref.rows(0, None), self.kmers,
+        _, extra = _dist_chunk((planes, lengths, freqs),
+                               self.ref.rows(0, None), self.kmers,
                                self.ss64, self.bbits, True, self.use_rc,
                                False, self.post_spec)
         return extra
@@ -152,17 +197,21 @@ class AssignSession:
         return host, done
 
     def _dispatch(self, planes_q, len_q, freq_q):
-        """Synchronous _dispatch_async (warmup / single-batch callers)."""
-        return self._dispatch_async(planes_q, len_q, freq_q).cpu().numpy()
+        """One batch of host arrays already packed and padded, through
+        plain copies and synchronously: (nn_index, within) int32 [nq, 2]."""
+        return self._enqueue(*(
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (planes_q.view(np.int32), len_q, freq_q))).cpu().numpy()
 
     def assign_sketches(self, sketches, with_nearest=False):
         """{query name: cluster or 'NA'} for already-sketched queries;
         with ``with_nearest``, {query name: (cluster or 'NA', name of the
         nearest reference)}, the reference whose pair decided the answer.
 
-        Double-buffered: batch i+1's fused dispatch is queued before batch
-        i's result is read and attached, so the host attach runs under
-        the device's compute instead of after it."""
+        Double-buffered: batch i+1 is packed and its fused dispatch queued
+        before batch i's result is read and attached, so the host attach
+        runs under the device's compute instead of after it. One caller
+        at a time: the session's host buffers are reused."""
         bad = [s.name for s in sketches
                if s.sketchsize64 != self.ss64 or s.bbits != self.bbits]
         if bad:
@@ -177,7 +226,6 @@ class AssignSession:
         with profiling.span("serve.assign", queries=len(sketches),
                             pairs=len(sketches) * n_refs,
                             dispatches=-(-len(sketches) // self.chunk)):
-            planes_q, len_q, freq_q = pack_planes(sketches, self.kmers)
             out = {}
 
             def attach(fetched, sl, n):
@@ -203,16 +251,8 @@ class AssignSession:
                     bucket *= 2
                 with profiling.span("serve.dispatch", rows=bucket,
                                     pairs=bucket * n_refs):
-                    pad = bucket - n
-                    pq = planes_q[sl]
-                    lq = np.asarray(len_q[sl])
-                    fq = np.asarray(freq_q[sl])
-                    if pad:
-                        pq = np.pad(pq, ((0, pad),) + ((0, 0),) * 3)
-                        lq = np.pad(lq, (0, pad), constant_values=1)
-                        fq = np.pad(fq, ((0, pad), (0, 0)))
                     fetched = self._fetch_async(
-                        self._dispatch_async(pq, lq, fq))
+                        self._send(sketches[sl], bucket))
                 if pending is not None:
                     attach(*pending)
                 pending = (fetched, sl, n)
@@ -256,15 +296,13 @@ class AssignSession:
 
     def warmup(self):
         """Run every bucket size once before taking traffic: the kernels
-        are built and the allocator holds each bucket's buffers. Returns
-        the number of buckets (10 at chunk 512)."""
+        are built, the two host buffers made and the allocator holds each
+        bucket's device buffers. Returns the number of buckets (10 at chunk
+        512)."""
         n = 0
         bucket = 1
-        K, P = len(self.kmers), self.bbits
         while True:
-            self._dispatch(
-                np.zeros((bucket, K, P, self.wp), np.uint32),
-                np.ones(bucket, np.int32), np.zeros((bucket, 4), np.float32))
+            self._send([], bucket).cpu()
             n += 1
             if bucket >= self.chunk:
                 return n

@@ -19,6 +19,7 @@ Tolerances, each with its reason:
 
 import os
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -135,11 +136,76 @@ def test_fit_math_matches_float64_oracle():
                                    atol=1e-12)
 
 
-def test_pack_planes_matches_reference(sketches):
-    got = td.pack_planes(sketches, KLIST)
-    want = jd.pack_planes(sketches, KLIST)
+def _random_sketches(n, ss64, bbits, klist=KLIST, seed=0):
+    """Sketch stand-ins of random full 64-bit words (high bits set)."""
+    rng = np.random.default_rng(seed)
+    return [types.SimpleNamespace(
+        sketchsize64=ss64, bbits=bbits, length=int(rng.integers(1, 2**31)),
+        base_freq=rng.dirichlet([1, 1, 1, 1]),
+        usigs={k: rng.integers(0, 2**64, ss64 * bbits, dtype=np.uint64,
+                               endpoint=False) for k in klist})
+        for _ in range(n)]
+
+
+# (genomes, sketchsize64, bbits, klist, pack_planes keywords, destination):
+# None the population fixture's sketches; destination "filled" arrays of
+# 0xFF bytes, "tensors" CPU tensors of them with int32 planes
+PACK_CASES = {
+    "population": (None, 32, 14, KLIST, {}, None),
+    "one": (1, 32, 14, KLIST, {}, None),
+    "odd": (7, 32, 14, KLIST, {}, None),
+    "past_a_block": (td.PACK_BLOCK + 3, 32, 14, KLIST, {}, None),
+    "no_wp_pad": (5, 64, 14, KLIST, {}, None),
+    "bbits_1": (9, 32, 1, KLIST, {}, None),
+    "klist_subset_reordered": (6, 32, 14, (25, 13), {}, None),
+    "plane_major": (7, 32, 14, KLIST, dict(plane_major=True), None),
+    "pad_to_even": (7, 32, 14, KLIST, dict(pad_to_even=True), None),
+    "pad_to": (5, 32, 14, KLIST, dict(pad_to=8), None),
+    "plane_major_pad_to_past_a_block": (
+        td.PACK_BLOCK + 3, 64, 14, KLIST,
+        dict(plane_major=True, pad_to=td.PACK_BLOCK + 8), None),
+    "into_filled": (7, 32, 14, KLIST, {}, "filled"),
+    "into_filled_plane_major_even": (
+        7, 32, 1, (21, 17), dict(plane_major=True, pad_to_even=True),
+        "filled"),
+    "into_filled_tensors_past_a_block": (
+        td.PACK_BLOCK + 1, 32, 14, KLIST, {}, "tensors"),
+}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_planes_matches_reference(request, case):
+    """The port's host planes, lengths and frequencies equal the JAX
+    package's bit for bit, whatever the destination held before."""
+    n, ss64, bbits, klist, kw, dest = PACK_CASES[case]
+    sketches = (request.getfixturevalue("sketches") if n is None
+                else _random_sketches(n, ss64, bbits, KLIST, seed=n))
+    want = jd.pack_planes(sketches, klist, **kw)
+    out = None
+    if dest is not None:
+        out = [np.empty(w.shape, w.dtype) for w in want]
+        for a in out:
+            a.view(np.uint8)[...] = 0xFF
+        if dest == "tensors":
+            out[0] = out[0].view(np.int32)
+            out = [torch.from_numpy(a) for a in out]
+    got = td.pack_planes(sketches, klist, out=out, **kw)
     for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
         np.testing.assert_array_equal(g, w)
+    if out is not None:  # written in place
+        for g, o in zip(got, out):
+            assert np.shares_memory(g, np.asarray(o))
+
+
+def test_pack_planes_refuses_a_destination_of_another_shape():
+    sketches = _random_sketches(3, 32, 14)
+    planes, lengths, freqs = td.pack_planes(sketches, KLIST)
+    with pytest.raises(ValueError, match="out"):
+        td.pack_planes(sketches, KLIST, out=(planes[:2], lengths, freqs))
+    with pytest.raises(ValueError, match="out"):
+        td.pack_planes(sketches, KLIST,
+                       out=(planes, lengths.astype(np.int64), freqs))
 
 
 @pytest.mark.parametrize("jaccard", [True, False])

@@ -221,8 +221,8 @@ def test_pairwise_block_and_pack_planes_spans(recording):
     assert names == {"dists.pack_planes": 1, "dists.upload": 2,
                      "dists.enqueue": 3, "dists.fetch_wait": 3,
                      "dists.fetch_copy": 3, "dists.concat": 1}
-    assert [s.counts["sketches"] for s in got
-            if s.name == "dists.pack_planes"] == [7]
+    assert [(s.counts["sketches"], s.counts["staged"]) for s in got
+            if s.name == "dists.pack_planes"] == [(7, 0)]
     assert [s.counts["pairs"] for s in got if s.name == "dists.enqueue"] \
         == [8 * 50, 8 * 50, 4 * 50]
 

@@ -13,9 +13,15 @@ genomes, one strain among them wholly (absent from the references, so
 nearest reference) in requests of 1, 7, 33 and 70 queries against a chunk
 of 32 (ragged buckets); its default return is the clusters alone, as the
 JAX package's session gives them; answers are the same with span recording
-on and off; and each ``serve.*`` span carries its counters.
+on and off; and each ``serve.*`` span carries its counters. At the
+default chunk of 512, requests of 1 to 1,100 queries packed bucket by
+bucket into the session's reused buffers answer bit for bit as the whole
+request packed into numpy and padded by ``np.pad`` did, a small request
+after larger ones included; a ``cuda``-marked test checks the page-locked
+route's counters on the card.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -29,6 +35,7 @@ from poppunk_tpu.serve import AssignSession as JaxSession
 from poppunk_tpu_torch import profiling
 from poppunk_tpu_torch.io.hdf5db import write_sketches
 from poppunk_tpu_torch.models.bgmm import BGMMFit
+from poppunk_tpu_torch.ops.distances import pack_planes
 from poppunk_tpu_torch.serve import AssignSession
 from poppunk_tpu_torch.synth import synthetic_population_device
 
@@ -179,13 +186,16 @@ def test_serve_spans_count_the_request(typing, monkeypatch):
     assert top.parent is None
     assert {k: top.counts[k] for k in ("queries", "pairs", "dispatches")} \
         == {"queries": 70, "pairs": 70 * N_REF, "dispatches": 3}
-    (pack,) = by["dists.pack_planes"]
-    assert pack.parent == top.index and pack.counts["sketches"] == 70
     dispatch = sorted(by["serve.dispatch"], key=lambda x: x.start)
     assert [x.counts["rows"] for x in dispatch] == [32, 32, 8]
     assert [x.counts["pairs"] for x in dispatch] == [32 * N_REF, 32 * N_REF,
                                                      8 * N_REF]
     assert {x.parent for x in dispatch} == {top.index}
+    # one pack a bucket, inside its dispatch; nothing page-locked here
+    pack = sorted(by["dists.pack_planes"], key=lambda x: x.start)
+    assert [x.parent for x in pack] == [x.index for x in dispatch]
+    assert [x.counts["sketches"] for x in pack] == [32, 32, 6]
+    assert {x.counts["staged"] for x in pack} == {0}
     upload = by["serve.upload"]
     assert sorted(x.parent for x in upload) == sorted(x.index
                                                       for x in dispatch)
@@ -195,3 +205,101 @@ def test_serve_spans_count_the_request(typing, monkeypatch):
     assert {x.parent for x in attach} == {top.index}
     wait = by["serve.fetch_wait"]
     assert sorted(x.parent for x in wait) == sorted(x.index for x in attach)
+
+
+def _old_assembly(s, request):
+    """The answers of the assembly the session ran before it packed each
+    bucket into its own buffers: the whole request packed into numpy,
+    each bucket's rows padded by ``np.pad`` (lengths 1), one synchronous
+    dispatch a bucket."""
+    planes, lengths, freqs = pack_planes(request, s.kmers)
+    out = {}
+    for start in range(0, len(request), s.chunk):
+        sl = slice(start, min(start + s.chunk, len(request)))
+        n = sl.stop - sl.start
+        pad = (1 << (n - 1).bit_length()) - n
+        extra = s._dispatch(np.pad(planes[sl], ((0, pad),) + ((0, 0),) * 3),
+                            np.pad(lengths[sl], (0, pad), constant_values=1),
+                            np.pad(freqs[sl], ((0, pad), (0, 0))))
+        for sk, (nn, within) in zip(request[sl], extra[:n]):
+            nearest = s.r_names[int(nn)]
+            out[sk.name] = (s.ref_clustering[nearest] if within else "NA",
+                            nearest)
+    return out
+
+
+@pytest.fixture(scope="module")
+def requests_1100(typing):
+    """1,100 queries: the typing queries repeated under names of their own,
+    in a seeded order."""
+    _, queries, _, _, _ = typing
+    pick = np.random.default_rng(11).integers(0, len(queries), 1100)
+    return [dataclasses.replace(queries[i], name=f"q{j:05d}")
+            for j, i in enumerate(pick)]
+
+
+def test_staged_buckets_answer_as_the_old_assembly(typing, requests_1100):
+    """Through one session at chunk 512, requests of 1,100, 3, 513, 1 and
+    512 queries: each answer bit-equal to the old assembly's, and after a
+    small request follows larger ones, the rows its bucket pads are zero
+    (lengths 1) in the reused buffer, whatever they held before."""
+    db = typing[0]
+    s = AssignSession(db, stable="core", device=CPU)
+    assert s.chunk == 512
+    for size in (1100, 3, 513, 1, 512):
+        request = requests_1100[:size]
+        got = s.assign_sketches(request, with_nearest=True)
+        assert got == _old_assembly(s, request)
+        if size == 3:
+            planes, lengths, freqs = s._views(s._buffers[1 - s._turn], 4)
+            assert not planes[3:].any() and not freqs[3:].any()
+            assert lengths[3:].tolist() == [1]
+            assert planes[:3].any()
+
+
+def test_staged_spans_count_each_bucket(typing, requests_1100, monkeypatch):
+    """One dists.pack_planes a bucket, its sketches summing to the
+    request, staged 0 on the CPU; answers equal with recording on."""
+    db = typing[0]
+    s = AssignSession(db, stable="core", device=CPU)
+    off = s.assign_sketches(requests_1100, with_nearest=True)
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.clear()
+    try:
+        on = s.assign_sketches(requests_1100, with_nearest=True)
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    assert on == off
+    pack = [x for x in spans if x.name == "dists.pack_planes"]
+    assert [x.counts["sketches"] for x in pack] == [512, 512, 76]
+    assert {x.counts["staged"] for x in pack} == {0}
+    assert [x.counts["rows"] for x in spans
+            if x.name == "serve.dispatch"] == [512, 512, 128]
+
+
+@pytest.mark.cuda
+def test_staged_buckets_on_the_card(typing, requests_1100, monkeypatch):
+    """On a card: every bucket packed into page-locked memory (staged its
+    queries' bytes), each upload's bytes the padded bucket's planes,
+    lengths and frequencies, and the answers those of the old assembly on
+    the same card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    db = typing[0]
+    card = AssignSession(db, stable="core", device=torch.device("cuda", 0))
+    card.warmup()
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.clear()
+    try:
+        got = card.assign_sketches(requests_1100, with_nearest=True)
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    row = len(KLIST) * BBITS * card.wp * 4
+    assert [x.counts["staged"] for x in spans
+            if x.name == "dists.pack_planes"] == [
+        n * (row + 20) for n in (512, 512, 76)]
+    assert [x.counts["bytes"] for x in spans if x.name == "serve.upload"] \
+        == [b * (row + 4 + 16) for b in (512, 512, 128)]
+    assert got == _old_assembly(card, requests_1100)
