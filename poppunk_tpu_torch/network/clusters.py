@@ -6,7 +6,8 @@ Cluster naming from network components.
 Reimplements printClusters (PopPUNK/network.py:1478-1663) exactly:
 components ranked by size get names; with a previous clustering, old names
 are kept where the member sets still match, merges get underscore-joined
-names (and are reported), brand-new clusters take the next free integer;
+names (and are reported), brand-new clusters take the next free integer,
+by the rule of ``naming.py``, which the serving session names by too;
 optional pronounceable "unword" names; CSV output sorted by cluster
 frequency.
 """
@@ -15,10 +16,10 @@ import operator
 import sys
 from collections import Counter
 
-from scipy.stats import rankdata
-
 from ..utils import read_isolate_type_from_csv
 from .components import connected_components
+from .naming import (ClusterNamer, frequency_ranks, member_joins,
+                     old_membership)
 from .unwords import gen_unword
 
 
@@ -32,10 +33,7 @@ def print_clusters(G, rlist, out_prefix=None, old_cluster_file=None,
         write_unwords = False
 
     labels, sizes = connected_components(G)
-    # rank components by size: largest -> rank 0 (reference: rankdata ordinal)
-    component_frequency_ranks = (
-        len(sizes) - rankdata(sizes, method="ordinal").astype(int)
-    )
+    component_frequency_ranks = frequency_ranks(sizes)
     new_clusters = [set() for _ in range(len(sizes))]
     for isolate_index, isolate_name in enumerate(rlist):
         component = labels[isolate_index]
@@ -46,64 +44,24 @@ def print_clusters(G, rlist, out_prefix=None, old_cluster_file=None,
         old_all = read_isolate_type_from_csv(old_cluster_file, mode="external",
                                              return_dict=False)
         old_clusters = old_all[list(old_all.keys())[0]]
-        parsed_old = set(
-            int(item)
-            for sublist in (x.split("_") for x in old_clusters)
-            for item in sublist
-        )
-        new_id = max(parsed_old) + 1
-        while new_id in parsed_old:
-            new_id += 1
-        for prev_cluster in old_clusters.values():
-            for prev_sample in prev_cluster:
-                old_names.add(prev_sample)
+        namer = ClusterNamer(old_clusters)
+        member_of = old_membership(old_clusters)
+        old_names = set(member_of)
 
     clustering = {}
-    found_old_clusters = []
     cluster_unword = {}
     merged_queries = []
     unword_generator = gen_unword() if write_unwords else None
 
     for new_cls_idx, new_cluster in enumerate(new_clusters):
-        needs_unword = False
         if old_cluster_file is not None:
-            merge = False
-            cls_id = None
-            ref_only = old_names.intersection(new_cluster)
-            query_only = new_cluster - ref_only
-            if len(ref_only) == 0:
-                cls_id = str(new_id)
-                new_id += 1
-                needs_unword = True
-            else:
-                for old_cluster_name, old_cluster_members in old_clusters.items():
-                    join = ref_only.intersection(old_cluster_members)
-                    if len(join) > 0:
-                        if old_cluster_name in found_old_clusters:
-                            sys.stderr.write(
-                                "WARNING: Old cluster " + old_cluster_name
-                                + " split across multiple new clusters\n"
-                            )
-                        else:
-                            found_old_clusters.append(old_cluster_name)
-                        if len(join) < len(ref_only):
-                            merge = True
-                            merged_queries.extend(query_only)
-                            needs_unword = True
-                            if cls_id is None:
-                                cls_id = old_cluster_name
-                            else:
-                                cls_id += "_" + old_cluster_name
-                        elif len(join) == len(ref_only):
-                            assert merge is False
-                            cls_id = old_cluster_name
-                            break
-            if merge:
-                merged_ids = cls_id.split("_")
-                sys.stderr.write(
-                    "Clusters " + ",".join(merged_ids) + " have merged into "
-                    + cls_id + "\n"
-                )
+            joins, n_old = member_joins(new_cluster, member_of)
+            cls_id, partial = namer.name(joins, n_old)
+            if partial:
+                query_only = new_cluster - old_names.intersection(new_cluster)
+                for _ in range(partial):
+                    merged_queries.extend(query_only)
+            needs_unword = n_old == 0 or partial > 0
         else:
             cls_id = new_cls_idx + 1
             needs_unword = True

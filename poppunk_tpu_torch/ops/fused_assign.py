@@ -15,7 +15,10 @@ query, the nearest reference on one distance column (the first minimum on
 ties, as ``np.argmin``) and whether that pair is within-strain, int32
 ``[nq, 2]``, so a request fetches O(queries) integers from the device.
 The CLI's ``--stable`` assignment picks each query's nearest reference on
-the host, as the reference's does.
+the host, as the reference's does. The ``edges`` post serves the session
+in network mode: every pair classified by the model's own post, and per
+query only its within-strain pairs leave the device, compacted row by row
+(``_post_edges``).
 """
 
 import numpy as np
@@ -115,6 +118,29 @@ def _post_dbscan_stable(dists, params, static):
                            within_label)
 
 
+def _post_edges(dists, params, static):
+    """Network-mode serving: every pair classified by the post ``base``
+    (static: base, its static, the within label). Returns (int32 [nq, 2]
+    of each query's first-minimum core nearest reference and its number
+    of within-strain pairs, int32 [nq * nr] whose first sum(counts)
+    entries are the references of those pairs, row by row, in order).
+    The compaction is a stable partition by one scatter, so nothing waits
+    for the device to learn the count."""
+    base, base_static, within = static
+    hit = POST_FNS[base](dists, params, base_static) == within
+    nq, nr = hit.shape
+    flat = hit.reshape(-1)
+    place = torch.cumsum(flat, 0) - 1  # int64: the hit's place in the list
+    k = torch.arange(flat.shape[0], device=flat.device)
+    # a miss goes after every hit, in order: total + misses before it
+    dest = torch.where(flat, place, place[-1] + k - place)
+    cols = torch.empty(flat.shape[0], dtype=torch.int32, device=flat.device)
+    cols.scatter_(0, dest, (k % nr).to(torch.int32))
+    head = torch.stack([dists[..., 0].argmin(dim=-1).to(torch.int32),
+                        hit.sum(dim=-1, dtype=torch.int32)], dim=-1)
+    return head, cols
+
+
 POST_FNS = {
     "boundary": _post_boundary,
     "boundary_stable": _post_boundary_stable,
@@ -122,6 +148,7 @@ POST_FNS = {
     "bgmm_stable": _post_bgmm_stable,
     "dbscan": _post_dbscan,
     "dbscan_stable": _post_dbscan_stable,
+    "edges": _post_edges,
 }
 
 
@@ -170,6 +197,18 @@ def stable_post_spec(model, dist_col):
         return ("boundary_stable", (static[0], int(dist_col)), params)
     return (name + "_stable", (int(dist_col), int(model.within_label)),
             params)
+
+
+def edges_post_spec(model, slope=None):
+    """(name, static, params) of the network-mode serving post: the
+    model's own classifier (``model_post_spec(model, slope)``) with each
+    query's within-strain pairs compacted on the device; None for a
+    lineage model."""
+    base = model_post_spec(model, slope)
+    if base is None:
+        return None
+    name, static, params = base
+    return ("edges", (name, static, int(model.within_label)), params)
 
 
 def post_spec_on(post_spec, device):
