@@ -19,6 +19,7 @@ that assigns.
 import math
 import pickle
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,20 +27,48 @@ from torch import nn
 
 from .. import _device
 from .base import ClusterFit
-from .vbgmm import mahalanobis
+from .vbgmm import inverse_factor, whitened_norms
+
+
+class MixtureFactor(NamedTuple):
+    """A mixture's parameters with its covariances factored, as the
+    likelihood reads them (``factor_mixture``)."""
+
+    weights: torch.Tensor  # [K]
+    means: torch.Tensor  # [K, d]
+    scale: torch.Tensor  # [d]
+    logdet: torch.Tensor  # [K], log-determinants of the covariances
+    linv: torch.Tensor  # [K, d, d], inverses of their lower Cholesky factors
+
+
+def factor_mixture(weights, means, covariances, scale):
+    """The mixture with its covariances [K, d, d] factored on their device:
+    each lower Cholesky factor's log-determinant and inverse. The factor is
+    checked (a covariance that is not positive definite raises), which on a
+    card waits for the queued work, so a caller that classifies many tiles
+    with one mixture factors it once (ops/fused_assign.post_spec_on)."""
+    chol = torch.linalg.cholesky(covariances)  # [K, d, d]
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    return MixtureFactor(weights, means, scale, logdet, inverse_factor(chol))
+
+
+def component_log_probs(X, factor):
+    """Weighted Gaussian log-likelihood lpr [n, K] of each row of X [n, d]
+    under each component of a factored mixture."""
+    weights, means, scale, logdet, linv = factor
+    X = X / scale
+    d = X.shape[1]
+    maha = whitened_norms(linv, X[:, None, :] - means[None, :, :])  # [n, K]
+    log_prob = -0.5 * (maha + d * math.log(2 * math.pi) + logdet[None, :])
+    return log_prob + torch.log(weights)[None, :]
 
 
 def log_likelihood(X, weights, means, covariances, scale):
     """Weighted Gaussian mixture log-likelihood of X [n, d] (torch twin of
     the reference's log_likelihood_device). Returns (logprob [n],
     lpr [n, K])."""
-    X = X / scale
-    chol = torch.linalg.cholesky(covariances)  # [K, d, d]
-    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
-    d = X.shape[1]
-    maha = mahalanobis(chol, X[:, None, :] - means[None, :, :])  # [n, K]
-    log_prob = -0.5 * (maha + d * math.log(2 * math.pi) + logdet[None, :])
-    lpr = log_prob + torch.log(weights)[None, :]
+    lpr = component_log_probs(
+        X, factor_mixture(weights, means, covariances, scale))
     return torch.logsumexp(lpr, dim=1), lpr
 
 

@@ -59,20 +59,31 @@ def _estimate_params(X, resp, prior):
     return nk, xbar, beta_k, m_k, nu_k, psi_k
 
 
-def mahalanobis(chol, diff):
-    """Squared Mahalanobis distances [..., n, K] of diff [..., n, K, d]
-    under lower Cholesky factors chol [..., K, d, d].
+def inverse_factor(chol):
+    """The inverse of each lower Cholesky factor chol [..., K, d, d], by a
+    d x d triangular solve against the identity.
 
-    The inverse factor is formed once per component (a d x d triangular
-    solve) and applied with einsum. Solving against the [d, n] right-hand
-    side directly, as the JAX package does, is wrong on CUDA once n reaches
-    about a million columns: torch.linalg.solve_triangular returned
-    residuals near 40 at n = 2^20 on an H100 (torch 2.11, CUDA 12.8)."""
+    Solving against the [d, n] right-hand side directly, as the JAX package
+    does, is wrong on CUDA once n reaches about a million columns:
+    torch.linalg.solve_triangular returned residuals near 40 at n = 2^20 on
+    an H100 (torch 2.11, CUDA 12.8)."""
     eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
-    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+    return torch.linalg.solve_triangular(chol, eye.expand_as(chol),
                                          upper=False)
+
+
+def whitened_norms(linv, diff):
+    """Squared Mahalanobis distances [..., n, K] of diff [..., n, K, d]
+    under inverse factors linv [..., K, d, d] (``inverse_factor``)."""
     y = torch.einsum("...kij,...nkj->...nki", linv, diff)
     return (y ** 2).sum(-1)
+
+
+def mahalanobis(chol, diff):
+    """Squared Mahalanobis distances [..., n, K] of diff [..., n, K, d]
+    under lower Cholesky factors chol [..., K, d, d]: the inverse factor
+    formed once per component and applied with einsum."""
+    return whitened_norms(inverse_factor(chol), diff)
 
 
 def _stick_breaking_terms(nk, gamma0):

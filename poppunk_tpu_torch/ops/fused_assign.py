@@ -19,6 +19,11 @@ the host, as the reference's does. The ``edges`` post serves the session
 in network mode: every pair classified by the model's own post, and per
 query only its within-strain pairs leave the device, compacted row by row
 (``_post_edges``).
+
+A caller that classifies many tiles with one model places its spec once
+(``post_spec_on``), which factors a BGMM's covariances on that device; a
+spec of the raw parameters factors them on every call, with the same
+numbers.
 """
 
 import numpy as np
@@ -57,10 +62,15 @@ def _post_boundary(dists, params, static):
 
 def _post_bgmm(dists, params, static):
     """Component argmax of the weighted Gaussian log-likelihood, int8 of
-    shape dists.shape[:-1] (reference _post_bgmm)."""
-    from ..models.bgmm import log_likelihood
+    shape dists.shape[:-1] (reference _post_bgmm). ``params`` is the
+    mixture factored once (``post_spec_on``) or its raw (weights, means,
+    covariances, scale), factored here on every call."""
+    from ..models.bgmm import (MixtureFactor, component_log_probs,
+                               factor_mixture)
 
-    _, lpr = log_likelihood(dists.reshape(-1, 2), *params)
+    if not isinstance(params, MixtureFactor):
+        params = factor_mixture(*params)
+    lpr = component_log_probs(dists.reshape(-1, 2), params)
     return lpr.argmax(dim=1).to(torch.int8).reshape(dists.shape[:-1])
 
 
@@ -211,16 +221,31 @@ def edges_post_spec(model, slope=None):
     return ("edges", (name, static, int(model.within_label)), params)
 
 
+def _on(params, device):
+    """The parameters on ``device``, a factored mixture kept as one."""
+    moved = (p.to(device) for p in params)
+    return params._make(moved) if hasattr(params, "_make") else tuple(moved)
+
+
 def post_spec_on(post_spec, device):
-    """The spec with its parameters on ``device`` (a resident session moves
-    them once; ``apply_post`` then finds them there)."""
+    """The spec with its parameters on ``device``, for a caller that
+    classifies many tiles there (``apply_post`` then finds them in place).
+    A BGMM classifier's covariances are factored here, once: factoring
+    checks its result, which on a card waits for the queued work, so a
+    post that factored on every tile would hold the host until the tile's
+    distances were computed."""
+    from ..models.bgmm import factor_mixture
+
     name, static, params = post_spec
-    return name, static, tuple(p.to(device) for p in params)
+    params = _on(params, device)
+    classifier = static[0] if name == "edges" else name
+    if classifier.removesuffix("_stable") == "bgmm":
+        params = factor_mixture(*params)
+    return name, static, params
 
 
 def apply_post(dists, post_spec):
     """Classify a [..., 2] distance tile; the parameters follow the tile
     to its device."""
     name, static, params = post_spec
-    params = tuple(p.to(dists.device) for p in params)
-    return POST_FNS[name](dists, params, static)
+    return POST_FNS[name](dists, _on(params, dists.device), static)

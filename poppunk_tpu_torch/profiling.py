@@ -95,7 +95,12 @@ The spans:
                                        (dists.pack_planes), its padding,
                                        upload and fused enqueue; rows (the
                                        padded bucket), pairs (bucket x
-                                       references)
+                                       references), follows (1 on every
+                                       dispatch after a request's first),
+                                       ahead (1 when the request's previous
+                                       dispatch had not completed on the
+                                       card once this bucket was packed;
+                                       0 on the CPU)
     serve.upload                       a bucket's planes, lengths and
                                        frequencies to the device, one
                                        copy out of that buffer; bytes

@@ -8,7 +8,9 @@ small requests (the BeeBOP web flow assigns per upload).
 
 - the reference planes, lengths and base frequencies are read, packed
   (under ``KERNEL_CHOICE == "packed"``, packed lanes too) and put on the
-  device at construction, as are the model's post parameters;
+  device at construction, as are the model's post parameters (a BGMM's
+  covariances factored there once, so no dispatch waits on the host for
+  a factor: ``_enqueue`` returns as soon as its work is queued);
 - the fitted model's classifier runs in the distance pass (ops/
   fused_assign), so the |Q| x |R| tile never leaves the device;
 - a request goes in buckets of at most ``chunk`` queries, each padded to
@@ -44,13 +46,16 @@ references, dispatches; in network mode also edges, the within-strain
 query x reference pairs, novel, the queries with none, and qq_pairs, the
 query pairs classified); per dispatch ``serve.dispatch`` (rows = the
 padded bucket, pairs = bucket x references: the packing, the padding,
-the upload and the enqueue) holding ``dists.pack_planes`` (sketches, the
-bucket's queries; staged, the bytes packed into page-locked memory, 0 on
-the CPU) and ``serve.upload`` (bytes moved from the host, 0 on the CPU);
-per dispatch's result ``serve.attach`` (queries: the host's lookup of
-each answer) holding ``serve.fetch_wait`` (the wait for the result's
-copy) and, in network mode, ``serve.edges`` (edges; bytes fetched from
-the card, 0 on the CPU). In network mode ``serve.qq`` (pairs) holds the
+the upload and the enqueue; follows, 1 on every dispatch after a
+request's first; ahead, 1 when the request's previous dispatch had not
+completed on the card once this bucket was packed, always 0 on the CPU)
+holding ``dists.pack_planes`` (sketches, the bucket's queries; staged,
+the bytes packed into page-locked memory, 0 on the CPU) and
+``serve.upload`` (bytes moved from the host, 0 on the CPU); per
+dispatch's result ``serve.attach`` (queries: the host's lookup of each
+answer) holding ``serve.fetch_wait`` (the wait for the result's copy)
+and, in network mode, ``serve.edges`` (edges; bytes fetched from the
+card, 0 on the CPU). In network mode ``serve.qq`` (pairs) holds the
 query pairs' dispatches and ``serve.network`` (queries, components,
 merges, new) the attach to the network and the naming.
 
@@ -184,14 +189,18 @@ class AssignSession:
         it (``_enqueue``)."""
         return self._enqueue(*self._upload(sketches, bucket))
 
-    def _upload(self, sketches, bucket):
+    def _upload(self, sketches, bucket, behind=None, dispatch=None):
         """The device operands of ``sketches`` padded to ``bucket`` rows:
         packed straight into the next of two reused host buffers
         (page-locked on a card), the pad rows zeroed (lengths 1), the
         buffer's first ``bucket`` rows uploaded in one asynchronous copy
         (a copy of them on the CPU, so the operands outlive the buffer's
         reuse). Before a buffer is refilled the host waits for the event
-        recorded after its last upload alone, never the stream."""
+        recorded after its last upload alone, never the stream. With
+        recording on, ``dispatch`` (the open ``serve.dispatch`` span) counts
+        ``ahead`` 1 if ``behind``, the event after the request's previous
+        dispatch, has not completed once the bucket is packed: the pack ran
+        while the card still had work."""
         on_card = self.device.type == "cuda"
         if self._buffers is None:
             self._buffers = _staging(self.chunk * self._query_bytes, 2,
@@ -208,6 +217,8 @@ class AssignSession:
         planes[n:].zero_()
         lengths[n:] = 1
         freqs[n:].zero_()
+        if behind is not None and profiling.recording():
+            dispatch.add(ahead=int(not behind.query()))
         nbytes = bucket * self._query_bytes
         with profiling.span("serve.upload", bytes=nbytes if on_card else 0):
             if on_card:
@@ -317,8 +328,12 @@ class AssignSession:
                 while bucket < n:
                     bucket *= 2
                 with profiling.span("serve.dispatch", rows=bucket,
-                                    pairs=bucket * n_refs):
-                    ops = self._upload(sketches[start:start + n], bucket)
+                                    pairs=bucket * n_refs,
+                                    follows=int(pending is not None),
+                                    ahead=0) as sp:
+                    ops = self._upload(
+                        sketches[start:start + n], bucket,
+                        None if pending is None else pending[0][1], sp)
                     head, cols = self._enqueue(*ops)
                     fetched = self._fetch_async(head)
                 if kept is not None:  # the query pairs' operands

@@ -7,7 +7,10 @@ references; the hold-outs plus the novel strain 3 as queries) with the
 JAX package's refine, BGMM and DBSCAN fits: the port's session must give
 the port's ``--stable`` CLI answers and the JAX package's AssignSession
 answers, on core and accessory. Each ``*_stable`` post equals its JAX twin
-bit for bit on seeded tiles, one of them with tied minima. The session
+bit for bit on seeded tiles, one of them with tied minima; on the same
+tiles each BGMM post placed once by ``post_spec_on`` (the mixture factored
+there) equals the raw spec's, and the likelihood split into its factor and
+its per-row step equals the one function it was. The session
 warms 10 buckets at chunk 512, refuses a query of the wrong geometry and a
 lineage model, and takes both forms of ``assign_files``, with and without
 the spawn pool. A ``cuda``-marked test holds the session on the card to
@@ -159,6 +162,80 @@ def test_stable_posts_equal_the_jax_posts(name, ties):
             if ties:
                 assert (nn == 1).all()
             assert set(got.numpy()[:, 1]) <= {0, 1}
+
+
+# the posts that classify by a BGMM, with their statics
+BGMM_POSTS = {"bgmm": [()],
+              "bgmm_stable": post_params()["bgmm_stable"][0],
+              "edges": [("bgmm", (), w) for w in (0, 1)]}
+
+
+def _outputs(result):
+    return result if isinstance(result, tuple) else (result,)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("name", sorted(BGMM_POSTS))
+def test_factored_bgmm_posts_equal_the_raw_posts(name, ties):
+    """A spec placed by ``post_spec_on`` carries the mixture factored once;
+    its classes equal, bit for bit, those of the raw four-tuple spec, which
+    factors on every call (``edges``: the head and the compacted
+    columns)."""
+    from poppunk_tpu_torch.models.bgmm import MixtureFactor
+
+    params = tuple(torch.as_tensor(p)
+                   for p in post_params()["bgmm_stable"][1])
+    for seed in range(3):
+        d = torch.from_numpy(tiles(seed, ties=ties))
+        for static in BGMM_POSTS[name]:
+            raw = (name, static, params)
+            placed = torch_fused.post_spec_on(raw, CPU)
+            assert isinstance(placed[2], MixtureFactor)
+            want = _outputs(torch_fused.apply_post(d, raw))
+            assert all(torch.equal(a, b) for a, b in zip(
+                _outputs(torch_fused.POST_FNS[name](d, params, static)),
+                want))
+            got = _outputs(torch_fused.apply_post(d, placed))
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a.numpy(), b.numpy(),
+                                              err_msg=f"{static}")
+
+
+def _log_likelihood_before_the_split(X, weights, means, covariances, scale):
+    """models/bgmm.log_likelihood as one function, as it was before the
+    factor was split out of it."""
+    import math
+
+    X = X / scale
+    chol = torch.linalg.cholesky(covariances)
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    d = X.shape[1]
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                         upper=False)
+    y = torch.einsum("...kij,...nkj->...nki", linv,
+                     X[:, None, :] - means[None, :, :])
+    maha = (y ** 2).sum(-1)
+    log_prob = -0.5 * (maha + d * math.log(2 * math.pi) + logdet[None, :])
+    lpr = log_prob + torch.log(weights)[None, :]
+    return torch.logsumexp(lpr, dim=1), lpr
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_the_split_likelihood_is_bit_equal(ties):
+    from poppunk_tpu_torch.models.bgmm import GaussianMixture
+
+    params = tuple(torch.as_tensor(p)
+                   for p in post_params()["bgmm_stable"][1])
+    mixture = GaussianMixture(*params)
+    for seed in range(3):
+        X = torch.from_numpy(tiles(seed, ties=ties)).reshape(-1, 2)
+        got = mixture.log_likelihood(X)
+        want = _log_likelihood_before_the_split(X, *params)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("model", ["refine", "bgmm", "dbscan"])

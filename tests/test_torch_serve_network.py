@@ -17,10 +17,14 @@ tie in size, broken by the first vertex), no novel query, a single
 query, and one larger than the session's chunk of 8. The session answers
 as the CLI does, bit for bit, and as the plain reference does; its
 answers are the same with span recording on and off, and the spans'
-counts add up. On the port's CLI-written databases of the conftest
-population, BGMM, refine, threshold and DBSCAN fits answer as the CLI
-does too. On a card (tests marked ``cuda``), dispatches whose queries
-have no within-strain reference answer as on the CPU.
+counts add up. Once the session is open nothing it runs factors the
+BGMM's covariances (torch.linalg's factoring calls made to raise), and
+each dispatch counts whether it follows another of its request. On the
+port's CLI-written databases of the conftest population, BGMM, refine,
+threshold and DBSCAN fits answer as the CLI does too. On a card (tests
+marked ``cuda``), dispatches whose queries have no within-strain
+reference answer as on the CPU, and a dispatch's upload and enqueue
+queue their work without a host synchronisation.
 """
 
 import csv
@@ -42,7 +46,7 @@ from poppunk_tpu_torch.network.clusters import print_clusters
 from poppunk_tpu_torch.network.construct import \
     construct_network_from_assignments
 from poppunk_tpu_torch.network.graph import Graph, save_network
-from poppunk_tpu_torch.ops.distances import query_db
+from poppunk_tpu_torch.ops.distances import pack_planes, query_db
 from poppunk_tpu_torch.ops.fused_assign import model_post_spec
 from poppunk_tpu_torch.serve import AssignSession
 from poppunk_tpu_torch.synth import synthetic_population_device
@@ -285,6 +289,43 @@ def test_recording_changes_no_answer_and_spans_add_up(netdb, monkeypatch):
     s.assign_sketches([t.queries[j] for j in requests(t)["no_novel"]])
 
 
+@pytest.mark.parametrize("size", [1, 33, 70])
+def test_no_dispatch_factors_the_covariances(netdb, size, monkeypatch):
+    """Once the session is open neither its dispatches nor its query-pair
+    chunks factor the covariances: with torch.linalg's factoring calls
+    made to raise, requests in ragged buckets of a chunk of 32 answer as
+    the plain reference; each serve.dispatch counts follows 0 on a
+    request's first bucket and 1 after it, and ahead 0 on the CPU."""
+    t = netdb
+    idx = list(np.random.default_rng(size).choice(len(t.pool), size,
+                                                  replace=False))
+    want, unsure, _ = reference(t, idx)
+    assert not unsure  # the comparison is exact here
+    s = session(t, chunk=32)
+    for name in ("cholesky", "cholesky_ex", "solve_triangular"):
+        monkeypatch.setattr(torch.linalg, name, refuse_factor)
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.clear()
+    try:
+        got = s.assign_sketches([t.queries[j] for j in idx])
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    assert [got[t.queries[j].name] for j in idx] == want
+    dispatch = sorted((x for x in spans if x.name == "serve.dispatch"),
+                      key=lambda x: x.start)
+    assert len(dispatch) == -(-size // 32)
+    assert [x.counts["follows"] for x in dispatch] == \
+        [0] + [1] * (len(dispatch) - 1)
+    assert {x.counts["ahead"] for x in dispatch} == {0}
+    if size > 1:  # the query pairs were classified too
+        assert any(x.name == "serve.qq" for x in spans)
+
+
+def refuse_factor(*args, **kwargs):
+    raise AssertionError("a dispatch factored the covariances")
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -319,6 +360,33 @@ def test_card_answers_dispatches_with_no_within_strain_pair(netdb, card,
     nearest = [t.names.index(got[s.name][1]) for s in request]
     assert np.all(d[np.arange(len(idx)), nearest, 0]
                   - d[..., 0].min(1) <= 1e-5)
+
+
+@pytest.mark.cuda
+def test_the_enqueue_waits_for_nothing_on_the_card(netdb, card):
+    """On a card a network-mode bucket's upload and fused dispatch (every
+    pair classified, the within-strain pairs compacted) queue their work
+    without one host synchronisation (torch's sync debug mode set to
+    raise), and the dispatch's head equals the synchronous route's."""
+    t = netdb
+    s = AssignSession(t.db, stable=None, use_full_network=True, chunk=512,
+                      device=card)
+    s.warmup()
+    request = t.queries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        head, cols = s._enqueue(*s._upload(request, 512))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cols is not None
+    planes, lengths, freqs = pack_planes(request, s.kmers)
+    n, pad = len(request), 512 - len(request)
+    want = s._dispatch(np.pad(planes, ((0, pad),) + ((0, 0),) * 3),
+                       np.pad(lengths, (0, pad), constant_values=1),
+                       np.pad(freqs, ((0, pad), (0, 0))))
+    np.testing.assert_array_equal(head.cpu().numpy(), want)
+    assert want[:n, 1].sum() > 0
 
 
 def test_stable_none_needs_the_network(netdb, tmp_path):

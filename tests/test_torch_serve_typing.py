@@ -13,12 +13,16 @@ genomes, one strain among them wholly (absent from the references, so
 nearest reference) in requests of 1, 7, 33 and 70 queries against a chunk
 of 32 (ragged buckets); its default return is the clusters alone, as the
 JAX package's session gives them; answers are the same with span recording
-on and off; and each ``serve.*`` span carries its counters. At the
+on and off; and each ``serve.*`` span carries its counters. Once the
+session is open no dispatch factors the BGMM's covariances (torch.linalg's
+factoring calls made to raise), and each dispatch counts whether it
+follows another of its request. At the
 default chunk of 512, requests of 1 to 1,100 queries packed bucket by
 bucket into the session's reused buffers answer bit for bit as the whole
 request packed into numpy and padded by ``np.pad`` did, a small request
-after larger ones included; a ``cuda``-marked test checks the page-locked
-route's counters on the card.
+after larger ones included; ``cuda``-marked tests check the page-locked
+route's counters on the card, and that a dispatch's upload and enqueue
+queue their work without a host synchronisation.
 """
 
 import dataclasses
@@ -111,14 +115,10 @@ def session(db):
     return AssignSession(db, stable="core", chunk=CHUNK, device=CPU)
 
 
-@pytest.mark.parametrize("size", [1, 7, 33, 70])
-def test_session_answers_as_the_reference(typing, size):
-    db, queries, (answer, nearest, unsure), dists, _ = typing
-    s = session(db)
-    assert s.r_names == [f"ref{i:05d}" for i in range(N_REF)]
-    pick = np.random.default_rng(size).choice(len(queries), size,
-                                              replace=False)
-    got = s.assign_sketches([queries[i] for i in pick], with_nearest=True)
+def held_to_the_reference(s, typing, pick, got):
+    """The answers ``got`` of the queries ``pick`` against the plain
+    reference's."""
+    _, queries, (answer, nearest, unsure), dists, _ = typing
     assert sorted(got) == sorted(queries[i].name for i in pick)
     for i in pick:
         cluster, ref = got[queries[i].name]
@@ -130,6 +130,54 @@ def test_session_answers_as_the_reference(typing, size):
             assert cluster == answer[i]
             assert chosen == nearest[i]
     assert unsure.sum() <= len(unsure) // 8  # the comparison has teeth
+
+
+@pytest.mark.parametrize("size", [1, 7, 33, 70])
+def test_session_answers_as_the_reference(typing, size):
+    db, queries, _, _, _ = typing
+    s = session(db)
+    assert s.r_names == [f"ref{i:05d}" for i in range(N_REF)]
+    pick = np.random.default_rng(size).choice(len(queries), size,
+                                              replace=False)
+    got = s.assign_sketches([queries[i] for i in pick], with_nearest=True)
+    held_to_the_reference(s, typing, pick, got)
+
+
+def refuse_factors(monkeypatch):
+    """Make every factoring call of torch.linalg raise."""
+    def refused(*args, **kwargs):
+        raise AssertionError("a dispatch factored the covariances")
+    for name in ("cholesky", "cholesky_ex", "solve_triangular"):
+        monkeypatch.setattr(torch.linalg, name, refused)
+
+
+@pytest.mark.parametrize("size", [1, 33, 70])
+def test_no_dispatch_factors_the_covariances(typing, size, monkeypatch):
+    """Once the session is open its dispatches factor nothing: with
+    torch.linalg's factoring calls made to raise, requests in ragged
+    buckets answer as the reference; each serve.dispatch counts follows 0
+    on a request's first bucket and 1 after it, and ahead 0 on the
+    CPU."""
+    db, queries, _, _, _ = typing
+    s = session(db)
+    refuse_factors(monkeypatch)
+    pick = np.random.default_rng(size).choice(len(queries), size,
+                                              replace=False)
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.clear()
+    try:
+        got = s.assign_sketches([queries[i] for i in pick],
+                                with_nearest=True)
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    held_to_the_reference(s, typing, pick, got)
+    dispatch = sorted((x for x in spans if x.name == "serve.dispatch"),
+                      key=lambda x: x.start)
+    assert len(dispatch) == -(-size // CHUNK)
+    assert [x.counts["follows"] for x in dispatch] == \
+        [0] + [1] * (len(dispatch) - 1)
+    assert {x.counts["ahead"] for x in dispatch} == {0}
 
 
 def test_an_absent_strain_is_na(typing):
@@ -303,3 +351,25 @@ def test_staged_buckets_on_the_card(typing, requests_1100, monkeypatch):
     assert [x.counts["bytes"] for x in spans if x.name == "serve.upload"] \
         == [b * (row + 4 + 16) for b in (512, 512, 128)]
     assert got == _old_assembly(card, requests_1100)
+
+
+@pytest.mark.cuda
+def test_the_enqueue_waits_for_nothing_on_the_card(typing, requests_1100):
+    """On a card a bucket's upload and fused dispatch queue their work
+    without one host synchronisation (torch's sync debug mode set to
+    raise), and the dispatch's head equals the synchronous route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card = AssignSession(typing[0], stable="core",
+                         device=torch.device("cuda", 0))
+    card.warmup()
+    request = requests_1100[:512]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        head, cols = card._enqueue(*card._upload(request, 512))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cols is None
+    want = card._dispatch(*pack_planes(request, card.kmers))
+    np.testing.assert_array_equal(head.cpu().numpy(), want)
